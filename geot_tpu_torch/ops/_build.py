@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/*.cu`` expose ``extern "C"`` launchers and include no PyTorch
+header, so one ``nvcc`` command builds them into one shared library in
+seconds; ``ctypes`` loads it. The library's file name carries a hash of the
+sources and flags, so a stale build is never loaded, and the build writes a
+temporary file and renames it into place, so no lock file is ever needed.
+The build runs at first use, from the wrapper that first launches a kernel.
+
+Launch counts: each kernel wrapper adds one to ``LAUNCHES[name]`` where it
+launches its kernel and nowhere else, so a run can show that its main path
+went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCES = (_PKG / "csrc" / "fps.cu", _PKG / "csrc" / "knn_small_k.cu")
+BUILD_DIR = _PKG / "_build"
+# --fmad=false: the plain versions and the JAX reference round dx*dx,
+# dy*dy, dz*dz and each sum separately; a contracted FMA changes d2 in the
+# last bit and can flip an FPS argmax or a kNN tie.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+LAUNCHES = {"fps": 0, "knn_small_k": 0}
+
+_lock = threading.Lock()
+_lib = None
+_build_info: dict = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin and PATH): the CUDA kernels "
+                       "cannot be built")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libgeot_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile the library if it is not built yet.
+
+    Returns ``{"path", "seconds", "log"}``: ``seconds`` is 0 and ``log``
+    empty when an up-to-date library was already there."""
+    path = library_path()
+    if path.exists():
+        return {"path": str(path), "seconds": 0.0, "log": ""}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return {"path": str(path), "seconds": time.perf_counter() - t0,
+            "log": proc.stdout + proc.stderr}
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _build_info.update(build())
+            lib = ctypes.CDLL(_build_info["path"])
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.geot_fps.argtypes = [p, p, p, i, i, i, p]
+            lib.geot_fps.restype = i
+            lib.geot_knn_small_k.argtypes = [p, p, p, p, i, i, i, i, p]
+            lib.geot_knn_small_k.restype = i
+            _lib = lib
+    return _lib
+
+
+def build_info() -> dict:
+    """What ``library()`` built or found: path, seconds and compiler log."""
+    library()
+    return dict(_build_info)
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise on a launcher's CUDA error code, else count the launch."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{rc}")
+    LAUNCHES[name] += 1

@@ -1,0 +1,19 @@
+"""Gather and grouping by index, channels-last
+(``geot_tpu/ops/group.py:16-30``)."""
+from __future__ import annotations
+
+import torch
+
+
+def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points (B, N, C), idx (B, M) -> (B, M, C)."""
+    idx = idx.long()
+    return torch.gather(points, 1,
+                        idx[..., None].expand(-1, -1, points.shape[-1]))
+
+
+def grouping_operation(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points (B, N, C), idx (B, M, K) -> (B, M, K, C)."""
+    B, M, K = idx.shape
+    out = gather_points(points, idx.reshape(B, M * K))
+    return out.reshape(B, M, K, points.shape[-1])

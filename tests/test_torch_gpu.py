@@ -1,0 +1,100 @@
+"""The CUDA kernels against their plain versions, and the port's forward on
+the card against its CPU forward. Every test needs a CUDA device and skips
+without one.
+
+This file imports neither JAX nor ``geot_tpu``, so it runs where only
+PyTorch is installed. ``tests/conftest.py`` imports JAX, so on such a
+machine run it without the conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from geot_tpu_torch import ops
+from geot_tpu_torch.engine.predict import load_model
+
+SMALL_ARGS = {"NAME": "PointTransformer_seg_T", "trans_dim": 48, "depth": 3,
+              "num_heads": 4, "group_size": 8, "num_group": 32,
+              "encoder_dims": 32, "nclasses": 17, "drop_path_rate": 0.1,
+              "downsample_targets": [128, 64, 32], "extract_layers": [1, 2, 3]}
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _cloud(seed, shape, dup=False):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    if dup:   # exact duplicates: ties at equal distance everywhere
+        x = np.concatenate([x, x[:, :shape[1] // 2], x[:, :shape[1] // 5]],
+                           axis=1)
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@pytest.mark.parametrize("B,N,npoint,dup", [(1, 2000, 512, False),
+                                             (2, 16000, 1024, False),
+                                             (1, 20000, 256, False),
+                                             (1, 100, 64, False),
+                                             (1, 300, 400, False),
+                                             (2, 1000, 600, True)])
+def test_fps_kernel_matches_plain(cuda, B, N, npoint, dup):
+    xyz = _cloud(0, (B, N, 3), dup).to(cuda)
+    n0 = ops.LAUNCHES["fps"]
+    got = ops.fps(xyz, npoint)
+    assert ops.LAUNCHES["fps"] == n0 + 1
+    torch.testing.assert_close(got, ops.fps_ref(xyz, npoint), rtol=0, atol=0)
+    assert torch.all(got[:, 0] == 0)
+
+
+@pytest.mark.parametrize("Q,N,k,dup", [(300, 450, 3, False),
+                                       (130, 200, 1, False),
+                                       (5000, 4100, 4, False),
+                                       (48, 64, 2, True),
+                                       (4096, 2048, 4, True)])
+def test_knn_kernel_matches_plain(cuda, Q, N, k, dup):
+    s = _cloud(1, (2, N, 3), dup).to(cuda)
+    q = torch.cat([s[:, :Q // 2], _cloud(2, (2, Q - Q // 2, 3)).to(cuda)],
+                  dim=1).contiguous()          # half the queries are supports
+    n0 = ops.LAUNCHES["knn_small_k"]
+    d, i = ops.knn_small_k(q, s, k)
+    assert ops.LAUNCHES["knn_small_k"] == n0 + 1
+    d_r, i_r = ops.knn_small_k_ref(q, s, k)
+    torch.testing.assert_close(i, i_r, rtol=0, atol=0)
+    torch.testing.assert_close(d, d_r, rtol=0, atol=0)
+
+
+def test_knn_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 200, 3), device=cuda)
+    with pytest.raises(ValueError):
+        ops.knn_small_k(q, q, 5)
+    with pytest.raises(ValueError):
+        ops.knn_small_k(q.double(), q.double(), 3)
+    with pytest.raises(ValueError):
+        ops.knn_small_k(q, q.cpu(), 3)
+    with pytest.raises(ValueError):
+        ops.fps(q[:, ::2], 8)                   # not contiguous
+    with pytest.raises(ValueError):
+        ops.fps(q.double(), 8)
+
+
+def test_forward_on_the_card_matches_the_cpu(cuda):
+    cpu = load_model(SMALL_ARGS, seed=1, device="cpu")
+    gpu = load_model(SMALL_ARGS, seed=1, device=cuda)
+    pts = _cloud(3, (2, 256, 3))
+    n0 = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        a = cpu(pts)[0]
+        b = gpu(pts.to(cuda))[0].cpu()
+    assert ops.LAUNCHES["fps"] == n0["fps"] + 1
+    assert ops.LAUNCHES["knn_small_k"] > n0["knn_small_k"]
+    assert (a - b).abs().max().item() <= 1e-3
+    assert (a.argmax(-1) == b.argmax(-1)).float().mean().item() >= 0.999
