@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Drive geot_tpu_torch's serving path on one CUDA card and check it.
+"""Drive geot_tpu_torch's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
 Phases, each printed with the seconds elapsed when it starts:
 1. device: the card's name and power limit; TF32 off.
-2. build: the CUDA kernels, compiled with nvcc from ``geot_tpu_torch/csrc``.
+2. build: the CUDA kernels, one nvcc per source from
+   ``geot_tpu_torch/csrc``, all started together.
 3. kernels: each kernel against its plain PyTorch version at the shapes the
-   serving path gives it, plus a case with duplicated points (ties): FPS
-   indices and kNN indices equal, kNN squared distances bit-equal. Times
-   from CUDA events after a warm-up.
+   paths give it, plus cases with duplicated points (ties): FPS indices and
+   kNN indices equal, kNN squared distances bit-equal. The bucket-pruned
+   kernels (``fps_bucket``, ``knn_small_k_pruned``; on no path, as in
+   ``geot_tpu``) are also held bit for bit against the unpruned kernels, at
+   the training FPS shape too, with the share of work they skip. Times from
+   CUDA events after a warm-up.
 4. serving: the flagship ``WholePartSeg`` at full width with seeded random
    weights serves 3 synthetic scans of 40,000 points through
    ``predict_scan``; the launch counters must show 1 FPS and 8 small-k kNN
@@ -17,20 +22,32 @@ Phases, each printed with the seconds elapsed when it starts:
    card's forward agrees with the same model's CPU forward.
 5. http: 3 ``POST /predict`` requests with ``.npy`` bodies through
    ``engine.serve`` on 127.0.0.1.
+6. train: the flagship FixMatch + NTM recipe at full width (batch 2 + 2 + 2
+   of 16,000 points) from seeded weights on the synthetic loaders: the
+   ``cal_mean_feature`` bootstrap over 2 labelled batches (1 FPS + 7 small-k
+   kNN launches each), then 3 ``semi_step`` calls with the teacher (2 FPS +
+   14 small-k kNN each). Losses finite, ``ema_t`` rows sum to 1, weights
+   move. Then one step from the same state and batch (1 + 1 + 1 clouds,
+   dropout off) on the card and on the CPU, in float32 and in float64:
+   loss terms within 1e-4 relative; per-tensor gradients within 1e-3 of
+   the tensor's largest in float64 (5e-2 in float32, where batch-statistics
+   BatchNorm amplifies rounding).
 Then the ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; without a CUDA device it exits 1 at once.
 
     python3 chip_smoke.py --profile
 
-adds, after phase 4, a ``torch.profiler`` trace of 3 more scans: device
-time by kernel and the device's busy share of the wall time.
+adds, after phase 6, a ``torch.profiler`` trace of 3 served scans and 2
+train steps: device time by kernel and the device's busy share of the wall
+time.
 """
 from __future__ import annotations
 
 import faulthandler
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -220,7 +237,89 @@ def phase_kernels(bound: Bound):
         f"{knn_rec['plain_ms']:.2f} ms, bound {knn_rec['bound_ms']:.4f} ms")
     fps_rec["max_abs_err"] = float(fps_err)
     knn_rec["max_abs_err"] = knn_err
-    return fps_rec, knn_rec
+
+    # the bucket-pruned kernels: equal to their plain versions AND to the
+    # unpruned kernels, at the serving and training FPS shapes and the
+    # serving search shapes; same bound as the unpruned kernel
+    pos6 = torch.cat([pos2] + [
+        torch.from_numpy(_scan_sample(s)[1])[None].to(dev)
+        for s in (13, 14, 15, 16)]).contiguous()
+    fpsb_rec = {}
+    for label, xyz, npoint in (("(1,16000,3)->8192", pos, 8192),
+                               ("(6,16000,3)->8192", pos6, 8192),
+                               ("ties (1,5200,3)->2048", dup, 2048)):
+        skipped = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = ops.fps_bucket(xyz, npoint, skipped=skipped)
+        ref = ops.fps_bucket_ref(xyz, npoint)
+        unpruned = ops.fps(xyz, npoint)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"fps_bucket {label}: indices differ "
+              f"from fps_bucket_ref at {int((got != ref).sum())} places")
+        check(torch.equal(got, unpruned), f"fps_bucket {label}: indices "
+              f"differ from fps at {int((got != unpruned).sum())} places")
+        B, N, _ = xyz.shape
+        share = int(skipped) / (B * -(-N // 1024) * (npoint - 1))
+        msg = (f"fps_bucket {label}: indices bit-equal to fps_bucket_ref "
+               f"and fps; buckets skipped {100 * share:.1f} %")
+        if label.startswith(("(1,", "(6,")):
+            plan = ops.fps_bucket_plan(xyz)
+            ms = cuda_ms(lambda: ops.fps_bucket(xyz, npoint), 10)
+            kern_ms = cuda_ms(lambda: ops.fps_bucket(xyz, npoint, plan=plan),
+                              10)
+            unpruned_ms = cuda_ms(lambda: ops.fps(xyz, npoint), 10)
+            b_ms, b_by = bound(9.0 * B * (npoint - 1) * N,
+                               B * N * 12 + B * npoint * 4)
+            msg += (f"; wrapper {ms:.3f} ms (kernel alone {kern_ms:.3f} ms), "
+                    f"fps {unpruned_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+            if label.startswith("(1,"):
+                fpsb_rec = {"ms": ms, "kernel_ms": kern_ms,
+                            "plain_ms": fps_rec["plain_ms"],
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "skip_share": share, "max_abs_err": 0.0}
+        log(msg)
+
+    knnp_rec = {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0,
+                "bound_ms": knn_rec["bound_ms"],
+                "bound_by": knn_rec["bound_by"], "max_abs_err": 0.0}
+    n_skip = n_pairs = 0
+    for label, q, s, k in path_shapes + (("ties", c4096, ties, 4),):
+        skipped = torch.zeros(1, dtype=torch.int64, device=dev)
+        d, i = ops.knn_small_k_pruned(q, s, k, skipped=skipped)
+        d_r, i_r = ops.knn_small_k_pruned_ref(q, s, k)
+        d_u, i_u = ops.knn_small_k(q, s, k)
+        torch.cuda.synchronize()
+        shape = f"({q.shape[1]},{s.shape[1]},{k})"
+        for name, dd, ii in (("knn_small_k_pruned_ref", d_r, i_r),
+                             ("knn_small_k", d_u, i_u)):
+            check(torch.equal(i, ii), f"knn_small_k_pruned {label} {shape}: "
+                  f"idx differ from {name} at {int((i != ii).sum())} places")
+            check(torch.equal(d, dd), f"knn_small_k_pruned {label} {shape}: "
+                  f"d2 not bit-equal to {name}")
+        pairs = -(-q.shape[1] // 256) * -(-s.shape[1] // 1024)
+        msg = (f"knn_small_k_pruned {label} {shape}: idx equal, d2 "
+               f"bit-equal to the plain version and knn_small_k; chunks "
+               f"skipped {int(skipped)}/{pairs}")
+        if label != "ties":
+            n_skip += int(skipped)
+            n_pairs += pairs
+            plan = ops.knn_pruned_plan(q, s)
+            ms = cuda_ms(lambda: ops.knn_small_k_pruned(q, s, k), 10)
+            kern_ms = cuda_ms(lambda: ops.knn_small_k_pruned(q, s, k,
+                                                             plan=plan), 10)
+            plain_ms = cuda_ms(lambda: ops.knn_small_k_pruned_ref(q, s, k), 2)
+            knnp_rec["ms"] += ms
+            knnp_rec["kernel_ms"] += kern_ms
+            knnp_rec["plain_ms"] += plain_ms
+            msg += (f"; wrapper {ms:.3f} ms (kernel alone {kern_ms:.3f} ms), "
+                    f"plain {plain_ms:.2f} ms")
+        log(msg)
+    knnp_rec["skip_share"] = n_skip / n_pairs
+    log(f"knn_small_k_pruned over the 8 searches of a scan: wrapper "
+        f"{knnp_rec['ms']:.3f} ms (kernel alone {knnp_rec['kernel_ms']:.3f} "
+        f"ms), knn_small_k {knn_rec['ms']:.3f} ms, bound "
+        f"{knnp_rec['bound_ms']:.4f} ms; chunks skipped "
+        f"{100 * knnp_rec['skip_share']:.1f} %")
+    return fps_rec, knn_rec, fpsb_rec, knnp_rec
 
 
 def _fdi_ok(labels, jaw: int) -> bool:
@@ -257,7 +356,8 @@ def phase_serving():
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
         grew = {k: ops.LAUNCHES[k] - before[k] for k in before}
-        check(grew == {"fps": 1, "knn_small_k": 8},
+        check(grew == {"fps": 1, "knn_small_k": 8, "fps_bucket": 0,
+                       "knn_small_k_pruned": 0},
               f"scan {n}: kernel launches {grew}, expected 1 fps + 8 knn")
         check(logits.shape == (16000, 17) and bool(torch.isfinite(logits).all()),
               f"scan {n}: logits {tuple(logits.shape)} not finite/shaped")
@@ -289,22 +389,19 @@ def phase_serving():
     return scans, results, launches, lat, peak_mb
 
 
-def phase_profile(scans):
-    """Device time by kernel over 3 scans, and the device's busy share."""
+def _profile(label: str, fn, reps: int) -> None:
+    """Device time by kernel over ``reps`` calls of ``fn`` after a warm-up,
+    and the device's busy share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from geot_tpu_torch.engine.predict import load_model, predict_scan
-
-    log("phase 4b: profile")
-    model = load_model(seed=0, device="cuda")
-    predict_scan(model, scans[0])
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for pts in scans:
-            predict_scan(model, pts)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     # kernels only: operator rows repeat the time of the kernels they launch
@@ -312,12 +409,31 @@ def phase_profile(scans):
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in rows)
-    log(f"3 scans: wall {wall_us / 1e3:.2f} ms, device busy "
+    log(f"{label} x {reps}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %), idle "
         f"{100 * (1 - busy_us / wall_us):.1f} %")
     for e in rows[:15]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  "
             f"{e.key[:90]}")
+
+
+def phase_profile(scans, train):
+    """``--profile``: where the time of a served scan and of a train step
+    goes on the device."""
+    from geot_tpu_torch.data.build import MODEL_KEYS, SEMI_KEYS, to_device
+    from geot_tpu_torch.engine.predict import load_model, predict_scan
+    from geot_tpu_torch.engine.steps import make_semi_step
+    from geot_tpu_torch import FLAGSHIP_SEMI_CFG
+
+    log("phase 7: profile")
+    model = load_model(seed=0, device="cuda")
+    it = iter(scans * 2)
+    _profile("served scan", lambda: predict_scan(model, next(it)), 3)
+    state, (bl, bu) = train["state"], train["pairs"][0]
+    bl = to_device(bl, MODEL_KEYS, "cuda")
+    bu = to_device(bu, SEMI_KEYS, "cuda")
+    step = make_semi_step(FLAGSHIP_SEMI_CFG)
+    _profile("train step", lambda: step(state, bl, bu, 1e-3, True), 2)
 
 
 def phase_http(scans, results):
@@ -356,6 +472,191 @@ def phase_http(scans, results):
         httpd.server_close()
 
 
+# biases that feed a batch-statistics BatchNorm: their gradient is zero in
+# exact arithmetic, so only its size is checked
+_ZERO_GRAD = ("segmentor.encoder.first_conv.0.bias",
+              "segmentor.encoder.first_conv.3.bias",
+              "segmentor.encoder.second_conv.0.bias",
+              "segmentor.seg_head.0.bias")
+
+
+def _adam_grads(state):
+    """name -> the first AdamW moment after one step (0.1 x the clipped
+    gradient), on the host."""
+    out = {}
+    for name, p in list(state.model.named_parameters()) + list(
+            state.t_predictor.named_parameters()):
+        opt = state.t_opt if name.startswith("T_predictor.") else state.opt
+        out[name] = opt.state[p]["exp_avg"].detach().double().cpu()
+    return out
+
+
+def phase_train():
+    """The flagship semi-supervised step at full width: returns the
+    per-step launch counts and numbers for the kernels line."""
+
+    import torch
+
+    from geot_tpu_torch import FLAGSHIP_SEG_ARGS, FLAGSHIP_SEMI_CFG, ops
+    from geot_tpu_torch.data.build import (MODEL_KEYS, SEMI_KEYS,
+                                           build_semi_loaders, semi_pairs,
+                                           to_device)
+    from geot_tpu_torch.engine.state import SemiTrainState
+    from geot_tpu_torch.engine.steps import make_cm_step, make_semi_step
+    from geot_tpu_torch.engine.train import cal_mean_feature
+    from geot_tpu_torch.optim import build_scheduler_from_cfg
+
+    log("phase 6: train (flagship FixMatch + NTM step, full width)")
+    dev = torch.device("cuda")
+    cfg = FLAGSHIP_SEMI_CFG
+    C = cfg["num_classes"]
+    t = time.perf_counter()
+    state = SemiTrainState.create(cfg, seed=0, device=dev)
+    loader_l, loader_u = build_semi_loaders(cfg)
+    epoch = 1
+    for loader in (loader_l, loader_u):
+        loader.set_epoch(epoch)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"state built in {time.perf_counter() - t:.1f} s: student "
+        f"{n_params} parameters, batch {cfg['batch_size_l']} + "
+        f"{cfg['batch_size_u']} + {cfg['batch_size_u']}, "
+        f"{cfg['num_points']} points")
+
+    # cm bootstrap over 2 labelled batches, counted per batch
+    cm_step = make_cm_step()
+    counted = []
+
+    def counting_step(model, batch):
+        ops.reset_launches()
+        out = cm_step(model, batch)
+        counted.append(dict(ops.LAUNCHES))
+        return out
+
+    pairs = list(semi_pairs(loader_l, loader_u, limit=3))
+    t = time.perf_counter()
+    state.cm = cal_mean_feature(counting_step, state.model,
+                                [b for b, _ in pairs[:2]], C, dev)
+    torch.cuda.synchronize()
+    log(f"cal_mean_feature over 2 batches: {time.perf_counter() - t:.2f} s; "
+        f"launches per batch {counted}")
+    for c in counted:
+        check(c == {"fps": 1, "knn_small_k": 7, "fps_bucket": 0,
+                    "knn_small_k_pruned": 0},
+              f"cm batch launches {c}, expected 1 fps + 7 knn_small_k")
+    check(bool(torch.isfinite(state.cm).all()), "cm not finite")
+
+    step = make_semi_step(cfg)
+    lr = build_scheduler_from_cfg(cfg)(epoch)
+    use_teacher = cfg["supervised_epochs"] < epoch <= cfg["switch_ep"]
+    check(use_teacher, "epoch 1 of the flagship runs the teacher")
+    before = {k: v.detach().clone()
+              for k, v in state.model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, per_step = [], []
+    for n, (bl, bu) in enumerate(pairs):
+        bl = to_device(bl, MODEL_KEYS, dev)
+        bu = to_device(bu, SEMI_KEYS, dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        m = step(state, bl, bu, lr, use_teacher)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append(dict(ops.LAUNCHES))
+        terms = {k: float(m[k]) for k in ("loss", "sup_loss", "unsup_loss",
+                                          "threed_loss")}
+        log(f"step {n}: {step_ms[-1]:.1f} ms; " + ", ".join(
+            f"{k} {v:.6f}" for k, v in terms.items())
+            + f"; teacher_acc {float(m['teacher_acc']):.4f}; launches "
+            f"{per_step[-1]}")
+        check(all(math.isfinite(v) for v in terms.values()),
+              f"step {n}: a loss is not finite: {terms}")
+        check(per_step[-1] == {"fps": 2, "knn_small_k": 14, "fps_bucket": 0,
+                               "knn_small_k_pruned": 0},
+              f"step {n}: launches {per_step[-1]}, expected 2 fps + 14 "
+              f"knn_small_k")
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    rows = state.ema_t.sum(dim=1)
+    check(bool(torch.allclose(rows, torch.ones_like(rows), atol=1e-5)),
+          f"ema_t rows do not sum to 1: {rows.tolist()}")
+    changed = sum(not torch.equal(before[k], v)
+                  for k, v in state.model.named_parameters())
+    check(changed > 0.9 * len(before), f"only {changed}/{len(before)} "
+          f"parameter tensors changed")
+    check(state.step == 3, "step counter")
+    log(f"3 steps: {', '.join(f'{x:.1f}' for x in step_ms)} ms; peak memory "
+        f"{peak_mb:.0f} MiB; {changed}/{len(before)} parameter tensors "
+        f"changed; ema_t rows sum to 1")
+
+    # card vs CPU: one step from the same state and batch, 1 + 1 + 1
+    # clouds, stochastic depth and dropout off; in float32, and in float64
+    # (the model and step in float64 around the float32 kernels), where
+    # rounding no longer hides what the two paths compute
+    cfg1 = dict(cfg, batch_size_l=1, batch_size_u=1)
+    seg = dict(FLAGSHIP_SEG_ARGS, drop_path_rate=0.0, head_dropout=0.0)
+    l1, u1 = build_semi_loaders(cfg1)
+    for loader in (l1, u1):
+        loader.set_epoch(epoch)
+    bl, bu = next(semi_pairs(l1, u1, limit=1))
+    compare = {}
+    # float32 gradients through batch-statistics BatchNorm differ by up to
+    # ~1e-2 of a tensor's scale between two summation orders (PERF.md); the
+    # float32 bound only guards against gross errors, float64 holds 1e-3
+    for dt, grad_tol in ((torch.float32, 5e-2), (torch.float64, 1e-3)):
+        res = {}
+        for name in ("cuda", "cpu"):
+            st = SemiTrainState.create(cfg1, seg_args=seg, seed=1,
+                                       device=name)
+            for mod in (st.model, st.teacher, st.t_predictor):
+                mod.to(dt)
+            st.ema_t = st.ema_t.to(dt)
+            st.cm = state.cm.to(name, dt)
+            batches = [{k: (v.to(dt) if v.is_floating_point() else v)
+                        for k, v in to_device(b, keys, name).items()}
+                       for b, keys in ((bl, MODEL_KEYS), (bu, SEMI_KEYS))]
+            t = time.perf_counter()
+            m = make_semi_step(cfg1)(st, *batches, lr, True)
+            if name == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            res[name] = ({k: float(m[k]) for k in (
+                "loss", "sup_loss", "unsup_loss", "threed_loss")},
+                _adam_grads(st), st.ema_t.double().cpu())
+            log(f"one {str(dt)[6:]} step, 1 + 1 + 1 clouds, on the {name}: "
+                f"{secs:.1f} s; losses {res[name][0]}")
+        (lg, gg, eg), (lc, gc, ec) = res["cuda"], res["cpu"]
+        rel = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lg}
+        gmax = max(float(v.abs().max()) for v in gc.values())
+        errs = {}
+        for k, ref in gc.items():
+            if k in _ZERO_GRAD:
+                check(float(gg[k].abs().max()) <= 1e-4 * gmax
+                      and float(ref.abs().max()) <= 1e-4 * gmax,
+                      f"{k}: gradient should vanish")
+                continue
+            scale = float(ref.abs().max())
+            errs[k] = (float((gg[k] - ref).abs().max()) / scale if scale > 0
+                       else float(gg[k].abs().max()))
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+        ema_diff = float((eg - ec).abs().max())
+        log(f"card vs CPU {str(dt)[6:]} step: loss terms relative "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+            + "; per-tensor gradient max |d| / max |g|: worst "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst)
+            + f" ({len(errs)} tensors); ema_t max |d| {ema_diff:.2e}")
+        check(all(v <= 1e-4 for v in rel.values()),
+              f"card vs CPU {dt} loss terms differ: {rel}")
+        check(worst[0][1] <= grad_tol,
+              f"card vs CPU {dt} gradients differ: {worst}")
+        check(ema_diff <= 1e-6, f"card vs CPU {dt} ema_t differ")
+        compare[str(dt)[6:]] = {"loss_rel": max(rel.values()),
+                                "grad_rel": worst[0][1]}
+    return {"step_ms": step_ms, "peak_mb": peak_mb, "per_step": per_step,
+            "compare": compare,
+            "cm_batches": counted, "state": state, "pairs": pairs}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1100, exit=True)
     name, smi, limit_w = phase_device()
@@ -363,20 +664,35 @@ def main() -> int:
     import torch
 
     phase_build()
-    fps_rec, knn_rec = phase_kernels(Bound(limit_w))
-    scans, results, launches, _, _ = phase_serving()
-    if "--profile" in sys.argv[1:]:
-        phase_profile(scans)
+    fps_rec, knn_rec, fpsb_rec, knnp_rec = phase_kernels(Bound(limit_w))
+    scans, results, serving, _, _ = phase_serving()
     phase_http(scans, results)
+    train = phase_train()
+    if "--profile" in sys.argv[1:]:
+        phase_profile(scans, train)
+    # launches on the two main paths: 3 served scans, and the train run
+    # (2 cm batches + 3 steps); the pruned kernels are on neither path
+    trained = {k: sum(c[k] for c in train["cm_batches"] + train["per_step"])
+               for k in serving}
+    per_step = train["per_step"][0]
+    log(f"launches: serving {serving}, training {trained}")
+
+    def entry(name, src, replaces, rec):
+        return {"name": name, "route": "cuda",
+                "source": f"geot_tpu_torch/csrc/{src}", "replaces": replaces,
+                "launches": serving[name] + trained[name],
+                "launches_serving_3_scans": serving[name],
+                "launches_train_step": per_step[name],
+                "library_ms": None, **rec}
+
     kernels = [
-        {"name": "fps", "route": "cuda",
-         "source": "geot_tpu_torch/csrc/fps.cu",
-         "replaces": "geot_tpu/ops/pallas_fps.py:231",
-         "launches": launches["fps"], "library_ms": None, **fps_rec},
-        {"name": "knn_small_k", "route": "cuda",
-         "source": "geot_tpu_torch/csrc/knn_small_k.cu",
-         "replaces": "geot_tpu/ops/pallas_knn.py:98",
-         "launches": launches["knn_small_k"], "library_ms": None, **knn_rec},
+        entry("fps", "fps.cu", "geot_tpu/ops/pallas_fps.py:231", fps_rec),
+        entry("knn_small_k", "knn_small_k.cu",
+              "geot_tpu/ops/pallas_knn.py:98", knn_rec),
+        entry("fps_bucket", "fps_bucket.cu",
+              "geot_tpu/ops/pallas_fps.py:181", fpsb_rec),
+        entry("knn_small_k_pruned", "knn_small_k_pruned.cu",
+              "geot_tpu/ops/pallas_knn_pruned.py:104", knnp_rec),
     ]
     log("done")
     print(smi, flush=True)

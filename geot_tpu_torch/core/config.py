@@ -1,8 +1,11 @@
-"""Device choice, the flagship model arguments and the model registry.
+"""Device choice, the flagship model and training arguments, and the model
+registry.
 
-The flagship arguments are a plain dict copy of ``model.segmentor_args`` in
-``cfgs/tooth_semi/transformer_finetune_fixmatch_ntm.yaml``, so the serving
-path reads no YAML.
+``FLAGSHIP_SEG_ARGS`` is a plain dict copy of ``model.segmentor_args`` in
+``cfgs/tooth_semi/transformer_finetune_fixmatch_ntm.yaml``, and
+``FLAGSHIP_SEMI_CFG`` of the keys the semi-supervised step and loop read,
+from that file merged over ``cfgs/tooth_semi/default.yaml``: the card's
+machine has no YAML reader.
 """
 from __future__ import annotations
 
@@ -24,6 +27,56 @@ FLAGSHIP_SEG_ARGS: Dict[str, Any] = {
     "drop_path_rate": 0.1,
     "downsample_targets": [8192, 4096, 2048],
     "extract_layers": [4, 8, 12],
+}
+
+
+FLAGSHIP_SEMI_CFG: Dict[str, Any] = {
+    "num_classes": 17,
+    "num_points": 16000,
+    "seed": 1609,
+    "epochs": 300,
+    "lr": 0.001,
+    "optimizer": {"NAME": "adamw", "weight_decay": 1.0e-4},
+    "sched": "multistep",
+    "decay_epochs": [220],
+    "decay_rate": 0.1,
+    "warmup_epochs": 0,
+    "grad_norm_clip": 1,
+    "criterion_args": {"NAME": "Poly1FocalLoss"},
+    "criterion_u_args": {"NAME": "Poly1FocalLoss_U_corr"},
+    "threshold": 0.0,
+    "unsupervised_loss_weight": 1.0,
+    "lambma": 0.9,
+    "geo_lambma": 0.999,
+    "ema_t_decay": 0.999,
+    "filter_outlier": False,
+    "use_3d_loss": True,
+    "threed_loss_weight": 0.1,
+    "threed_k": 32,
+    "threed_sigma": 1.0,
+    "batch_size_l": 2,
+    "batch_size_u": 2,
+    "switch_ep": 50,
+    "supervised_epochs": 0,
+    "t_predictor": {"NAME": "Ins_T_mean",
+                    "T_args": {"NAME": "sig_t_mean", "nclasses": 17}},
+    "datatransforms": {
+        "train": ["PointsToTensor", "PointCloudScaling",
+                  "PointCloudCenterAndNormalize"],
+        "train_w": ["PointsToTensor", "PointCloudCenterAndNormalize"],
+        "train_s": ["PointsToTensor", "PointCloudScaling_s",
+                    "PointCloudCenterAndNormalize", "PointCloudRotation_s",
+                    "PointCloudTranslation_s"],
+        "val": ["PointsToTensor", "PointCloudCenterAndNormalize"],
+        "test": ["PointsToTensor", "PointCloudCenterAndNormalize"],
+        "vote": ["PointCloudScaling"],
+        "kwargs": {"jitter_sigma": 0.001, "jitter_clip": 0.005,
+                   "scale": [0.9, 1.1], "gravity_dim": 1,
+                   "shift": [0.1, 0.1, 0.1], "angle": [0.5, 0.5, 0.5],
+                   "jitter_sigma_s": 0.001, "jitter_clip_s": 0.005,
+                   "scale_s": [0.8, 1.2], "shift_s": [0.2, 0.2, 0.2],
+                   "angle_s": [1, 1, 1]},
+    },
 }
 
 

@@ -1,10 +1,15 @@
-"""Teeth3DS helpers that serving needs: the FDI label map, unit-sphere
-normalisation and the deterministic synthetic scan.
+"""Teeth3DS data: the FDI label map, unit-sphere normalisation, the
+deterministic synthetic scan, and the semi-supervised datasets.
 
-Copies of ``geot_tpu/data/tooth_semi.py:26-62`` (numpy only), kept here so
-the port does not import the JAX package.
+Copies of ``geot_tpu/data/tooth_semi.py`` and ``data/data_util.py:7``
+(numpy only), kept here so the port does not import the JAX package. The
+datasets produce the synthetic scans that ``geot_tpu`` falls back to when
+``data_root`` does not exist; reading a Teeth3DS directory (OBJ meshes and
+JSON labels) is not ported, and a ``data_root`` that exists raises.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -45,3 +50,119 @@ def _synthetic_scan(seed: int, n_points: int = 40000):
         clouds.append(rng.normal(0, 0.2, (rest, 3)))
         labels.append(np.zeros(rest, dtype=np.int32))
     return (np.concatenate(clouds).astype(np.float32), np.concatenate(labels))
+
+
+class EpochSeededRNG:
+    """Per-``(seed, epoch, idx)`` item generator
+    (``geot_tpu/data/data_util.py:7``): the loader's ``set_epoch`` bumps
+    ``epoch``, so augmentations vary by epoch and stay deterministic."""
+
+    seed = 0
+    epoch = 0
+
+    def _rng(self, idx: int) -> np.random.Generator:
+        return np.random.default_rng((self.seed, self.epoch, idx))
+
+
+class _TeethBase(EpochSeededRNG):
+    def __init__(self, data_root: str, num_points: int, split: str,
+                 synthetic_len: int = 24, seed: int = 0, **kwargs):
+        if data_root and os.path.isdir(data_root):
+            raise NotImplementedError(
+                f"reading Teeth3DS from {data_root!r} is not ported; the "
+                f"port's datasets produce synthetic scans only")
+        self.data_root = data_root
+        self.num_points = num_points
+        self.split = split
+        self.num_classes = 17
+        self.seed = seed
+        self.epoch = 0
+        self.synthetic = True
+        self.file_list = [{"location": i % 2, "mesh_id": f"synthetic{i:04d}",
+                           "file_path": f"synthetic{i:04d}", "seed": 1000 + i}
+                          for i in range(synthetic_len)]
+
+    def __len__(self):
+        return len(self.file_list)
+
+    def _load(self, sample):
+        return _synthetic_scan(sample["seed"])
+
+    def _sample(self, points_norm, labels, rng):
+        n = len(points_norm)
+        sel = rng.choice(n, self.num_points, replace=n < self.num_points)
+        return (points_norm[sel].astype(np.float32),
+                labels[sel].astype(np.int64))
+
+    @staticmethod
+    def _class_weights(labels):
+        """Per-sample class histogram fractions."""
+        hist = np.bincount(labels, minlength=17)[:17].astype(np.float32)
+        total = hist.sum()
+        return hist / total if total > 0 else hist
+
+
+class TeethSegSemiLDataset(_TeethBase):
+    """Labelled split (``geot_tpu/data/tooth_semi.py:126``): 24 synthetic
+    scans, as train samples (the val/test fields of the full-resolution
+    scan belong to the eval loop, which is not ported)."""
+
+    def __init__(self, data_root="", num_points=16000, split="train",
+                 transform=None, **kwargs):
+        super().__init__(data_root, num_points, split, **kwargs)
+        self.transform = transform
+
+    def __getitem__(self, idx):
+        sample = self.file_list[idx]
+        rng = self._rng(idx)
+        points, labels = self._load(sample)
+        points_norm, _, _ = pc_norm(points)
+        spts, slab = self._sample(points_norm, labels, rng)
+        data = {"pos": spts,
+                "cls": np.asarray([sample["location"]], dtype=np.int64),
+                "y": slab}
+        data["x"] = data["pos"]
+        data["class_weights"] = self._class_weights(slab)
+        if self.transform is not None:
+            data = self.transform(data, rng)
+        return data
+
+
+class TeethSegSemiUDataset(_TeethBase):
+    """Unlabelled split (``geot_tpu/data/tooth_semi.py:163``): 48 synthetic
+    scans, each as a weak (``*_w``) and a strong (``*_s``) view of one
+    sample, plus the untransformed ``raw_pos``."""
+
+    def __init__(self, data_root="", num_points=16000, split="train",
+                 transform_w=None, transform_s=None, **kwargs):
+        super().__init__(data_root, num_points, split, synthetic_len=48,
+                         **kwargs)
+        self.transform_w = transform_w
+        self.transform_s = transform_s
+
+    def __getitem__(self, idx):
+        sample = self.file_list[idx]
+        rng = self._rng(idx)
+        points, labels = self._load(sample)
+        points_norm, _, _ = pc_norm(points)
+        spts, slab = self._sample(points_norm, labels, rng)
+        base = {"pos": spts,
+                "cls": np.asarray([sample["location"]], dtype=np.int64),
+                "y": slab}
+        base["x"] = base["pos"]
+        base["class_weights"] = self._class_weights(slab)
+        data = dict(base)
+        d_w = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+               for k, v in base.items()}
+        d_s = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+               for k, v in base.items()}
+        if self.transform_w is not None:
+            d_w = self.transform_w(d_w, rng)
+        if self.transform_s is not None:
+            d_s = self.transform_s(d_s, rng)
+        for k, v in d_w.items():
+            data[k + "_w"] = v
+        for k, v in d_s.items():
+            data[k + "_s"] = v
+        data["raw_pos"] = spts
+        return data

@@ -1,8 +1,12 @@
-"""Weights from ``geot_tpu`` to the port.
+"""Weights and train state from ``geot_tpu`` to the port.
 
 ``params_from_jax`` takes the JAX package's ``{"params", "batch_stats"}``
 tree of a ``WholePartSeg`` (nested dicts of numpy arrays; no JAX needed)
-and returns the port's ``state_dict``. Dense kernels (in, out) become
+and returns the port's ``state_dict``, running statistics included.
+``t_params_from_jax`` does the same for the ``Ins_T_mean`` T-predictor, and
+``semi_state_from_jax`` for the parts of a ``SemiTrainState`` that a step
+reads besides the optimizers: student, teacher, T-predictor, ``ema_t`` and
+``cm``. Dense kernels (in, out) become
 Linear weights (out, in); flax BatchNorm ``scale``/``bias`` + ``mean``/
 ``var`` become ``weight``/``bias`` + ``running_mean``/``running_var``;
 LayerNorm and GroupNorm ``scale`` becomes ``weight``.
@@ -86,3 +90,30 @@ def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             put(f"{mod}.running_var", stats_by_path[path]["var"])
             sd[f"segmentor.{mod}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def t_params_from_jax(t_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``Ins_T_mean`` params (``{"T_predictor": {"fc": (C, 2C, C)}}``) ->
+    the port's ``InsTMean`` state_dict; the layout is the same."""
+    return {"T_predictor.fc": torch.from_numpy(np.array(
+        t_params["T_predictor"]["fc"], dtype=np.float32))}
+
+
+def semi_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
+    """A ``geot_tpu`` ``SemiTrainState`` as a dict of numpy trees (keys
+    ``params``, ``batch_stats``, ``t_params``, ``teacher_params``,
+    ``teacher_batch_stats``, ``ema_t``, ``cm``) -> what
+    ``engine.state.SemiTrainState.load`` takes."""
+    def f32(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    return {
+        "model": params_from_jax({"params": state["params"],
+                                  "batch_stats": state["batch_stats"]}),
+        "teacher": params_from_jax({"params": state["teacher_params"],
+                                    "batch_stats":
+                                    state["teacher_batch_stats"]}),
+        "t_predictor": t_params_from_jax(state["t_params"]),
+        "ema_t": f32(state["ema_t"]),
+        "cm": f32(state["cm"]),
+    }

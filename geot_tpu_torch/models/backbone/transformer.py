@@ -1,9 +1,16 @@
-"""Point Transformer seg backbone, the GeoT flagship, eval forward.
+"""Point Transformer seg backbone, the GeoT flagship, and its instance
+transition-matrix predictor ``SigTMean``.
 
 Counterpart of ``geot_tpu/models/backbone/transformer.py:33-469``
 (``_PointTransformerSegBase`` with ``with_T=True`` and
-``fast_pyramid=False``). Submodules and parameters carry the names of the
-reference torch state_dict (``encoder.first_conv.0``, ``blocks.blocks.{i}``,
+``fast_pyramid=False``) and ``:651`` (``SigTMean``). In training mode
+(``module.train()``) BatchNorm uses batch statistics and updates its
+running ones as flax does, and stochastic depth (rate ``drop_path_rate *
+i / (depth - 1)`` in block i) and the seg head's dropout draw their masks
+from the ``generator`` passed to ``forward``.
+
+Submodules and parameters carry the names of the reference torch
+state_dict (``encoder.first_conv.0``, ``blocks.blocks.{i}``,
 ``propogation_{j}.mlp.layer{i}.conv``, ``dgcnn_pro_{j}.layer1.0``,
 ``seg_head.{0,1,3}``, ``T_linear``, ...), so
 ``geot_tpu.engine.checkpoint.convert_torch_seg_t`` reads a state_dict of
@@ -22,8 +29,10 @@ from torch import nn
 import torch.nn.functional as F
 
 from ...core.config import register_model
-from ...ops import fps_gather, grouping_operation, knn, three_interpolation
-from ..layers import BatchNorm, DropPath, GroupNorm, MlpBlock, SharedMLP
+from ...ops import (fps, gather_points, grouping_operation, knn,
+                   three_interpolation)
+from ..layers import (BatchNorm, DropPath, Dropout, GroupNorm, MlpBlock,
+                      SharedMLP)
 
 
 class MiniPointNetEncoder(nn.Module):
@@ -83,9 +92,10 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = MlpBlock(dim, 4 * dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop_path(self.attn(self.norm1(x)))
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + self.drop_path(self.attn(self.norm1(x)), generator)
+        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
 
 
 class TransformerStack(nn.Module):
@@ -102,10 +112,11 @@ class TransformerStack(nn.Module):
                                     for i in range(depth))
         self.extract_layers = tuple(extract_layers)
 
-    def forward(self, x: torch.Tensor, pos: torch.Tensor):
+    def forward(self, x: torch.Tensor, pos: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         taps = []
         for i, block in enumerate(self.blocks):
-            x = block(x + pos)
+            x = block(x + pos, generator)
             if i + 1 in self.extract_layers:
                 taps.append(x)
         return taps
@@ -164,14 +175,17 @@ class DGCNNPropagation(nn.Module):
 @register_model("PointTransformer_seg_T")
 class PointTransformerSegT(nn.Module):
     """The GeoT flagship segmentor. ``forward`` returns
-    ``(logit (B, N, C), correction, sigma, f_l0 (B, N, D))``."""
+    ``(logit (B, N, C), correction, sigma, f_l0 (B, N, D))``.
+    ``head_dropout`` is the seg head's dropout rate (0.5 as in the
+    reference; ``geot_tpu``'s argument of the same name)."""
 
     def __init__(self, trans_dim: int = 384, depth: int = 12,
                  drop_path_rate: float = 0.1, nclasses: int = 17,
                  num_heads: int = 4, group_size: int = 32,
                  num_group: int = 512, encoder_dims: int = 256,
                  downsample_targets: Sequence[int] = (8192, 4096, 2048),
-                 extract_layers: Sequence[int] = (4, 8, 12)):
+                 extract_layers: Sequence[int] = (4, 8, 12),
+                 head_dropout: float = 0.5):
         super().__init__()
         D = trans_dim
         self.num_group = num_group
@@ -190,7 +204,7 @@ class PointTransformerSegT(nn.Module):
         self.dgcnn_pro_1 = DGCNNPropagation(D, k=4)
         self.dgcnn_pro_2 = DGCNNPropagation(D, k=4)
         self.seg_head = nn.Sequential(nn.Linear(D, 128), BatchNorm(128),
-                                      nn.Dropout(0.5),
+                                      Dropout(head_dropout),
                                       nn.Linear(128, nclasses))
         # T_revision is in the reference checkpoint but unused in forward
         self.T_revision = nn.Linear(nclasses, nclasses, bias=False)
@@ -201,20 +215,22 @@ class PointTransformerSegT(nn.Module):
 
     def forward(self, pts: torch.Tensor, x: Optional[torch.Tensor] = None,
                 cls_label: Optional[torch.Tensor] = None,
-                T: Optional[torch.Tensor] = None):
+                T: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         B, N, _ = pts.shape
-        pts = pts.float().contiguous()
+        pts = pts.contiguous()
         # the tokenizer centers and the decoder pyramid are prefixes of ONE
         # FPS run (greedy selections are incremental)
         max_n = max(max(self.downsample_targets), self.num_group)
-        fps_pts = fps_gather(pts, max_n)
+        # the FPS kernel reads float32 coordinates whatever the model's dtype
+        fps_pts = gather_points(pts, fps(pts.float().contiguous(), max_n))
         center = fps_pts[:, :self.num_group]
         _, knn_idx = knn(center, pts, self.group_size)
         neighborhood = grouping_operation(pts, knn_idx) - center[:, :, None, :]
         tokens = self.encoder(neighborhood)
         if self.reduce_dim is not None:
             tokens = self.reduce_dim(tokens)
-        taps = self.blocks(tokens, self.pos_embed(center))
+        taps = self.blocks(tokens, self.pos_embed(center), generator)
         taps = [self.norm(t) for t in taps]
 
         # jaw one-hot (mandible/maxillary) broadcast to every point
@@ -230,7 +246,43 @@ class PointTransformerSegT(nn.Module):
         f_l2 = self.dgcnn_pro_2(center, f_l3, c[1], f_l2)
         f_l1 = self.dgcnn_pro_1(c[1], f_l2, c[0], f_l1)
         f_l0 = self.propogation_0(pts, c[0], f_l0_in, f_l1)
-        logit = self.seg_head(f_l0).float()
+        head = self.seg_head
+        logit = head[3](head[2](head[1](head[0](f_l0)), generator))
+        # logits in at least float32 (geot_tpu casts to float32, for bf16)
+        logit = logit.to(torch.promote_types(logit.dtype, torch.float32))
 
         correction = self.T_linear(T) if T is not None else None
         return logit, correction, self.sigma, f_l0
+
+
+@register_model("sig_t_mean")
+class SigTMean(nn.Module):
+    """Instance-dependent transition matrix predictor
+    (``geot_tpu/models/backbone/transformer.py:651``): per class k a
+    Linear(2C -> C) over [softmax(x); cm[k]], clipped to [1e-5, 1 - 1e-5]
+    and row-normalised. ``fc`` is the flax layout (C, 2C, C): class, input,
+    output."""
+
+    def __init__(self, nclasses: int = 17):
+        super().__init__()
+        C = nclasses
+        self.nclasses = C
+        self.fc = nn.Parameter(torch.empty(C, 2 * C, C))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Per-class xavier-uniform (fan_in 2C, fan_out C), as geot_tpu's
+        ``variance_scaling`` with ``batch_axis=0``."""
+        bound = (6.0 / (3 * self.nclasses)) ** 0.5
+        with torch.no_grad():
+            self.fc.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor, cm: torch.Tensor) -> torch.Tensor:
+        """x (B, N, C) softmax, cm (C, C) -> (B*N, C, C)."""
+        C = self.nclasses
+        out = x.reshape(-1, C).to(self.fc.dtype)
+        w1, w2 = self.fc[:, :C, :], self.fc[:, C:, :]
+        data = torch.einsum("mc,kcd->mkd", out, w1)
+        const = torch.einsum("kc,kcd->kd", cm, w2)
+        ins_t = (data + const[None]).clamp(1e-5, 1 - 1e-5)
+        return ins_t / ins_t.sum(dim=2, keepdim=True)

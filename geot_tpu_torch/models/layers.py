@@ -3,11 +3,12 @@
 
 Pointwise ``Conv1d``/``Conv2d`` of the reference are ``nn.Linear`` on the
 last axis. Normalisations take channels-last input too. Dropout and
-DropPath are identity at eval.
+DropPath are identity at eval and take their masks from an explicit
+``torch.Generator`` in training.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -15,11 +16,28 @@ import torch.nn.functional as F
 
 
 class BatchNorm(nn.BatchNorm1d):
-    """BatchNorm over the last axis of a (..., C) tensor; eps 1e-5."""
+    """BatchNorm over the last axis of a (..., C) tensor; eps 1e-5.
+
+    Training mode normalises with the batch's biased variance and updates
+    the running statistics as flax ``nn.BatchNorm(momentum=0.9)`` does
+    (``geot_tpu/models/layers/common.py:59-69``): ``running = 0.9 * running
+    + 0.1 * batch`` with the BIASED batch variance, where torch's own
+    ``BatchNorm1d`` would take the unbiased one. Eval mode is torch's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
-        return super().forward(x.reshape(-1, shape[-1])).reshape(shape)
+        x2 = x.reshape(-1, shape[-1])
+        if not self.training:
+            return super().forward(x2).reshape(shape)
+        mean = x2.mean(dim=0)
+        var = ((x2 * x2).mean(dim=0) - mean * mean).clamp_min(0.0)
+        y = (x2 - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+            self.num_batches_tracked += 1
+        return y.reshape(shape)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -36,19 +54,42 @@ class GroupNorm(nn.GroupNorm):
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth; identity at eval."""
+    """Per-sample stochastic depth (``common.py:DropPath``); identity at
+    eval. Masks come from ``generator`` (torch's default generator when it
+    is None)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
-        keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, dtype=x.dtype, device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return _keep_mask(x, (x.shape[0],) + (1,) * (x.dim() - 1),
+                          1.0 - self.rate, generator)
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout (flax ``nn.Dropout``); identity at eval. Masks
+    come from ``generator`` (torch's default generator when it is None)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        return _keep_mask(x, x.shape, 1.0 - self.rate, generator)
+
+
+def _keep_mask(x, shape, keep, generator):
+    """Keep with probability ``keep`` and scale by 1 / keep, as flax does."""
+    mask = torch.rand(shape, dtype=x.dtype, device=x.device,
+                      generator=generator) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class MlpBlock(nn.Module):

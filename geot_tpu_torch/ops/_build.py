@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 ``csrc/*.cu`` expose ``extern "C"`` launchers and include no PyTorch
-header, so one ``nvcc`` command builds them into one shared library in
-seconds; ``ctypes`` loads it. The library's file name carries a hash of the
-sources and flags, so a stale build is never loaded, and the build writes a
-temporary file and renames it into place, so no lock file is ever needed.
+header, so ``nvcc`` builds each in seconds: one ``nvcc -c`` per source, all
+started together, then one link into a shared library that ``ctypes``
+loads. The library's file name carries a hash of the sources and flags, so
+a stale build is never loaded; objects go to a directory of the process's
+own and the library is renamed into place, so no lock file is ever needed.
 The build runs at first use, from the wrapper that first launches a kernel.
 
 Launch counts: each kernel wrapper adds one to ``LAUNCHES[name]`` where it
@@ -23,16 +24,17 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "fps.cu", _PKG / "csrc" / "knn_small_k.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in (
+    "fps.cu", "knn_small_k.cu", "fps_bucket.cu", "knn_small_k_pruned.cu"))
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: the plain versions and the JAX reference round dx*dx,
 # dy*dy, dz*dz and each sum separately; a contracted FMA changes d2 in the
 # last bit and can flip an FPS argmax or a kNN tie.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"fps": 0, "knn_small_k": 0}
+LAUNCHES = {"fps": 0, "knn_small_k": 0, "fps_bucket": 0,
+            "knn_small_k_pruned": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -74,20 +76,44 @@ def build() -> dict:
         return {"path": str(path), "seconds": 0.0, "log": ""}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tmp_dir = BUILD_DIR / f"{path.stem}.{os.getpid()}.tmp"
+    tmp_dir.mkdir(exist_ok=True)
+    tmp = tmp_dir / path.name
     t0 = time.perf_counter()
+    log = []
     try:
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = tmp_dir / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+            objs.append(str(obj))
+        failed = []
+        for cmd, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            log.append(out + err)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=600)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, path)
     finally:
-        tmp.unlink(missing_ok=True)
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return {"path": str(path), "seconds": time.perf_counter() - t0,
-            "log": proc.stdout + proc.stderr}
+            "log": "".join(log)}
 
 
 def library() -> ctypes.CDLL:
@@ -102,6 +128,11 @@ def library() -> ctypes.CDLL:
             lib.geot_fps.restype = i
             lib.geot_knn_small_k.argtypes = [p, p, p, p, i, i, i, i, p]
             lib.geot_knn_small_k.restype = i
+            lib.geot_fps_bucket.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+            lib.geot_fps_bucket.restype = i
+            lib.geot_knn_small_k_pruned.argtypes = [p, p, p, p, p, p, p, p,
+                                                    i, i, i, i, p]
+            lib.geot_knn_small_k_pruned.restype = i
             _lib = lib
     return _lib
 

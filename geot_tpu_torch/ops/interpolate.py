@@ -28,8 +28,10 @@ def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
 def three_interpolation(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
                         known_features: torch.Tensor,
                         eps: float = 1e-8) -> torch.Tensor:
-    """3-NN + inverse-distance weights + interpolate."""
+    """3-NN + inverse-distance weights + interpolate. The search runs in
+    float32; the weights in float32 or the features' dtype if wider."""
     dist, idx = three_nn(unknown_xyz, known_xyz)
+    dist = dist.to(torch.promote_types(dist.dtype, known_features.dtype))
     dist_recip = 1.0 / (dist + eps)
     norm = dist_recip.sum(dim=2, keepdim=True)
     return three_interpolate(known_features, idx, dist_recip / norm)

@@ -7,15 +7,24 @@ computes under ``GEOT_EXACT_KNN=1``.
 
 ``knn_small_k`` is the wrapper of the CUDA kernel ``csrc/knn_small_k.cu``
 (the port of ``geot_tpu/ops/pallas_knn.py:knn_small_k_pallas``);
-``knn_small_k_ref`` is its plain version.
+``knn_small_k_ref`` is its plain version. ``knn_small_k_pruned`` is the
+wrapper of ``csrc/knn_small_k_pruned.cu`` (the port of
+``geot_tpu/ops/pallas_knn_pruned.py:knn_small_k_pruned``): the same
+contract, bit for bit, over Morton-sorted query tiles and support chunks
+that are skipped when their boxes are farther apart than a tile's k-th
+best; ``knn_small_k_pruned_ref`` is its plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from .morton import spatial_sort
 
 _TILE = 2048
+# knn_small_k_pruned: sorted queries per tile, sorted supports per chunk
+PRUNED_TILE = 256
+PRUNED_CHUNK = 1024
 
 
 def pairwise_dist2(query: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
@@ -38,17 +47,31 @@ def pairwise_dist2(query: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
     return (q2 - 2.0 * cross + s2.transpose(-1, -2)).clamp_min(0.0)
 
 
+def _smallest_k(d2: torch.Tensor, k: int):
+    """The k entries of each row smallest in (value, index) order, i.e.
+    ascending with exact ties to the smaller index, as a stable sort would
+    give them. d2 must be >= 0: a non-negative float orders like its bits,
+    so ``bits << 32 | index`` is one int64 key and ``topk`` selects in
+    O(N) per row instead of sorting."""
+    bits = (d2 + 0.0).view(torch.int32).to(torch.int64)     # -0.0 -> +0.0
+    index = torch.arange(d2.shape[-1], device=d2.device)
+    top = torch.topk((bits << 32) | index, k, dim=-1, largest=False,
+                     sorted=True).values
+    d = (top >> 32).to(torch.int32).view(torch.float32)
+    return d, (top & 0xFFFFFFFF).to(torch.int32)
+
+
 def _knn_tiled(query: torch.Tensor, support: torch.Tensor, k: int,
                tile: int = _TILE):
     """Exact kNN over query tiles of ``tile`` rows, so no (Q, N) block
     larger than (tile, N) exists. Returns squared d2 (B, Q, k) and int32
-    idx (B, Q, k). A stable sort keeps equal distances in index order."""
+    idx (B, Q, k), equal distances in index order."""
     ds, ids = [], []
     for q0 in range(0, query.shape[1], tile):
-        d2 = pairwise_dist2(query[:, q0:q0 + tile], support)
-        d, i = torch.sort(d2, dim=-1, stable=True)
-        ds.append(d[..., :k])
-        ids.append(i[..., :k].to(torch.int32))
+        d, i = _smallest_k(pairwise_dist2(query[:, q0:q0 + tile], support),
+                           k)
+        ds.append(d)
+        ids.append(i)
     return torch.cat(ds, dim=1), torch.cat(ids, dim=1)
 
 
@@ -58,6 +81,27 @@ def knn_small_k_ref(query: torch.Tensor, support: torch.Tensor, k: int):
     return _knn_tiled(query.float(), support.float(), k)
 
 
+def _check_small_k(name: str, query: torch.Tensor, support: torch.Tensor,
+                   k: int) -> None:
+    """Raise on what the small-k kernels do not take."""
+    if query.device.type != "cuda" or support.device != query.device:
+        raise ValueError(f"{name}: query on {query.device} and support "
+                         f"on {support.device}; both must be on one CUDA "
+                         f"device (or both on the CPU)")
+    for arg, t in (("query", query), ("support", support)):
+        if t.dtype != torch.float32 or t.dim() != 3 or t.shape[-1] != 3:
+            raise ValueError(f"{name}: {arg} must be (B, n, 3) "
+                             f"float32, got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if support.shape[0] != query.shape[0]:
+        raise ValueError(f"{name}: batch {query.shape[0]} vs "
+                         f"{support.shape[0]}")
+    if not 1 <= k <= 4 or support.shape[1] < k:
+        raise ValueError(f"{name}: need 1 <= k <= 4 and N >= k, got "
+                         f"k={k}, N={support.shape[1]}")
+
+
 def knn_small_k(query: torch.Tensor, support: torch.Tensor, k: int):
     """Exact kNN for 1 <= k <= 4 on xyz: squared d2 and int32 idx, each
     (B, Q, k), ascending, ties to the smaller index.
@@ -65,23 +109,9 @@ def knn_small_k(query: torch.Tensor, support: torch.Tensor, k: int):
     A CUDA tensor goes to the kernel, a CPU tensor to ``knn_small_k_ref``."""
     if query.device.type == "cpu" and support.device.type == "cpu":
         return knn_small_k_ref(query, support, k)
-    if query.device.type != "cuda" or support.device != query.device:
-        raise ValueError(f"knn_small_k: query on {query.device} and support "
-                         f"on {support.device}; both must be on one CUDA "
-                         f"device (or both on the CPU)")
-    for name, t in (("query", query), ("support", support)):
-        if t.dtype != torch.float32 or t.dim() != 3 or t.shape[-1] != 3:
-            raise ValueError(f"knn_small_k: {name} must be (B, n, 3) "
-                             f"float32, got {tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"knn_small_k: {name} must be contiguous")
+    _check_small_k("knn_small_k", query, support, k)
     B, Q, _ = query.shape
     N = support.shape[1]
-    if support.shape[0] != B:
-        raise ValueError(f"knn_small_k: batch {B} vs {support.shape[0]}")
-    if not 1 <= k <= 4 or N < k:
-        raise ValueError(f"knn_small_k: need 1 <= k <= 4 and N >= k, got "
-                         f"k={k}, N={N}")
     lib = _build.library()
     d2 = torch.empty((B, Q, k), dtype=torch.float32, device=query.device)
     idx = torch.empty((B, Q, k), dtype=torch.int32, device=query.device)
@@ -90,6 +120,86 @@ def knn_small_k(query: torch.Tensor, support: torch.Tensor, k: int):
                               d2.data_ptr(), idx.data_ptr(), B, Q, N, k,
                               stream)
     _build.check_launch("knn_small_k", rc)
+    return d2, idx
+
+
+def knn_pruned_plan(query: torch.Tensor, support: torch.Tensor,
+                tq: int = PRUNED_TILE, cs: int = PRUNED_CHUNK):
+    """What ``knn_small_k_pruned``'s kernel reads, in plain PyTorch (the
+    part of ``pallas_knn_pruned.py:knn_small_k_pruned`` outside its
+    ``pallas_call``, lines 120-146): both clouds Morton-sorted; the box of
+    each tile of ``tq`` sorted queries (the last tile padded with the last
+    query) and of each chunk of ``cs`` sorted supports; per tile the chunks
+    in ascending box-to-box squared distance (a stable sort) and those
+    distances in that order.
+
+    Returns ``(sorted_q, q_order, sorted_s, s_order, visit (B, NT, NC)
+    int32, d2cb (B, NT, NC))``."""
+    B, Q, _ = query.shape
+    N = support.shape[1]
+    NT, NC = -(-Q // tq), -(-N // cs)
+    sq, qord = spatial_sort(query)
+    ss, sord = spatial_sort(support)
+    qpad = torch.cat([sq, sq[:, -1:].expand(B, NT * tq - Q, 3)], dim=1)
+    tiles = qpad.reshape(B, NT, tq, 3)
+    tmin, tmax = tiles.amin(dim=2), tiles.amax(dim=2)
+    spad = torch.nn.functional.pad(ss, (0, 0, 0, NC * cs - N), value=1e9)
+    chunks = spad.reshape(B, NC, cs, 3)
+    valid = (torch.arange(NC * cs, device=support.device) < N).reshape(
+        1, NC, cs, 1)
+    cmin = torch.where(valid, chunks, 4e9).amin(dim=2)
+    cmax = torch.where(valid, chunks, -4e9).amax(dim=2)
+    gap = torch.maximum(cmin[:, None] - tmax[:, :, None],
+                        tmin[:, :, None] - cmax[:, None]).clamp_min(0.0)
+    d2cb = (gap * gap).sum(dim=-1)                          # (B, NT, NC)
+    d2cb, visit = torch.sort(d2cb, dim=-1, stable=True)
+    return (sq.contiguous(), qord, ss.contiguous(), sord.contiguous(),
+            visit.to(torch.int32).contiguous(), d2cb.contiguous())
+
+
+def knn_small_k_pruned_ref(query: torch.Tensor, support: torch.Tensor,
+                           k: int):
+    """Plain version of the pruned kernel: its contract is exact small-k
+    kNN, so this is ``knn_small_k_ref``."""
+    return knn_small_k_ref(query, support, k)
+
+
+def knn_small_k_pruned(query: torch.Tensor, support: torch.Tensor, k: int,
+                       skipped: "torch.Tensor | None" = None, plan=None):
+    """Exact kNN for 1 <= k <= 4 on xyz, equal to ``knn_small_k``: squared
+    d2 and int32 idx, each (B, Q, k), ascending, ties to the smaller index.
+
+    A CUDA tensor goes to the kernel, a CPU tensor to
+    ``knn_small_k_pruned_ref``. ``skipped``, a one-element int64 CUDA
+    tensor, gets the number of (query tile, support chunk) pairs the kernel
+    skipped added to it. ``plan`` is ``knn_pruned_plan(query, support)`` when
+    the caller has it already."""
+    if query.device.type == "cpu" and support.device.type == "cpu":
+        return knn_small_k_pruned_ref(query, support, k)
+    _check_small_k("knn_small_k_pruned", query, support, k)
+    if skipped is not None and (skipped.dtype != torch.int64
+                                or skipped.numel() != 1
+                                or skipped.device != query.device):
+        raise ValueError("knn_small_k_pruned: skipped must be one int64 "
+                         "element on the device of query")
+    B, Q, _ = query.shape
+    N = support.shape[1]
+    lib = _build.library()
+    sq, qord, ss, sord, visit, d2cb = (knn_pruned_plan(query, support)
+                                        if plan is None else plan)
+    d2s = torch.empty((B, Q, k), dtype=torch.float32, device=query.device)
+    idxs = torch.empty((B, Q, k), dtype=torch.int32, device=query.device)
+    stream = torch.cuda.current_stream(query.device).cuda_stream
+    rc = lib.geot_knn_small_k_pruned(
+        sq.data_ptr(), ss.data_ptr(), sord.data_ptr(), visit.data_ptr(),
+        d2cb.data_ptr(), d2s.data_ptr(), idxs.data_ptr(),
+        skipped.data_ptr() if skipped is not None else None, B, Q, N, k,
+        stream)
+    _build.check_launch("knn_small_k_pruned", rc)
+    # rows back to the caller's query order
+    rows = qord.long()[..., None].expand(-1, -1, k)
+    d2 = torch.empty_like(d2s).scatter_(1, rows, d2s)
+    idx = torch.empty_like(idxs).scatter_(1, rows, idxs)
     return d2, idx
 
 

@@ -72,6 +72,45 @@ def test_knn_kernel_matches_plain(cuda, Q, N, k, dup):
     torch.testing.assert_close(d, d_r, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("B,N,npoint,dup", [(1, 16000, 8192, False),
+                                             (2, 2500, 700, False),
+                                             (1, 30000, 300, False),
+                                             (1, 100, 64, False),
+                                             (2, 1000, 600, True)])
+def test_fps_bucket_kernel_matches_plain_and_fps(cuda, B, N, npoint, dup):
+    xyz = _cloud(4, (B, N, 3), dup).to(cuda)
+    n0 = ops.LAUNCHES["fps_bucket"]
+    skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = ops.fps_bucket(xyz, npoint, skipped=skipped)
+    assert ops.LAUNCHES["fps_bucket"] == n0 + 1
+    torch.testing.assert_close(got, ops.fps_bucket_ref(xyz, npoint), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(got, ops.fps(xyz, npoint), rtol=0, atol=0)
+    nb = -(-xyz.shape[1] // 1024)
+    assert 0 <= int(skipped) <= B * nb * (npoint - 1)
+
+
+@pytest.mark.parametrize("Q,N,k,dup", [(300, 450, 3, False),
+                                       (130, 200, 1, False),
+                                       (5000, 4100, 4, False),
+                                       (16000, 8192, 3, False),
+                                       (48, 64, 2, True),
+                                       (4096, 2048, 4, True)])
+def test_knn_pruned_kernel_matches_plain_and_knn(cuda, Q, N, k, dup):
+    s = _cloud(5, (2, N, 3), dup).to(cuda)
+    q = torch.cat([s[:, :Q // 2], _cloud(6, (2, Q - Q // 2, 3)).to(cuda)],
+                  dim=1).contiguous()          # half the queries are supports
+    n0 = ops.LAUNCHES["knn_small_k_pruned"]
+    skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
+    d, i = ops.knn_small_k_pruned(q, s, k, skipped=skipped)
+    assert ops.LAUNCHES["knn_small_k_pruned"] == n0 + 1
+    for d_r, i_r in (ops.knn_small_k_pruned_ref(q, s, k),
+                     ops.knn_small_k(q, s, k)):
+        torch.testing.assert_close(i, i_r, rtol=0, atol=0)
+        torch.testing.assert_close(d, d_r, rtol=0, atol=0)
+    assert 0 <= int(skipped) <= 2 * -(-Q // 256) * -(-N // 1024)
+
+
 def test_knn_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 200, 3), device=cuda)
     with pytest.raises(ValueError):
@@ -84,6 +123,10 @@ def test_knn_kernel_rejects_what_it_does_not_take(cuda):
         ops.fps(q[:, ::2], 8)                   # not contiguous
     with pytest.raises(ValueError):
         ops.fps(q.double(), 8)
+    with pytest.raises(ValueError):
+        ops.knn_small_k_pruned(q, q, 5)
+    with pytest.raises(ValueError):
+        ops.fps_bucket(torch.zeros((1, 31 * 1024, 3), device=cuda), 8)
 
 
 def test_forward_on_the_card_matches_the_cpu(cuda):
