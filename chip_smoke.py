@@ -10,24 +10,34 @@ Phases, each printed with the seconds elapsed when it starts:
    ``geot_tpu_torch/csrc``, all started together.
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    paths give it, plus cases with duplicated points (ties): FPS indices and
-   kNN indices equal, kNN squared distances bit-equal. The bucket-pruned
-   kernels (``fps_bucket``, ``knn_small_k_pruned``; on no path, as in
-   ``geot_tpu``) are also held bit for bit against the unpruned kernels, at
-   the training FPS shape too, with the share of work they skip. Times from
-   CUDA events after a warm-up.
+   kNN indices equal, kNN squared distances bit-equal. FPS: the card's
+   cluster size per batch, the cluster exchange alone (8,191 steps of
+   block barrier, write-to-peers, synchronisation and reduction, no
+   distance work) at each cluster size, then the cluster kernel
+   (``fps_cluster``) at (1|2|6, 16000) -> 8192, ties, an odd N and an N
+   that its shape rule sends to the one-block kernel (``fps``), and both
+   kernels' times in turns. kNN: the split kernel (``knn_split``) and the
+   one-thread-per-query kernel (``knn_small_k``) against the plain version
+   and each other at the serving path's 8 searches and ties, each timed as
+   wrapper calls and kernel-only (a CUDA graph of the calls). The
+   bucket-pruned kernels (``fps_bucket``, ``knn_small_k_pruned``; on no
+   path, as in ``geot_tpu``) are also held bit for bit against the path's
+   kernels, at the training FPS shape too, with the share of work they
+   skip. Times from CUDA events after a warm-up.
 4. serving: the flagship ``WholePartSeg`` at full width with seeded random
    weights serves 3 synthetic scans of 40,000 points through
-   ``predict_scan``; the launch counters must show 1 FPS and 8 small-k kNN
-   launches per scan. Logits finite, labels FDI codes of the jaw, and the
-   card's forward agrees with the same model's CPU forward.
+   ``predict_scan``; the launch counters must show 1 ``fps_cluster`` and 8
+   ``knn_split`` launches per scan and no other. Logits finite, labels FDI
+   codes of the jaw, and the card's forward agrees with the same model's
+   CPU forward.
 5. http: 3 ``POST /predict`` requests with ``.npy`` bodies through
    ``engine.serve`` on 127.0.0.1.
 6. train: the flagship FixMatch + NTM recipe at full width (batch 2 + 2 + 2
    of 16,000 points) from seeded weights on the synthetic loaders: the
-   ``cal_mean_feature`` bootstrap over 2 labelled batches (1 FPS + 7 small-k
-   kNN launches each), then 3 ``semi_step`` calls with the teacher (2 FPS +
-   14 small-k kNN each). Losses finite, ``ema_t`` rows sum to 1, weights
-   move. Then one step from the same state and batch (1 + 1 + 1 clouds,
+   ``cal_mean_feature`` bootstrap over 2 labelled batches (1 ``fps_cluster``
+   + 7 ``knn_split`` launches each), then 3 ``semi_step`` calls with the
+   teacher (2 ``fps_cluster`` + 14 ``knn_split`` each). Losses finite,
+   ``ema_t`` rows sum to 1, weights move. Then one step from the same state and batch (1 + 1 + 1 clouds,
    dropout off) on the card and on the CPU, in float32 and in float64:
    loss terms within 1e-4 relative; per-tensor gradients within 1e-3 of
    the tensor's largest in float64 (5e-2 in float32, where batch-statistics
@@ -148,6 +158,197 @@ def _scan_sample(seed: int, num_points: int = 16000):
     return pts, np.ascontiguousarray(norm[sel]), center, scale
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` with no host time: ``reps``
+    calls captured into one CUDA graph, replayed between CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _fps_bound(bound: Bound, B: int, N: int, npoint: int):
+    return bound(9.0 * B * (npoint - 1) * N, B * N * 12 + B * npoint * 4)
+
+
+def _kernels_fps(bound: Bound, pos, pos2, pos6, dup):
+    """The cluster FPS: the card's cluster size, the exchange's per-step
+    latency at each size, indices against ``fps_ref`` (and the one-block
+    kernel), and both kernels' times in this run."""
+    import importlib
+
+    import torch
+
+    from geot_tpu_torch import ops
+
+    # the module: ``ops.fps`` is the function
+    fps_mod = importlib.import_module("geot_tpu_torch.ops.fps")
+    dev = pos.device
+    max_active = fps_mod.card_max_active(dev)
+    sizes = {B: fps_mod.card_cluster_size(dev, B) for B in (1, 2, 6)}
+    C = sizes[1]
+    log(f"fps_cluster: clusters the card runs at once by size {max_active}; "
+        f"cluster size by batch {sizes} (the largest whose B clusters run "
+        f"at once)")
+    exchange = {}
+    for c in [c for c in fps_mod.CLUSTER_SIZES[::-1] if max_active[c] > 0]:
+        won = ops.cluster_exchange(1, 8192, c, dev)
+        torch.cuda.synchronize()
+        check(bool(((won >= 0) & (won < c)).all()),
+              f"cluster_exchange C={c}: winners outside 0..{c - 1}")
+        ms = cuda_ms(lambda: ops.cluster_exchange(1, 8192, c, dev), 3)
+        exchange[f"C{c}"] = ms * 1e3 / 8191
+    log("cluster exchange alone, 8191 steps, us per step: "
+        + ", ".join(f"C = {k[1:]} {v:.3f}" for k, v in exchange.items()))
+
+    B0, N0 = 1, 16000
+    big = torch.randn((1, C * 256 * fps_mod.CLUSTER_SLOTS[-1] + 1, 3),
+                      generator=torch.Generator().manual_seed(5)).to(dev)
+    odd = pos[:, :12345].contiguous()
+    err = 0
+    for label, xyz, npoint in (("(1,16000,3)->8192", pos, 8192),
+                               ("(2,16000,3)->8192", pos2, 8192),
+                               ("(6,16000,3)->8192", pos6, 8192),
+                               ("ties (1,5200,3)->2048", dup, 2048),
+                               ("odd (1,12345,3)->3000", odd, 3000),
+                               (f"oversized (1,{big.shape[1]},3)->300", big,
+                                300)):
+        plan = ops.fps_plan(xyz.shape[1],
+                            fps_mod.card_cluster_size(dev, xyz.shape[0]))
+        before = dict(ops.LAUNCHES)
+        got = ops.fps(xyz, npoint)
+        routed = [k for k in ops.LAUNCHES if ops.LAUNCHES[k] != before[k]]
+        check(routed == [plan.route], f"fps {label}: launched {routed}, "
+              f"plan {plan}")
+        ref = ops.fps_ref(xyz, npoint)
+        block = ops.fps_block(xyz, npoint)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"fps {label}: indices differ from "
+              f"fps_ref at {int((got != ref).sum())} places")
+        err = max(err, int((got.long() - ref.long()).abs().max()))
+        check(torch.equal(block, ref), f"fps_block {label}: indices differ "
+              f"from fps_ref at {int((block != ref).sum())} places")
+        log(f"fps {label}: route {plan.route} {plan[1:]}; indices bit-equal "
+            f"to fps_ref, and so are fps_block's")
+
+    # both kernels in turns (block, cluster, block); the cluster kernel at
+    # the sizes the path takes and, where it fits, at half the B = 1 size
+    timed = [c for c in dict.fromkeys((C, sizes[6], C // 2))
+              if max_active.get(c, 0) > 0]
+    rec_new, rec_old = {}, {}
+    for label, xyz in (("(1,16000,3)->8192", pos), ("(6,16000,3)->8192",
+                                                    pos6)):
+        B = xyz.shape[0]
+        t = {"fps_block": cuda_ms(lambda: ops.fps_block(xyz, 8192), 5)}
+        for c in timed:
+            plan = ops.fps_plan(N0, c)
+            t[f"C{c}"] = cuda_ms(lambda: ops.fps_cluster(xyz, 8192, plan), 5)
+        t["fps_block again"] = cuda_ms(lambda: ops.fps_block(xyz, 8192), 5)
+        b_ms, b_by = _fps_bound(bound, B, N0, 8192)
+        log(f"fps {label}: fps_cluster "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()
+                        if k.startswith("C"))
+            + f"; fps_block (one-block kernel) {t['fps_block']:.3f} / "
+            f"{t['fps_block again']:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
+        ms = t[f"C{sizes[B]}"]
+        if B == B0:
+            plain_ms = cuda_ms(lambda: ops.fps_ref(xyz, 8192), 1)
+            rec_new = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "cluster_size": C,
+                       "ms_by_cluster_size": {k: v for k, v in t.items()
+                                              if k.startswith("C")},
+                       "exchange_us_per_step": exchange}
+            rec_old = {"ms": t["fps_block"], "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by}
+        else:
+            rec_new["ms_b6"] = ms
+            rec_old["ms_b6"] = t["fps_block"]
+    rec_new["max_abs_err"] = rec_old["max_abs_err"] = float(err)
+    return rec_new, rec_old
+
+
+def _kernels_knn(bound: Bound, path_shapes, ties_case):
+    """The split kNN against its plain version and the unsplit kernel at the
+    serving path's 8 searches and a ties case; wrapper time (host
+    included) and kernel-only time (CUDA graph) of both kernels."""
+    import torch
+
+    from geot_tpu_torch import ops
+
+    err = 0.0
+    # ms: kernel-only time; wrapper_ms: the wrapper's, host included
+    new = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    old = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    t_ops = t_bytes = 0.0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, q, s, k in path_shapes + (ties_case,):
+        d, i = ops.knn_small_k(q, s, k)
+        d_r, i_r = ops.knn_small_k_ref(q, s, k)
+        d_u, i_u = ops.knn_small_k_unsplit(q, s, k)
+        torch.cuda.synchronize()
+        B, Q, N = q.shape[0], q.shape[1], s.shape[1]
+        shape = f"({Q},{N},{k})"
+        for name, dd, ii in (("knn_small_k_ref", d_r, i_r),
+                             ("knn_small_k_unsplit", d_u, i_u)):
+            check(torch.equal(i, ii), f"knn {label} {shape}: idx differ from "
+                  f"{name} at {int((i != ii).sum())} places")
+            check(torch.equal(d, dd), f"knn {label} {shape}: d2 not "
+                  f"bit-equal to {name}, max |diff| "
+                  f"{float((d - dd).abs().max())}")
+        err = max(err, float((d - d_r).abs().max()))
+        S, split_len = ops.knn_split_plan(B, Q, N, sms)
+        if label == "ties":
+            log(f"knn ties {shape}: {S} splits; idx equal, d2 bit-equal to "
+                f"the plain version and the unsplit kernel")
+            continue
+        t = {"split": cuda_ms(lambda: ops.knn_small_k(q, s, k), 20),
+             "split_kernel": graph_ms(lambda: ops.knn_small_k(q, s, k), 20),
+             "unsplit": cuda_ms(lambda: ops.knn_small_k_unsplit(q, s, k), 20),
+             "unsplit_kernel": graph_ms(
+                 lambda: ops.knn_small_k_unsplit(q, s, k), 20),
+             "plain": cuda_ms(lambda: ops.knn_small_k_ref(q, s, k), 2)}
+        flops, nbytes = 8.0 * B * Q * N, B * ((Q + N) * 12 + Q * k * 8)
+        b_ms, b_by = bound(flops, nbytes)
+        t_ops += flops
+        t_bytes += nbytes
+        for rec, w, kern in ((new, "split", "split_kernel"),
+                             (old, "unsplit", "unsplit_kernel")):
+            rec["wrapper_ms"] += t[w]
+            rec["ms"] += t[kern]
+            rec["plain_ms"] += t["plain"]
+            rec["bound_ms"] += b_ms
+        log(f"knn {label} {shape}: {S} splits of {split_len}; idx equal, d2 "
+            f"bit-equal; split kernel {t['split_kernel']:.4f} ms (wrapper "
+            f"{t['split']:.4f}), unsplit kernel {t['unsplit_kernel']:.4f} ms "
+            f"(wrapper {t['unsplit']:.4f}), plain {t['plain']:.2f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+    for rec in (new, old):
+        rec["bound_by"] = bound(t_ops, t_bytes)[1]
+        rec["max_abs_err"] = err
+    log(f"knn per scan (8 searches): split kernel {new['ms']:.4f} ms "
+        f"(wrapper {new['wrapper_ms']:.4f}), unsplit kernel {old['ms']:.4f} ms "
+        f"(wrapper {old['wrapper_ms']:.4f}), plain {new['plain_ms']:.2f} ms, bound "
+        f"{new['bound_ms']:.4f} ms")
+    return new, old
+
+
 def phase_kernels(bound: Bound):
     import numpy as np
     import torch
@@ -161,31 +362,13 @@ def phase_kernels(bound: Bound):
     pos = torch.from_numpy(pos0)[None].to(dev)                 # (1, 16000, 3)
     pos2 = torch.cat([pos, torch.from_numpy(_scan_sample(12)[1])[None]
                       .to(dev)], dim=0)                         # (2, 16000, 3)
+    pos6 = torch.cat([pos2] + [
+        torch.from_numpy(_scan_sample(s)[1])[None].to(dev)
+        for s in (13, 14, 15, 16)]).contiguous()                # (6, 16000, 3)
     base = pos[:, :3000]
     dup = torch.cat([base, base[:, :1500], base[:, :700]], dim=1).contiguous()
 
-    fps_err = 0
-    fps_rec = {}
-    for label, xyz, npoint in (("(1,16000,3)->8192", pos, 8192),
-                               ("(2,16000,3)->8192", pos2, 8192),
-                               ("ties (1,5200,3)->2048", dup, 2048)):
-        got = ops.fps(xyz, npoint)
-        ref = ops.fps_ref(xyz, npoint)
-        torch.cuda.synchronize()
-        check(torch.equal(got, ref), f"fps {label}: indices differ from "
-              f"fps_ref at {int((got != ref).sum())} places")
-        fps_err = max(fps_err, int((got.long() - ref.long()).abs().max()))
-        if label.startswith("(1,"):
-            ms = cuda_ms(lambda: ops.fps(xyz, npoint), 10)
-            plain_ms = cuda_ms(lambda: ops.fps_ref(xyz, npoint), 1)
-            B, N, _ = xyz.shape
-            b_ms, b_by = bound(9.0 * B * (npoint - 1) * N,
-                               B * N * 12 + B * npoint * 4)
-            fps_rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                       "bound_by": b_by}
-            log(f"fps {label}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by})")
-        log(f"fps {label}: indices bit-equal")
+    fps_rec, fpsblock_rec = _kernels_fps(bound, pos, pos2, pos6, dup)
 
     # the serving path's small-k searches, on the points it gives them
     fps_pts = ops.gather_points(pos, ops.fps(pos, 8192))
@@ -203,47 +386,12 @@ def phase_kernels(bound: Bound):
                    ("propagation_0 three_nn", pos, c8192, 3),
                    ("upsample three_nn", full, world, 3))
     ties = torch.cat([c4096, c4096[:, :1000]], dim=1).contiguous()
-    knn_err = 0.0
-    knn_rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    t_ops = t_bytes = 0.0
-    for label, q, s, k in path_shapes + (("ties", c4096, ties, 4),):
-        d, i = ops.knn_small_k(q, s, k)
-        d_r, i_r = ops.knn_small_k_ref(q, s, k)
-        torch.cuda.synchronize()
-        shape = f"({q.shape[1]},{s.shape[1]},{k})"
-        check(torch.equal(i, i_r), f"knn {label} {shape}: idx differ at "
-              f"{int((i != i_r).sum())} places")
-        check(torch.equal(d, d_r), f"knn {label} {shape}: d2 not bit-equal, "
-              f"max |diff| {float((d - d_r).abs().max())}")
-        knn_err = max(knn_err, float((d - d_r).abs().max()))
-        if label == "ties":
-            log(f"knn ties {shape}: idx equal, d2 bit-equal")
-            continue
-        ms = cuda_ms(lambda: ops.knn_small_k(q, s, k), 10)
-        plain_ms = cuda_ms(lambda: ops.knn_small_k_ref(q, s, k), 2)
-        Q, N = q.shape[1], s.shape[1]
-        flops, nbytes = 8.0 * Q * N, (Q + N) * 12 + Q * k * 8
-        b_ms, b_by = bound(flops, nbytes)
-        t_ops += flops
-        t_bytes += nbytes
-        knn_rec["ms"] += ms
-        knn_rec["plain_ms"] += plain_ms
-        knn_rec["bound_ms"] += b_ms
-        log(f"knn {label} {shape}: idx equal, d2 bit-equal; kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
-            f"({b_by})")
-    knn_rec["bound_by"] = bound(t_ops, t_bytes)[1]
-    log(f"knn per scan (8 searches): kernel {knn_rec['ms']:.3f} ms, plain "
-        f"{knn_rec['plain_ms']:.2f} ms, bound {knn_rec['bound_ms']:.4f} ms")
-    fps_rec["max_abs_err"] = float(fps_err)
-    knn_rec["max_abs_err"] = knn_err
+    knn_rec, knnu_rec = _kernels_knn(bound, path_shapes,
+                                     ("ties", c4096, ties, 4))
 
     # the bucket-pruned kernels: equal to their plain versions AND to the
-    # unpruned kernels, at the serving and training FPS shapes and the
+    # path's kernels, at the serving and training FPS shapes and the
     # serving search shapes; same bound as the unpruned kernel
-    pos6 = torch.cat([pos2] + [
-        torch.from_numpy(_scan_sample(s)[1])[None].to(dev)
-        for s in (13, 14, 15, 16)]).contiguous()
     fpsb_rec = {}
     for label, xyz, npoint in (("(1,16000,3)->8192", pos, 8192),
                                ("(6,16000,3)->8192", pos6, 8192),
@@ -263,14 +411,12 @@ def phase_kernels(bound: Bound):
                f"and fps; buckets skipped {100 * share:.1f} %")
         if label.startswith(("(1,", "(6,")):
             plan = ops.fps_bucket_plan(xyz)
-            ms = cuda_ms(lambda: ops.fps_bucket(xyz, npoint), 10)
+            ms = cuda_ms(lambda: ops.fps_bucket(xyz, npoint), 5)
             kern_ms = cuda_ms(lambda: ops.fps_bucket(xyz, npoint, plan=plan),
-                              10)
-            unpruned_ms = cuda_ms(lambda: ops.fps(xyz, npoint), 10)
-            b_ms, b_by = bound(9.0 * B * (npoint - 1) * N,
-                               B * N * 12 + B * npoint * 4)
+                              5)
+            b_ms, b_by = _fps_bound(bound, B, N, npoint)
             msg += (f"; wrapper {ms:.3f} ms (kernel alone {kern_ms:.3f} ms), "
-                    f"fps {unpruned_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+                    f"bound {b_ms:.4f} ms ({b_by})")
             if label.startswith("(1,"):
                 fpsb_rec = {"ms": ms, "kernel_ms": kern_ms,
                             "plain_ms": fps_rec["plain_ms"],
@@ -316,10 +462,12 @@ def phase_kernels(bound: Bound):
     knnp_rec["skip_share"] = n_skip / n_pairs
     log(f"knn_small_k_pruned over the 8 searches of a scan: wrapper "
         f"{knnp_rec['ms']:.3f} ms (kernel alone {knnp_rec['kernel_ms']:.3f} "
-        f"ms), knn_small_k {knn_rec['ms']:.3f} ms, bound "
+        f"ms), knn_small_k {knn_rec['ms']:.4f} ms kernel, bound "
         f"{knnp_rec['bound_ms']:.4f} ms; chunks skipped "
         f"{100 * knnp_rec['skip_share']:.1f} %")
-    return fps_rec, knn_rec, fpsb_rec, knnp_rec
+    return {"fps_cluster": fps_rec, "fps": fpsblock_rec,
+            "knn_split": knn_rec, "knn_small_k": knnu_rec,
+            "fps_bucket": fpsb_rec, "knn_small_k_pruned": knnp_rec}
 
 
 def _fdi_ok(labels, jaw: int) -> bool:
@@ -356,9 +504,10 @@ def phase_serving():
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
         grew = {k: ops.LAUNCHES[k] - before[k] for k in before}
-        check(grew == {"fps": 1, "knn_small_k": 8, "fps_bucket": 0,
-                       "knn_small_k_pruned": 0},
-              f"scan {n}: kernel launches {grew}, expected 1 fps + 8 knn")
+        check(grew == dict(dict.fromkeys(ops.LAUNCHES, 0), fps_cluster=1,
+                           knn_split=8),
+              f"scan {n}: kernel launches {grew}, expected 1 fps_cluster + "
+              f"8 knn_split")
         check(logits.shape == (16000, 17) and bool(torch.isfinite(logits).all()),
               f"scan {n}: logits {tuple(logits.shape)} not finite/shaped")
         labels = map_pred_to_fdi(pred, jaw)
@@ -540,9 +689,10 @@ def phase_train():
     log(f"cal_mean_feature over 2 batches: {time.perf_counter() - t:.2f} s; "
         f"launches per batch {counted}")
     for c in counted:
-        check(c == {"fps": 1, "knn_small_k": 7, "fps_bucket": 0,
-                    "knn_small_k_pruned": 0},
-              f"cm batch launches {c}, expected 1 fps + 7 knn_small_k")
+        check(c == dict(dict.fromkeys(ops.LAUNCHES, 0), fps_cluster=1,
+                        knn_split=7),
+              f"cm batch launches {c}, expected 1 fps_cluster + 7 "
+              f"knn_split")
     check(bool(torch.isfinite(state.cm).all()), "cm not finite")
 
     step = make_semi_step(cfg)
@@ -572,10 +722,10 @@ def phase_train():
             f"{per_step[-1]}")
         check(all(math.isfinite(v) for v in terms.values()),
               f"step {n}: a loss is not finite: {terms}")
-        check(per_step[-1] == {"fps": 2, "knn_small_k": 14, "fps_bucket": 0,
-                               "knn_small_k_pruned": 0},
-              f"step {n}: launches {per_step[-1]}, expected 2 fps + 14 "
-              f"knn_small_k")
+        check(per_step[-1] == dict(dict.fromkeys(ops.LAUNCHES, 0),
+                                   fps_cluster=2, knn_split=14),
+              f"step {n}: launches {per_step[-1]}, expected 2 fps_cluster "
+              f"+ 14 knn_split")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     rows = state.ema_t.sum(dim=1)
     check(bool(torch.allclose(rows, torch.ones_like(rows), atol=1e-5)),
@@ -664,35 +814,36 @@ def main() -> int:
     import torch
 
     phase_build()
-    fps_rec, knn_rec, fpsb_rec, knnp_rec = phase_kernels(Bound(limit_w))
+    recs = phase_kernels(Bound(limit_w))
     scans, results, serving, _, _ = phase_serving()
     phase_http(scans, results)
     train = phase_train()
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
     # launches on the two main paths: 3 served scans, and the train run
-    # (2 cm batches + 3 steps); the pruned kernels are on neither path
+    # (2 cm batches + 3 steps); the first versions of FPS and kNN and the
+    # pruned kernels are on neither path
     trained = {k: sum(c[k] for c in train["cm_batches"] + train["per_step"])
                for k in serving}
     per_step = train["per_step"][0]
     log(f"launches: serving {serving}, training {trained}")
 
-    def entry(name, src, replaces, rec):
+    def entry(name, replaces):
         return {"name": name, "route": "cuda",
-                "source": f"geot_tpu_torch/csrc/{src}", "replaces": replaces,
+                "source": f"geot_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces,
                 "launches": serving[name] + trained[name],
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
-                "library_ms": None, **rec}
+                "library_ms": None, **recs[name]}
 
     kernels = [
-        entry("fps", "fps.cu", "geot_tpu/ops/pallas_fps.py:231", fps_rec),
-        entry("knn_small_k", "knn_small_k.cu",
-              "geot_tpu/ops/pallas_knn.py:98", knn_rec),
-        entry("fps_bucket", "fps_bucket.cu",
-              "geot_tpu/ops/pallas_fps.py:181", fpsb_rec),
-        entry("knn_small_k_pruned", "knn_small_k_pruned.cu",
-              "geot_tpu/ops/pallas_knn_pruned.py:104", knnp_rec),
+        entry("fps_cluster", "geot_tpu/ops/pallas_fps.py:231"),
+        entry("fps", "geot_tpu/ops/pallas_fps.py:231"),
+        entry("knn_split", "geot_tpu/ops/pallas_knn.py:98"),
+        entry("knn_small_k", "geot_tpu/ops/pallas_knn.py:98"),
+        entry("fps_bucket", "geot_tpu/ops/pallas_fps.py:181"),
+        entry("knn_small_k_pruned", "geot_tpu/ops/pallas_knn_pruned.py:104"),
     ]
     log("done")
     print(smi, flush=True)

@@ -33,10 +33,9 @@
 // reductions on one SM per cloud. The fp32 work (about 1.2 GFLOP for
 // 16000 -> 8192) is some 18 us at the card's peak, but one SM issues the
 // ~11 instructions per point of every step alone, and each step ends in a
-// barrier. At B = 1 one SM of 132 works. A later version can spread one
-// cloud over a thread-block cluster and reduce through distributed shared
-// memory, or skip points whose box bound proves mind cannot change (as the
-// TPU's bucket kernel does).
+// barrier. At B = 1 one SM of 132 works. csrc/fps_cluster.cu spreads one
+// cloud over a thread-block cluster instead and is the path's FPS; this
+// kernel runs the clouds too large for a cluster's registers.
 #include <cuda_runtime.h>
 #include <cstdint>
 

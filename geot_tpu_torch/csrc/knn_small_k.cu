@@ -25,10 +25,10 @@
 // GFLOP for 16000 x 8192, which is about 16 us at the card's fp32 peak;
 // the bytes are a few hundred KB. The simple mapping leaves most SMs idle
 // when Q is a few thousand (Q / 128 blocks per cloud) and spends issue slots
-// on the compare-and-insert. A later version can split the support range
-// over several blocks per query tile and merge their lists, keep several
-// queries per thread to reuse each shared-memory read, and skip support
-// tiles whose box is farther than the current k-th distance.
+// on the compare-and-insert. csrc/knn_split.cu splits the support range
+// over several blocks per query tile and merges their lists, and keeps
+// several queries per thread to reuse each shared-memory read; it is the
+// path's small-k search, and this kernel stays as its first version.
 #include <cuda_runtime.h>
 #include <cstdint>
 

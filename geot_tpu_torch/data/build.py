@@ -114,7 +114,8 @@ def semi_pairs(loader_l: DataLoader, loader_u: DataLoader,
                limit: Optional[int] = None):
     """(labelled, unlabelled) batch pairs of one epoch: the unlabelled
     loader restarts when it runs out (``geot_tpu/engine/train.py``'s
-    ``_pairs``); at most ``limit`` pairs."""
+    ``_pairs``); at most ``limit`` pairs. An empty unlabelled loader raises
+    ``RuntimeError``, as there."""
     u_iter = iter(loader_u)
     for n, batch_l in enumerate(loader_l):
         if limit is not None and n >= limit:
@@ -123,5 +124,11 @@ def semi_pairs(loader_l: DataLoader, loader_u: DataLoader,
             batch_u = next(u_iter)
         except StopIteration:
             u_iter = iter(loader_u)
-            batch_u = next(u_iter)
+            try:
+                batch_u = next(u_iter)
+            except StopIteration:
+                # PEP 479 would surface this as an opaque
+                # 'generator raised StopIteration'
+                raise RuntimeError("unlabeled train loader is empty — check "
+                                   "dataset_u config") from None
         yield batch_l, batch_u

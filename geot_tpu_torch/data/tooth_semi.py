@@ -104,8 +104,10 @@ class _TeethBase(EpochSeededRNG):
 
 class TeethSegSemiLDataset(_TeethBase):
     """Labelled split (``geot_tpu/data/tooth_semi.py:126``): 24 synthetic
-    scans, as train samples (the val/test fields of the full-resolution
-    scan belong to the eval loop, which is not ported)."""
+    scans. A ``val`` or ``test`` item also carries the full-resolution scan
+    (``points``, ``labels``), its normalisation (``center``, ``scale``) and
+    its ``patient`` id, as ``geot_tpu/data/tooth_semi.py:148-155`` adds them
+    for the three_nn evaluation."""
 
     def __init__(self, data_root="", num_points=16000, split="train",
                  transform=None, **kwargs):
@@ -116,7 +118,7 @@ class TeethSegSemiLDataset(_TeethBase):
         sample = self.file_list[idx]
         rng = self._rng(idx)
         points, labels = self._load(sample)
-        points_norm, _, _ = pc_norm(points)
+        points_norm, center, scale = pc_norm(points)
         spts, slab = self._sample(points_norm, labels, rng)
         data = {"pos": spts,
                 "cls": np.asarray([sample["location"]], dtype=np.int64),
@@ -125,6 +127,12 @@ class TeethSegSemiLDataset(_TeethBase):
         data["class_weights"] = self._class_weights(slab)
         if self.transform is not None:
             data = self.transform(data, rng)
+        if self.split in ("val", "test"):
+            data["points"] = points.astype(np.float32)
+            data["labels"] = labels.astype(np.int64)
+            data["center"] = center.astype(np.float32)
+            data["scale"] = np.float32(scale)
+            data["patient"] = sample["mesh_id"]
         return data
 
 

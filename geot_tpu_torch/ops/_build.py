@@ -25,7 +25,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
-    "fps.cu", "knn_small_k.cu", "fps_bucket.cu", "knn_small_k_pruned.cu"))
+    "fps.cu", "fps_cluster.cu", "knn_small_k.cu", "knn_split.cu",
+    "fps_bucket.cu", "knn_small_k_pruned.cu"))
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: the plain versions and the JAX reference round dx*dx,
 # dy*dy, dz*dz and each sum separately; a contracted FMA changes d2 in the
@@ -33,8 +34,9 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"fps": 0, "knn_small_k": 0, "fps_bucket": 0,
-            "knn_small_k_pruned": 0}
+# one count per kernel, named after its source in csrc/
+LAUNCHES = {"fps": 0, "fps_cluster": 0, "knn_small_k": 0, "knn_split": 0,
+            "fps_bucket": 0, "knn_small_k_pruned": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -126,8 +128,18 @@ def library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.geot_fps.argtypes = [p, p, p, i, i, i, p]
             lib.geot_fps.restype = i
+            lib.geot_fps_cluster.argtypes = [p, p, i, i, i, i, i, i, p]
+            lib.geot_fps_cluster.restype = i
+            lib.geot_fps_cluster_max_active.argtypes = [
+                i, ctypes.POINTER(ctypes.c_int)]
+            lib.geot_fps_cluster_max_active.restype = i
+            lib.geot_cluster_exchange.argtypes = [p, i, i, i, p]
+            lib.geot_cluster_exchange.restype = i
             lib.geot_knn_small_k.argtypes = [p, p, p, p, i, i, i, i, p]
             lib.geot_knn_small_k.restype = i
+            lib.geot_knn_split.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                           i, p]
+            lib.geot_knn_split.restype = i
             lib.geot_fps_bucket.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
             lib.geot_fps_bucket.restype = i
             lib.geot_knn_small_k_pruned.argtypes = [p, p, p, p, p, p, p, p,

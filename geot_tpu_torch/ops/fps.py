@@ -1,10 +1,14 @@
 """Farthest point sampling.
 
-``fps`` is the wrapper of the CUDA kernel ``csrc/fps.cu`` (the port of
-``geot_tpu/ops/pallas_fps.py:fps_pallas``); ``fps_ref`` is its plain PyTorch
-version with the semantics of ``geot_tpu/ops/fps.py:_fps_impl``: idx[0] = 0,
-the running min-distance starts at 1e10, and each step takes the first
-maximum.
+``fps`` is the path's FPS: for a CUDA tensor it runs the cluster kernel
+``csrc/fps_cluster.cu`` (one thread-block cluster per cloud, the winner of
+each step exchanged through distributed shared memory), or, for a cloud
+larger than a cluster's registers hold, the one-block kernel ``csrc/fps.cu``
+(``fps_block``). ``fps_plan`` is that shape rule. Both kernels port
+``geot_tpu/ops/pallas_fps.py:fps_pallas``. ``fps_ref`` is their plain
+PyTorch version with the semantics of ``geot_tpu/ops/fps.py:_fps_impl``:
+idx[0] = 0, the running min-distance starts at 1e10, and each step takes the
+first maximum.
 
 ``fps_bucket`` is the wrapper of ``csrc/fps_bucket.cu`` (the port of
 ``geot_tpu/ops/pallas_fps.py:fps_bucket_pallas``): the same contract, bit
@@ -14,16 +18,24 @@ when their box proves no min-distance in them can change.
 """
 from __future__ import annotations
 
+import ctypes
+from typing import Dict, NamedTuple
+
 import torch
 
 from . import _build
 from .group import gather_points
 from .morton import spatial_sort
 
-# points per cloud whose xyz the kernel keeps in registers (512 threads x
-# 32, their min-distance in shared memory); the min-distance of the rest
-# lives in a scratch buffer
+# fps_block: points per cloud whose xyz the kernel keeps in registers (512
+# threads x 32, their min-distance in shared memory); the min-distance of
+# the rest lives in a scratch buffer
 _REG_POINTS = 512 * 32
+# fps_cluster: threads per block, the slot counts (points per thread) it is
+# built for, and the cluster sizes it tries
+CLUSTER_THREADS = 256
+CLUSTER_SLOTS = (2, 4, 8, 16)
+CLUSTER_SIZES = (16, 8, 4, 2)
 # fps_bucket: points per bucket and the most buckets a cloud may have
 BUCKET = 1024
 MAX_BUCKETS = 30
@@ -47,19 +59,138 @@ def fps_ref(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return idx
 
 
+class FpsPlan(NamedTuple):
+    """How ``fps`` runs a cloud of N points: ``route`` "fps_cluster" (C
+    blocks, block r owning indices [r * per_cta, (r + 1) * per_cta) with
+    ``slots`` points per thread) or "fps" (the one-block kernel)."""
+    route: str
+    C: int = 0
+    per_cta: int = 0
+    slots: int = 0
+
+    def ranges(self, N: int):
+        """Each block's contiguous index range, in rank order."""
+        return [(min(N, r * self.per_cta), min(N, (r + 1) * self.per_cta))
+                for r in range(self.C)]
+
+
+def fps_cluster_size(max_active: Dict[int, int], batch: int) -> int:
+    """The largest cluster size C of ``CLUSTER_SIZES`` whose ``batch``
+    clusters (one per cloud) the card runs at once (``max_active[C]``, from
+    ``cudaOccupancyMaxActiveClusters``); the smallest size if none does, and
+    the batch then runs in waves."""
+    for C in CLUSTER_SIZES:
+        if max_active.get(C, 0) >= batch:
+            return C
+    return CLUSTER_SIZES[-1]
+
+
+def fps_plan(N: int, C: int) -> FpsPlan:
+    """The shape rule: a cloud of N points runs on C blocks when each
+    block's ceil(N / C) points fit ``CLUSTER_SLOTS[-1]`` per thread, else on
+    the one-block kernel."""
+    per_cta = -(-N // C)
+    need = -(-per_cta // CLUSTER_THREADS)
+    for slots in CLUSTER_SLOTS:
+        if slots >= need:
+            return FpsPlan("fps_cluster", C, per_cta, slots)
+    return FpsPlan("fps")
+
+
+_max_active: Dict[int, Dict[int, int]] = {}
+
+
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def card_max_active(device: torch.device) -> Dict[int, int]:
+    """Per cluster size of ``CLUSTER_SIZES``, how many clusters of the
+    cluster kernel the card runs at once (``cudaOccupancyMaxActiveClusters``
+    at 16 slots), queried once per device."""
+    index = _index(device)
+    if index not in _max_active:
+        lib = _build.library()
+        counts = {}
+        with torch.cuda.device(index):
+            for C in CLUSTER_SIZES:
+                count = ctypes.c_int(0)
+                rc = lib.geot_fps_cluster_max_active(C, ctypes.byref(count))
+                if rc != 0:
+                    raise RuntimeError(f"cudaOccupancyMaxActiveClusters at "
+                                       f"C={C} failed with CUDA error {rc}")
+                counts[C] = count.value
+        _max_active[index] = counts
+    return _max_active[index]
+
+
+def card_cluster_size(device: torch.device, batch: int) -> int:
+    """``fps_cluster_size`` of the card for ``batch`` clouds."""
+    return fps_cluster_size(card_max_active(device), batch)
+
+
 def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """(B, N, 3) float32 -> (B, npoint) int32 indices; idx[:, 0] == 0.
 
-    A CUDA tensor goes to the kernel, a CPU tensor to ``fps_ref``."""
+    A CUDA tensor goes to the cluster kernel or, by ``fps_plan``, to the
+    one-block kernel; a CPU tensor to ``fps_ref``."""
     if xyz.device.type == "cpu":
         return fps_ref(xyz, npoint)
-    if xyz.device.type != "cuda":
-        raise ValueError(f"fps: unsupported device {xyz.device}")
-    _check_xyz("fps", xyz)
+    _check_fps_args("fps", xyz, npoint)
     B, N, _ = xyz.shape
-    if N < 1 or npoint < 1:
-        raise ValueError(f"fps: need N >= 1 and npoint >= 1, got N={N}, "
-                         f"npoint={npoint}")
+    plan = fps_plan(N, card_cluster_size(xyz.device, B))
+    if plan.route == "fps":
+        return fps_block(xyz, npoint)
+    return fps_cluster(xyz, npoint, plan)
+
+
+def fps_cluster(xyz: torch.Tensor, npoint: int, plan: FpsPlan
+                ) -> torch.Tensor:
+    """The cluster kernel with the given plan; a CPU tensor goes to
+    ``fps_ref``."""
+    if xyz.device.type == "cpu":
+        return fps_ref(xyz, npoint)
+    _check_fps_args("fps_cluster", xyz, npoint)
+    if plan.route != "fps_cluster":
+        raise ValueError(f"fps_cluster: bad plan {plan}")
+    B, N, _ = xyz.shape
+    lib = _build.library()
+    out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+    stream = torch.cuda.current_stream(xyz.device).cuda_stream
+    rc = lib.geot_fps_cluster(xyz.data_ptr(), out.data_ptr(), B, N, npoint,
+                              plan.C, plan.per_cta, plan.slots, stream)
+    _build.check_launch("fps_cluster", rc)
+    return out
+
+
+def cluster_exchange(B: int, npoint: int, C: int,
+                     device: torch.device) -> torch.Tensor:
+    """The cluster kernel's exchange alone, for timing: B clusters of C
+    blocks run npoint - 1 steps of writing an entry to every peer, the
+    step's synchronisation and the reduction of the C entries, with no
+    distance work. Returns each step's winning rank (B, npoint); a probe,
+    on no path, so it counts no launch."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"cluster_exchange: needs a CUDA device, got "
+                         f"{device}")
+    lib = _build.library()
+    out = torch.zeros((B, npoint), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.geot_cluster_exchange(out.data_ptr(), B, npoint, C, stream)
+    if rc != 0:
+        raise RuntimeError(f"cluster_exchange kernel launch failed with "
+                           f"CUDA error {rc}")
+    return out
+
+
+def fps_block(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """The one-block kernel ``csrc/fps.cu``, for any N; a CPU tensor goes
+    to ``fps_ref``."""
+    if xyz.device.type == "cpu":
+        return fps_ref(xyz, npoint)
+    _check_fps_args("fps_block", xyz, npoint)
+    B, N, _ = xyz.shape
     lib = _build.library()
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     tail = (torch.empty((B, N - _REG_POINTS), dtype=torch.float32,
@@ -75,6 +206,15 @@ def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 def fps_gather(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """FPS returning the sampled coordinates (B, npoint, 3)."""
     return gather_points(xyz, fps(xyz, npoint))
+
+
+def _check_fps_args(name: str, xyz: torch.Tensor, npoint: int) -> None:
+    if xyz.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {xyz.device}")
+    _check_xyz(name, xyz)
+    if xyz.shape[1] < 1 or npoint < 1:
+        raise ValueError(f"{name}: need N >= 1 and npoint >= 1, got "
+                         f"N={xyz.shape[1]}, npoint={npoint}")
 
 
 def _check_xyz(name: str, xyz: torch.Tensor) -> None:

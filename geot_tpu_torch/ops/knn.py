@@ -5,9 +5,12 @@ ties to the smaller index (``lax.top_k``'s rule): ``geot_tpu``'s default
 ``approx_min_k`` is an XLA operation, and exact selection is what it
 computes under ``GEOT_EXACT_KNN=1``.
 
-``knn_small_k`` is the wrapper of the CUDA kernel ``csrc/knn_small_k.cu``
-(the port of ``geot_tpu/ops/pallas_knn.py:knn_small_k_pallas``);
-``knn_small_k_ref`` is its plain version. ``knn_small_k_pruned`` is the
+``knn_small_k`` is the path's small-k search: for CUDA tensors it runs
+the CUDA kernel ``csrc/knn_split.cu``, which splits the support range over
+blocks (``knn_split_plan``) and merges their lists; ``knn_small_k_unsplit``
+runs the first version ``csrc/knn_small_k.cu`` (one thread per query). Both
+port ``geot_tpu/ops/pallas_knn.py:knn_small_k_pallas``, and
+``knn_small_k_ref`` is their plain version. ``knn_small_k_pruned`` is the
 wrapper of ``csrc/knn_small_k_pruned.cu`` (the port of
 ``geot_tpu/ops/pallas_knn_pruned.py:knn_small_k_pruned``): the same
 contract, bit for bit, over Morton-sorted query tiles and support chunks
@@ -16,12 +19,19 @@ best; ``knn_small_k_pruned_ref`` is its plain version.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 from .morton import spatial_sort
 
 _TILE = 2048
+# knn_split: queries per block (one per thread), fewest supports per
+# split, and the blocks per SM the splits aim at
+SPLIT_QTILE = 128
+SPLIT_MIN = 64
+SPLIT_WAVES = 4
 # knn_small_k_pruned: sorted queries per tile, sorted supports per chunk
 PRUNED_TILE = 256
 PRUNED_CHUNK = 1024
@@ -102,14 +112,59 @@ def _check_small_k(name: str, query: torch.Tensor, support: torch.Tensor,
                          f"k={k}, N={support.shape[1]}")
 
 
+def knn_split_plan(B: int, Q: int, N: int, num_sms: int = 132):
+    """How ``knn_small_k``'s kernel splits the N supports: ``(S,
+    split_len)``, split s owning indices [s * split_len, (s + 1) *
+    split_len). S is the fewest splits that give ``SPLIT_WAVES`` blocks per
+    SM over B clouds of ceil(Q / ``SPLIT_QTILE``) query tiles, with at least
+    ``SPLIT_MIN`` supports per split; every split is non-empty."""
+    tiles = B * -(-Q // SPLIT_QTILE)
+    S = max(1, min(-(-SPLIT_WAVES * num_sms // tiles), N // SPLIT_MIN))
+    split_len = -(-N // S)
+    return -(-N // split_len), split_len
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def knn_small_k(query: torch.Tensor, support: torch.Tensor, k: int):
     """Exact kNN for 1 <= k <= 4 on xyz: squared d2 and int32 idx, each
     (B, Q, k), ascending, ties to the smaller index.
 
-    A CUDA tensor goes to the kernel, a CPU tensor to ``knn_small_k_ref``."""
+    A CUDA tensor goes to the split kernel, a CPU tensor to
+    ``knn_small_k_ref``."""
     if query.device.type == "cpu" and support.device.type == "cpu":
         return knn_small_k_ref(query, support, k)
     _check_small_k("knn_small_k", query, support, k)
+    B, Q, _ = query.shape
+    N = support.shape[1]
+    S, split_len = knn_split_plan(B, Q, N, _num_sms(query.device.index))
+    lib = _build.library()
+    d2 = torch.empty((B, Q, k), dtype=torch.float32, device=query.device)
+    idx = torch.empty((B, Q, k), dtype=torch.int32, device=query.device)
+    sd = si = None
+    if S > 1:       # the splits' lists, d2 and idx, in one allocation
+        scratch = torch.empty((2, S, B, Q, k), dtype=torch.int32,
+                              device=query.device)
+        sd, si = scratch[0].view(torch.float32), scratch[1]
+    stream = torch.cuda.current_stream(query.device).cuda_stream
+    rc = lib.geot_knn_split(query.data_ptr(), support.data_ptr(),
+                            d2.data_ptr(), idx.data_ptr(),
+                            sd.data_ptr() if sd is not None else None,
+                            si.data_ptr() if si is not None else None,
+                            B, Q, N, k, S, split_len, stream)
+    _build.check_launch("knn_split", rc)
+    return d2, idx
+
+
+def knn_small_k_unsplit(query: torch.Tensor, support: torch.Tensor, k: int):
+    """``knn_small_k`` by the first kernel ``csrc/knn_small_k.cu``, one
+    thread per query; CPU tensors go to ``knn_small_k_ref``."""
+    if query.device.type == "cpu" and support.device.type == "cpu":
+        return knn_small_k_ref(query, support, k)
+    _check_small_k("knn_small_k_unsplit", query, support, k)
     B, Q, _ = query.shape
     N = support.shape[1]
     lib = _build.library()

@@ -14,6 +14,7 @@ import torch
 
 from geot_tpu_torch import ops
 from geot_tpu_torch.engine.predict import load_model
+from geot_tpu_torch.ops.fps import CLUSTER_SIZES, card_cluster_size
 
 SMALL_ARGS = {"NAME": "PointTransformer_seg_T", "trans_dim": 48, "depth": 3,
               "num_heads": 4, "group_size": 8, "num_group": 32,
@@ -48,11 +49,49 @@ def _cloud(seed, shape, dup=False):
                                              (2, 1000, 600, True)])
 def test_fps_kernel_matches_plain(cuda, B, N, npoint, dup):
     xyz = _cloud(0, (B, N, 3), dup).to(cuda)
-    n0 = ops.LAUNCHES["fps"]
+    route = ops.fps_plan(N, card_cluster_size(cuda, B)).route
+    n0 = dict(ops.LAUNCHES)
     got = ops.fps(xyz, npoint)
-    assert ops.LAUNCHES["fps"] == n0 + 1
+    assert ops.LAUNCHES == dict(n0, **{route: n0[route] + 1})
     torch.testing.assert_close(got, ops.fps_ref(xyz, npoint), rtol=0, atol=0)
     assert torch.all(got[:, 0] == 0)
+    torch.testing.assert_close(ops.fps_block(xyz, npoint), got, rtol=0,
+                               atol=0)
+
+
+# the flagship's FPS shapes (serving B = 1, teacher B = 2, student B = 6),
+# ties, a cloud whose ranges are ragged, and one smaller than the cluster
+@pytest.mark.parametrize("B,N,npoint,dup", [(1, 16000, 8192, False),
+                                             (2, 16000, 8192, False),
+                                             (6, 16000, 8192, False),
+                                             (1, 3000, 2048, True),
+                                             (3, 12345, 3000, False),
+                                             (1, 10, 20, False)])
+def test_fps_cluster_kernel_matches_plain(cuda, B, N, npoint, dup):
+    xyz = _cloud(7, (B, N, 3), dup).to(cuda)
+    plan = ops.fps_plan(xyz.shape[1], card_cluster_size(cuda, B))
+    assert plan.route == "fps_cluster"
+    n0 = ops.LAUNCHES["fps_cluster"]
+    got = ops.fps_cluster(xyz, npoint, plan)
+    assert ops.LAUNCHES["fps_cluster"] == n0 + 1
+    torch.testing.assert_close(got, ops.fps_ref(xyz, npoint), rtol=0, atol=0)
+
+
+def test_fps_routes_an_oversized_cloud_to_the_block_kernel(cuda):
+    C = card_cluster_size(cuda, 1)
+    xyz = _cloud(8, (1, C * 256 * 16 + 1, 3)).to(cuda)
+    assert ops.fps_plan(xyz.shape[1], C).route == "fps"
+    n0 = dict(ops.LAUNCHES)
+    got = ops.fps(xyz, 200)
+    assert ops.LAUNCHES == dict(n0, fps=n0["fps"] + 1)
+    torch.testing.assert_close(got, ops.fps_ref(xyz, 200), rtol=0, atol=0)
+
+
+def test_cluster_exchange_runs_at_every_size(cuda):
+    for C in CLUSTER_SIZES:
+        won = ops.cluster_exchange(2, 300, C, cuda)
+        torch.cuda.synchronize()
+        assert bool(((won >= 0) & (won < C)).all())
 
 
 @pytest.mark.parametrize("Q,N,k,dup", [(300, 450, 3, False),
@@ -64,9 +103,35 @@ def test_knn_kernel_matches_plain(cuda, Q, N, k, dup):
     s = _cloud(1, (2, N, 3), dup).to(cuda)
     q = torch.cat([s[:, :Q // 2], _cloud(2, (2, Q - Q // 2, 3)).to(cuda)],
                   dim=1).contiguous()          # half the queries are supports
-    n0 = ops.LAUNCHES["knn_small_k"]
+    n0 = dict(ops.LAUNCHES)
     d, i = ops.knn_small_k(q, s, k)
+    assert ops.LAUNCHES == dict(n0, knn_split=n0["knn_split"] + 1)
+    d_r, i_r = ops.knn_small_k_ref(q, s, k)
+    torch.testing.assert_close(i, i_r, rtol=0, atol=0)
+    torch.testing.assert_close(d, d_r, rtol=0, atol=0)
+    n0 = ops.LAUNCHES["knn_small_k"]
+    d_u, i_u = ops.knn_small_k_unsplit(q, s, k)
     assert ops.LAUNCHES["knn_small_k"] == n0 + 1
+    torch.testing.assert_close(i_u, i_r, rtol=0, atol=0)
+    torch.testing.assert_close(d_u, d_r, rtol=0, atol=0)
+
+
+# the serving path's 8 searches (Q, N, k), and the training student's
+# B = 6 at the largest, plus ties
+@pytest.mark.parametrize("B,Q,N,k,dup", [
+    (1, 4096, 512, 3, False), (1, 8192, 512, 3, False),
+    (1, 4096, 512, 4, False), (1, 4096, 4096, 4, False),
+    (1, 8192, 4096, 4, False), (1, 8192, 8192, 4, False),
+    (1, 16000, 8192, 3, False), (1, 40960, 16000, 3, False),
+    (6, 16000, 8192, 3, False), (1, 4096, 3000, 4, True)])
+def test_knn_split_kernel_matches_plain_at_path_shapes(cuda, B, Q, N, k, dup):
+    s = _cloud(9, (B, N, 3), dup).to(cuda)
+    q = torch.cat([s[:, :min(Q, s.shape[1]) // 2],
+                   _cloud(10, (B, Q - min(Q, s.shape[1]) // 2, 3)).to(cuda)],
+                  dim=1).contiguous()
+    n0 = ops.LAUNCHES["knn_split"]
+    d, i = ops.knn_small_k(q, s, k)
+    assert ops.LAUNCHES["knn_split"] == n0 + 1
     d_r, i_r = ops.knn_small_k_ref(q, s, k)
     torch.testing.assert_close(i, i_r, rtol=0, atol=0)
     torch.testing.assert_close(d, d_r, rtol=0, atol=0)
@@ -124,6 +189,8 @@ def test_knn_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         ops.fps(q.double(), 8)
     with pytest.raises(ValueError):
+        ops.fps_cluster(q, 8, ops.FpsPlan("fps"))
+    with pytest.raises(ValueError):
         ops.knn_small_k_pruned(q, q, 5)
     with pytest.raises(ValueError):
         ops.fps_bucket(torch.zeros((1, 31 * 1024, 3), device=cuda), 8)
@@ -137,7 +204,9 @@ def test_forward_on_the_card_matches_the_cpu(cuda):
     with torch.no_grad():
         a = cpu(pts)[0]
         b = gpu(pts.to(cuda))[0].cpu()
-    assert ops.LAUNCHES["fps"] == n0["fps"] + 1
-    assert ops.LAUNCHES["knn_small_k"] > n0["knn_small_k"]
+    assert ops.LAUNCHES["fps_cluster"] == n0["fps_cluster"] + 1
+    assert ops.LAUNCHES["knn_split"] > n0["knn_split"]
+    assert ops.LAUNCHES["fps"] == n0["fps"]
+    assert ops.LAUNCHES["knn_small_k"] == n0["knn_small_k"]
     assert (a - b).abs().max().item() <= 1e-3
     assert (a.argmax(-1) == b.argmax(-1)).float().mean().item() >= 0.999
