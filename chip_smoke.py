@@ -42,13 +42,33 @@ Phases, each printed with the seconds elapsed when it starts:
    loss terms within 1e-4 relative; per-tensor gradients within 1e-3 of
    the tensor's largest in float64 (5e-2 in float32, where batch-statistics
    BatchNorm amplifies rounding).
+8. trainer: ``engine.train.parse_and_run`` in this process on
+   ``cfgs/tooth_semi/transformer_finetune_fixmatch_ntm.yaml`` at full width,
+   in a temporary root directory that is deleted afterwards. Run A: 2
+   epochs of 12 steps on the synthetic 24-scan labelled and 48-scan
+   unlabelled splits (cm bootstrap over 12 batches, validation after each
+   epoch, the test split at epoch 2 on the best checkpoint, checkpoints
+   every epoch): losses finite, val/test metrics in [0, 1], the reference's
+   epoch scalars present, the latest/best/E1/E2 checkpoints written, and
+   the launch counters equal to 2 ``fps_cluster`` + 14 ``knn_split`` a
+   step, 1 + 7 a cm batch, 1 + 9 a val/test batch of 2 scans, 0 for the
+   other kernels. Run C: ``mode=val`` on A's best checkpoint gives A's best
+   val metrics. Run B: ``mode=resume`` from A's epoch-1 checkpoint; its
+   epoch-2 scalars agree with A's (loss terms within 0.25 relative,
+   metrics within 5e-3 absolute: atomics in the backward pass make the
+   card's steps non-deterministic, and B prints how far). Then, in a child
+   process with deterministic algorithms (``--resume-check``), the same 2
+   epochs and the same resume: every epoch-2 scalar bit-equal.
+   Prints epoch wall and data time, host
+   ms between steps, validate ms per scan (first pass apart), checkpoint
+   bytes and save/load ms, and peak memory.
 Then the ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; without a CUDA device it exits 1 at once.
 
     python3 chip_smoke.py --profile
 
-adds, after phase 6, a ``torch.profiler`` trace of 3 served scans and 2
+adds, after phase 8, a ``torch.profiler`` trace of 3 served scans and 2
 train steps: device time by kernel and the device's busy share of the wall
 time.
 """
@@ -807,7 +827,290 @@ def phase_train():
             "cm_batches": counted, "state": state, "pairs": pairs}
 
 
+# the trainer's expected kernel launches: per semi step, per cm-bootstrap
+# batch, per val/test batch of 2 scans (the batched forward + one
+# full-resolution upsample per scan)
+_PER_STEP = {"fps_cluster": 2, "knn_split": 14}
+_PER_CM_BATCH = {"fps_cluster": 1, "knn_split": 7}
+_PER_EVAL_BATCH = {"fps_cluster": 1, "knn_split": 9}
+# epoch-2 scalars of a resume (run B) against the uninterrupted run A, with
+# the card's default, non-deterministic backward (atomics): loss terms
+# relative, val/test metrics absolute. Three card runs measured at most
+# 3.1e-3 for the three loss terms and 1.1e-3, 4.7e-3 and 3.8e-2 for
+# insT_threed_loss (the T-predictor's term), the metrics bit-equal; these
+# bounds catch a resume that loses state, not rounding. The exact check is
+# the deterministic pair (``resume_check``): bit-equal.
+RESUME_LOSS_RTOL = 0.25
+RESUME_METRIC_ATOL = 5e-3
+
+
+def _expected(steps: int, cm_batches: int, eval_batches: int):
+    from geot_tpu_torch import ops
+
+    out = dict.fromkeys(ops.LAUNCHES, 0)
+    for per, n in ((_PER_STEP, steps), (_PER_CM_BATCH, cm_batches),
+                   (_PER_EVAL_BATCH, eval_batches)):
+        for k, v in per.items():
+            out[k] += v * n
+    return out
+
+
+def _epoch_scalars(path: str, skip: int = 0):
+    """tag -> value of the epoch-2 lines of a scalars.jsonl, from line
+    ``skip`` on; and the file's line count."""
+    with open(path) as f:
+        lines = f.readlines()
+    out = {}
+    for line in lines[skip:]:
+        d = json.loads(line)
+        if d["step"] == 2:
+            out[d["tag"]] = d["value"]
+    return out, len(lines)
+
+
+def phase_trainer():
+    """The training entry point on the card: ``parse_and_run`` on the
+    flagship YAML at full width, in-process so the launch counters can be
+    read. Run A trains 2 epochs (val every epoch, test at epoch 2,
+    checkpoints every epoch), run C scores A's best checkpoint in
+    ``mode=val``, run B resumes from A's epoch-1 checkpoint to epoch 2."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.engine import train as train_mod
+    from geot_tpu_torch.engine.checkpoint import ckpt_path
+
+    log("phase 8: trainer (parse_and_run, flagship YAML, full width)")
+    cfg_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "cfgs", "tooth_semi",
+                            "transformer_finetune_fixmatch_ntm.yaml")
+    root = tempfile.mkdtemp(prefix="geot_trainer_")
+    # (run, what, ms) of every validate, save and load, each between two
+    # synchronisations
+    timed = {"validate": [], "save": [], "load": []}
+    current = {"run": "A"}
+    real = {k: getattr(train_mod, k) for k in ("validate", "save_checkpoint",
+                                               "load_checkpoint")}
+
+    def timing(name, fn, what):
+        def run(*args, **kwargs):
+            label = what(args, kwargs)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timed[name].append((current["run"], label,
+                                (time.perf_counter() - t) * 1e3))
+            return out
+        return run
+
+    # a validate call on a loader without a cache is its first pass: it
+    # builds the items on the host and copies them to the card
+    train_mod.validate = timing(
+        "validate", real["validate"],
+        lambda a, k: (k.get("tag", "val"), len(a[2].dataset),
+                      getattr(a[2], "_geot_eval_cache", None) is None))
+    train_mod.save_checkpoint = timing("save", real["save_checkpoint"],
+                                       lambda a, k: f"epoch {a[2]}")
+    train_mod.load_checkpoint = timing("load", real["load_checkpoint"],
+                                       lambda a, k: os.path.basename(a[0]))
+    common = [f"root_dir={root}", "val_freq=1", "test_freq=2", "save_freq=1"]
+    try:
+        # run A
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t = time.perf_counter()
+        res_a = train_mod.parse_and_run(["--cfg", cfg_path, "epochs=2",
+                                         *common])
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t
+        launches_a = dict(ops.LAUNCHES)
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        run_dirs = [os.path.join(root, "tooth_semi", d)
+                    for d in os.listdir(os.path.join(root, "tooth_semi"))]
+        check(len(run_dirs) == 1, f"run A made {run_dirs}")
+        run_dir = run_dirs[0]
+        name = os.path.basename(run_dir)
+        ckdir = os.path.join(run_dir, "checkpoint")
+        for tag in ("latest", "best", "E1", "E2"):
+            check(os.path.exists(ckpt_path(ckdir, name, tag)),
+                  f"run A: no {tag} checkpoint in {os.listdir(ckdir)}")
+        scalars = os.path.join(run_dir, "scalars.jsonl")
+        a2, n_lines = _epoch_scalars(scalars)
+        missing = [t for t in list(train_mod.REF_TAGS)[:9]
+                   + ["insT_threed_loss"] if t not in a2]
+        check(not missing, f"run A: scalars.jsonl lacks {missing}")
+        losses = {t: a2[t] for t in ("train_loss", "train_loss_l",
+                                     "train_loss_u", "insT_threed_loss")}
+        check(all(math.isfinite(v) for v in losses.values()),
+              f"run A: epoch-2 losses not finite: {losses}")
+        for split in ("val", "test"):
+            bad = {k: v for k, v in res_a[split].items()
+                   if not (math.isfinite(v) and 0.0 <= v <= 1.0)}
+            check(not bad, f"run A: {split} metrics outside [0, 1]: {bad}")
+        want = _expected(steps=24, cm_batches=12, eval_batches=3 * 12)
+        check(launches_a == want, f"run A launches {launches_a}, expected "
+              f"{want} (24 steps, 12 cm batches, 3 eval passes of 12)")
+        epochs = {}
+        with open(scalars) as f:
+            for line in f:
+                d = json.loads(line)
+                if d["tag"] in ("epoch_seconds", "data_seconds"):
+                    epochs.setdefault(d["step"], {})[d["tag"]] = d["value"]
+        with open(os.path.join(run_dir, "step_times.jsonl")) as f:
+            steps = [json.loads(x) for x in f]
+        step_ms = [s_["dt"] * 1e3 for s_ in steps if s_["step"] % 12 != 1]
+        ckpt_bytes = os.path.getsize(ckpt_path(ckdir, name, "latest"))
+
+        # run C: mode=val on A's best checkpoint
+        current["run"] = "C"
+        ops.reset_launches()
+        res_c = train_mod.parse_and_run(
+            ["--cfg", cfg_path, "mode=val",
+             f"pretrained_path={ckpt_path(ckdir, name, 'best')}",
+             f"root_dir={root}"])
+        launches_c = dict(ops.LAUNCHES)
+        best = res_a["best"]
+        diff_c = max(abs(res_c["val"][f"whole_{k}"] - best[k])
+                     for k in ("miou", "dsc", "acc"))
+        log(f"run C (mode=val, best checkpoint of epoch {best['epoch']}): "
+            f"whole miou/dsc/acc {res_c['val']['whole_miou']:.6f} / "
+            f"{res_c['val']['whole_dsc']:.6f} / "
+            f"{res_c['val']['whole_acc']:.6f}; run A's best "
+            f"{best['miou']:.6f} / {best['dsc']:.6f} / {best['acc']:.6f}; "
+            f"max |d| {diff_c:.3e}; launches {launches_c}")
+        check(diff_c <= 1e-6, "run C does not give run A's best val metrics")
+        check(launches_c == _expected(0, 0, 12), f"run C launches "
+              f"{launches_c}")
+
+        # run B: resume from A's epoch-1 checkpoint to epoch 2
+        current["run"] = "B"
+        ops.reset_launches()
+        train_mod.parse_and_run(
+            ["--cfg", cfg_path, "mode=resume",
+             f"pretrained_path={ckpt_path(ckdir, name, 'E1')}", "epochs=2",
+             *common])
+        launches_b = dict(ops.LAUNCHES)
+        b2, _ = _epoch_scalars(scalars, skip=n_lines)
+        check(set(b2) == set(a2), f"run B's epoch-2 tags differ from A's: "
+              f"{sorted(set(a2) ^ set(b2))}")
+
+        def compare(x, y):
+            d = {t: (abs(y[t] - v) / max(abs(v), 1e-30) if t in losses
+                     else abs(y[t] - v)) for t, v in x.items()
+                 if t not in ("epoch_seconds", "data_seconds")}
+            return (d, max(d[t] for t in losses),
+                    max(v for t, v in d.items()
+                        if t.startswith(("val_", "best_val_", "test_"))))
+
+        diffs, worst_loss, worst_metric = compare(a2, b2)
+        log(f"run B (resume from E1): epoch-2 loss terms within "
+            f"{worst_loss:.3e} relative of run A ("
+            + ", ".join(f"{t} {diffs[t]:.2e}" for t in losses)
+            + f"), val/test metrics within {worst_metric:.3e} absolute; "
+            f"{sum(1 for v in diffs.values() if v == 0)}/{len(diffs)} "
+            f"scalars bit-equal; launches {launches_b}")
+        # the same resume with deterministic algorithms, in a child
+        # process (cuBLAS takes its workspace setting at start-up)
+        t = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--resume-check",
+             os.path.join(root, "deterministic")], capture_output=True,
+            text=True, timeout=600,
+            env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+        check(child.returncode == 0, "the deterministic resume failed: "
+              + child.stderr[-3000:])
+        pair = json.loads([line for line in child.stdout.splitlines()
+                           if line.startswith("RESUME_CHECK ")][-1][13:])
+        tags = [t_ for t_ in pair["a"] if t_ not in ("epoch_seconds",
+                                                     "data_seconds")]
+        unequal = {t_: (pair["a"][t_], pair["b"].get(t_)) for t_ in tags
+                   if pair["b"].get(t_) != pair["a"][t_]}
+        log(f"deterministic algorithms (child process, "
+            f"{time.perf_counter() - t:.1f} s): a resume from epoch 1 gives "
+            f"{len(tags) - len(unequal)}/{len(tags)} epoch-2 scalars "
+            f"bit-equal to the uninterrupted run's")
+        check(len(tags) >= 80 and not unequal, f"deterministic resume "
+              f"differs: {unequal}")
+        check(launches_b == _expected(12, 0, 2 * 12), f"run B launches "
+              f"{launches_b}")
+        check(worst_loss <= RESUME_LOSS_RTOL, f"run B's losses differ "
+              f"from run A's: {worst_loss}")
+        check(worst_metric <= RESUME_METRIC_ATOL, f"run B's metrics differ "
+              f"from run A's: {worst_metric}")
+    finally:
+        for k, fn in real.items():
+            setattr(train_mod, k, fn)
+        shutil.rmtree(root, ignore_errors=True)
+
+    val_first = [ms / n for _, (_, n, first), ms in timed["validate"]
+                 if first]
+    val_later = [ms / n for _, (_, n, first), ms in timed["validate"]
+                 if not first]
+    log(f"run A: {wall_a:.1f} s wall; epochs "
+        + ", ".join(f"{e}: {v['epoch_seconds']:.2f} s (data "
+                    f"{v['data_seconds']:.2f} s)"
+                    for e, v in sorted(epochs.items()) if e <= 2)
+        + f"; host ms between steps after each epoch's first: mean "
+        f"{sum(step_ms) / len(step_ms):.1f} (min {min(step_ms):.1f}, max "
+        f"{max(step_ms):.1f}); peak memory {peak_mb:.0f} MiB")
+    log("validate ms per scan (run, split, first pass on its loader?): "
+        + "; ".join(f"{r} {tag}{' first' if first else ''} {ms / n:.2f}"
+                    for r, (tag, n, first), ms in timed["validate"]))
+    log(f"checkpoint {ckpt_bytes} bytes; save ms (latest, plus copies to "
+        f"best and E<epoch>) "
+        + "; ".join(f"{r} {what} {ms:.0f}" for r, what, ms in timed["save"])
+        + "; load ms "
+        + "; ".join(f"{r} {what} {ms:.0f}" for r, what, ms in timed["load"]))
+    log(f"launches: run A {launches_a}")
+    return {"launches": launches_a, "epochs": epochs, "step_ms": step_ms,
+            "validate_first_ms_per_scan": val_first,
+            "validate_ms_per_scan": val_later, "ckpt_bytes": ckpt_bytes,
+            "timed": timed, "peak_mb": peak_mb,
+            "resume_loss_rel": worst_loss,
+            "resume_metric_abs": worst_metric,
+            "deterministic_resume_bit_equal": len(tags)}
+
+
+def resume_check(root: str) -> int:
+    """``--resume-check ROOT`` (phase 8 runs it in a child process with
+    ``CUBLAS_WORKSPACE_CONFIG`` set): with deterministic algorithms on, the
+    flagship for 2 epochs, then a resume from its epoch-1 checkpoint;
+    prints the epoch-2 scalars of both as one ``RESUME_CHECK`` JSON line."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from geot_tpu_torch.engine import train as train_mod
+    from geot_tpu_torch.engine.checkpoint import ckpt_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    cfg_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "cfgs", "tooth_semi",
+                            "transformer_finetune_fixmatch_ntm.yaml")
+    common = [f"root_dir={root}", "val_freq=1", "test_freq=2", "save_freq=1"]
+    train_mod.parse_and_run(["--cfg", cfg_path, "epochs=2", *common])
+    run_dir = os.path.join(root, "tooth_semi",
+                           os.listdir(os.path.join(root, "tooth_semi"))[0])
+    scalars = os.path.join(run_dir, "scalars.jsonl")
+    a2, n_lines = _epoch_scalars(scalars)
+    e1 = ckpt_path(os.path.join(run_dir, "checkpoint"),
+                   os.path.basename(run_dir), "E1")
+    train_mod.parse_and_run(["--cfg", cfg_path, "mode=resume",
+                             f"pretrained_path={e1}", "epochs=2", *common])
+    b2, _ = _epoch_scalars(scalars, skip=n_lines)
+    print("RESUME_CHECK " + json.dumps({"a": a2, "b": b2}), flush=True)
+    return 0
+
+
 def main() -> int:
+    if "--resume-check" in sys.argv[1:]:
+        return resume_check(sys.argv[sys.argv.index("--resume-check") + 1])
     faulthandler.dump_traceback_later(1100, exit=True)
     name, smi, limit_w = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -818,23 +1121,27 @@ def main() -> int:
     scans, results, serving, _, _ = phase_serving()
     phase_http(scans, results)
     train = phase_train()
+    trainer = phase_trainer()
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
-    # launches on the two main paths: 3 served scans, and the train run
-    # (2 cm batches + 3 steps); the first versions of FPS and kNN and the
-    # pruned kernels are on neither path
+    # launches on the three main paths: 3 served scans, the train run
+    # (2 cm batches + 3 steps) and the trainer's run A; the first versions
+    # of FPS and kNN and the pruned kernels are on no path
     trained = {k: sum(c[k] for c in train["cm_batches"] + train["per_step"])
                for k in serving}
     per_step = train["per_step"][0]
-    log(f"launches: serving {serving}, training {trained}")
+    log(f"launches: serving {serving}, training {trained}, trainer "
+        f"{trainer['launches']}")
 
     def entry(name, replaces):
         return {"name": name, "route": "cuda",
                 "source": f"geot_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces,
-                "launches": serving[name] + trained[name],
+                "launches": (serving[name] + trained[name]
+                             + trainer["launches"][name]),
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
+                "launches_trainer_run": trainer["launches"][name],
                 "library_ms": None, **recs[name]}
 
     kernels = [

@@ -4,9 +4,9 @@
 tree of a ``WholePartSeg`` (nested dicts of numpy arrays; no JAX needed)
 and returns the port's ``state_dict``, running statistics included.
 ``t_params_from_jax`` does the same for the ``Ins_T_mean`` T-predictor, and
-``semi_state_from_jax`` for the parts of a ``SemiTrainState`` that a step
-reads besides the optimizers: student, teacher, T-predictor, ``ema_t`` and
-``cm``. Dense kernels (in, out) become
+``semi_state_from_jax`` for a ``SemiTrainState``: student, teacher,
+T-predictor, ``ema_t`` and ``cm``, and, from a full-state checkpoint, both
+optax AdamW states and ``step``. Dense kernels (in, out) become
 Linear weights (out, in); flax BatchNorm ``scale``/``bias`` + ``mean``/
 ``var`` become ``weight``/``bias`` + ``running_mean``/``running_var``;
 LayerNorm and GroupNorm ``scale`` becomes ``weight``.
@@ -99,15 +99,44 @@ def t_params_from_jax(t_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         t_params["T_predictor"]["fc"], dtype=np.float32))}
 
 
+def _adam_state(opt_state: Dict[str, Any]) -> Dict[str, Any]:
+    """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an
+    optax state written as nested dicts (``flax.serialization``)."""
+    if {"count", "mu", "nu"} <= set(opt_state):
+        return opt_state
+    found = [_adam_state(v) for v in opt_state.values()
+             if isinstance(v, dict)]
+    found = [f for f in found if f is not None]
+    if len(found) > 1:
+        raise ValueError("more than one Adam state in the optimizer state")
+    return found[0] if found else None
+
+
+def _moments(opt_state: Dict[str, Any], convert) -> Dict[str, Any]:
+    """optax Adam moments -> ``{"step", "exp_avg", "exp_avg_sq"}`` keyed by
+    the port's parameter names, through the weights' own converter."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer "
+                         "state")
+    return {"step": int(np.asarray(adam["count"])),
+            "exp_avg": convert(adam["mu"]),
+            "exp_avg_sq": convert(adam["nu"])}
+
+
 def semi_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
     """A ``geot_tpu`` ``SemiTrainState`` as a dict of numpy trees (keys
     ``params``, ``batch_stats``, ``t_params``, ``teacher_params``,
-    ``teacher_batch_stats``, ``ema_t``, ``cm``) -> what
-    ``engine.state.SemiTrainState.load`` takes."""
+    ``teacher_batch_stats``, ``ema_t``, ``cm``; a full-state checkpoint,
+    as ``geot_tpu.engine.checkpoint._restore`` reads it, also has
+    ``opt_state``, ``t_opt_state`` and ``step``) -> what
+    ``engine.state.SemiTrainState.load`` takes. The optimizer moments are
+    matched to parameters by name, never by position: torch keeps them in
+    param-group order, optax in tree order."""
     def f32(a):
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
-    return {
+    out = {
         "model": params_from_jax({"params": state["params"],
                                   "batch_stats": state["batch_stats"]}),
         "teacher": params_from_jax({"params": state["teacher_params"],
@@ -117,3 +146,11 @@ def semi_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
         "ema_t": f32(state["ema_t"]),
         "cm": f32(state["cm"]),
     }
+    if "opt_state" in state:
+        out["opt"] = _moments(state["opt_state"], lambda tree: params_from_jax(
+            {"params": tree, "batch_stats": {}}))
+    if "t_opt_state" in state:
+        out["t_opt"] = _moments(state["t_opt_state"], t_params_from_jax)
+    if "step" in state:
+        out["step"] = int(np.asarray(state["step"]))
+    return out

@@ -1,9 +1,13 @@
-"""Full-resolution prediction (``geot_tpu/engine/eval.py:26-71``): softmax
-the logits of the sample, then 3-NN + inverse-distance interpolate them to
-every point of the raw scan and take the argmax."""
+"""Full-resolution prediction and validation
+(``geot_tpu/engine/eval.py:26-71, 105-300``): softmax the logits of the
+sample, 3-NN + inverse-distance interpolate them to every point of the raw
+scan and take the argmax; for validation, count a (C, C) confusion matrix
+per scan on the device and turn it into IoU, DSC and accuracy on the host.
+"""
 from __future__ import annotations
 
-from typing import List
+import logging
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -58,3 +62,148 @@ def get_pred_whole(logits: torch.Tensor, pos: torch.Tensor, full_points_list,
         pred = _upsample_pred(probs[i], pos[i], padded, center, scale)
         preds.append(pred.to(torch.uint8).cpu().numpy()[:len(full)])
     return preds
+
+
+def _upsample_cm(probs: torch.Tensor, pos: torch.Tensor,
+                 full_points: torch.Tensor, center: torch.Tensor,
+                 scale: torch.Tensor, labels: torch.Tensor,
+                 n_valid: int, num_classes: int = 17) -> torch.Tensor:
+    """The full-resolution upsample of one scan and its (C, C) int32
+    confusion matrix (rows the label, columns the prediction), on the
+    device of ``probs``. ``full_points`` and ``labels`` are padded to a
+    bucket; rows from ``n_valid`` on are padding and are not counted
+    (``eval.py:105-119``)."""
+    pred = _upsample_pred(probs, pos, full_points, center, scale)
+    flat = labels.long() * num_classes + pred
+    valid = torch.arange(pred.shape[0], device=pred.device) < n_valid
+    flat = torch.where(valid, flat, num_classes * num_classes)
+    cm = torch.bincount(flat, minlength=num_classes * num_classes + 1)
+    return cm[:-1].to(torch.int32).reshape(num_classes, num_classes)
+
+
+def _metrics_from_cm(cm: np.ndarray):
+    """(accuracy, mIoU, mDSC) of a (C, C) label x prediction confusion
+    matrix, in float64 (``eval.py:122``): the gum class 0 is excluded and
+    classes absent from the labels are skipped; NaN where nothing is left
+    to average."""
+    cm = np.asarray(cm, dtype=np.float64)
+    row, col, diag = cm.sum(1), cm.sum(0), np.diag(cm)
+    ious, dscs = [], []
+    for c in range(1, cm.shape[0]):
+        if row[c] == 0:
+            continue
+        union = row[c] + col[c] - diag[c]
+        iou = diag[c] / union if union > 0 else 0.0
+        ious.append(iou)
+        dscs.append(2 * iou / (1 + iou))
+    total = cm.sum()
+    acc = float(diag.sum() / total) if total else float("nan")
+    miou = float(np.mean(ious)) if ious else float("nan")
+    mdsc = float(np.mean(dscs)) if dscs else float("nan")
+    return acc, miou, mdsc
+
+
+def _eval_cache(loader, device: torch.device, bucket: int) -> List[Dict]:
+    """The loader's batches as device tensors: each batch's model inputs
+    and sampled labels, and per scan the padded full-resolution points and
+    labels with their normalisation. Built on the first call and kept on
+    the loader, keyed by device: val and test batches are the same every
+    epoch (no ``set_epoch``, deterministic transforms)."""
+    stored = getattr(loader, "_geot_eval_cache", None)
+    if stored is not None and stored[0] == device:
+        return stored[1]
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    cache = []
+    for batch in loader:
+        entry = {"model_batch": {k: put(batch[k]) for k in ("pos", "x",
+                                                             "cls")},
+                 "y": put(batch["y"]), "samples": []}
+        for i, full in enumerate(batch["points"]):
+            full = np.asarray(full, dtype=np.float32)
+            padded = pad_to_bucket(full, bucket)
+            lab = np.zeros((len(padded),), dtype=np.int64)
+            lab[:len(full)] = np.asarray(batch["labels"][i])
+            entry["samples"].append({
+                "full": put(padded), "labels": put(lab),
+                "center": put(np.asarray(batch["center"][i], np.float32)),
+                "scale": put(np.float32(batch["scale"][i])),
+                "n_valid": len(full),
+                "side": int(np.asarray(batch["cls"][i]).reshape(-1)[0])})
+        cache.append(entry)
+    loader._geot_eval_cache = (device, cache)
+    return cache
+
+
+@torch.no_grad()
+def validate(eval_step: Callable, model: torch.nn.Module, val_loader,
+             cfg: Optional[Dict[str, Any]] = None,
+             logger: Optional[logging.Logger] = None, num_votes: int = 0,
+             bucket: int = BUCKET, tag: str = "val") -> Dict[str, float]:
+    """Whole-scan metrics of ``model`` over ``val_loader``
+    (``geot_tpu/engine/eval.py:144``): per scan, the full-resolution
+    confusion matrix gives accuracy, mIoU and mDSC; they are averaged over
+    the mandible (``cls`` 0) scans, the maxillary (``cls`` 1) scans and all
+    scans, plus ``sampled_acc``, the accuracy on the sampled points.
+
+    Everything runs on the device of ``model`` and is fetched to the host
+    once, at the end. Voting (``num_votes > 0``) is not ported."""
+    if num_votes:
+        raise NotImplementedError("num_votes > 0 (test-time voting) is not "
+                                  "ported")
+    cfg = cfg or {}
+    num_classes = int(cfg.get("num_classes", 17))
+    param = next(model.parameters())
+    cms, sides, accs = [], [], []
+    for entry in _eval_cache(val_loader, param.device, bucket):
+        pos = entry["model_batch"]["pos"]
+        # the model reads its own float dtype; the upsample float32 points
+        logits = eval_step(model, {k: v.to(param.dtype) if
+                                   v.is_floating_point() else v
+                                   for k, v in entry["model_batch"].items()})
+        if logits.shape[-1] != num_classes:
+            raise ValueError(f"cfg.num_classes={num_classes} != model "
+                             f"classes {logits.shape[-1]}")
+        accs.append((logits.argmax(-1) == entry["y"]).float().mean())
+        probs = torch.softmax(logits, dim=-1)
+        for i, s in enumerate(entry["samples"]):
+            cms.append(_upsample_cm(probs[i], pos[i], s["full"],
+                                    s["center"], s["scale"], s["labels"],
+                                    s["n_valid"], num_classes))
+            sides.append(s["side"])
+    # one copy to the host: the confusion matrices and the sampled
+    # accuracies in one float64 vector (counts below 2^53 are exact)
+    C2 = num_classes * num_classes
+    host = torch.cat([torch.stack(cms).reshape(-1).double(),
+                      torch.stack(accs).double()]).cpu().numpy() \
+        if cms else np.zeros((0,))
+    cm_host = host[:len(cms) * C2].reshape(-1, num_classes, num_classes)
+    acc_host = host[len(cms) * C2:]
+    per_side: Dict[int, Dict[str, List[float]]] = {
+        0: {"miou": [], "dsc": [], "acc": []},
+        1: {"miou": [], "dsc": [], "acc": []}}
+    for cm, side in zip(cm_host, sides):
+        acc, miou, mdsc = _metrics_from_cm(cm)
+        side_d = per_side[0 if side == 0 else 1]
+        side_d["miou"].append(miou)
+        side_d["dsc"].append(mdsc)
+        side_d["acc"].append(acc)
+
+    def mean(vals):
+        return float(np.mean(vals)) if len(vals) else float("nan")
+
+    out = {}
+    for name, side in (("mandible", 0), ("maxillary", 1)):
+        for k in ("miou", "dsc", "acc"):
+            out[f"{name}_{k}"] = mean(per_side[side][k])
+    n = len(sides)
+    for k in ("miou", "dsc", "acc"):
+        total = sum(per_side[0][k]) + sum(per_side[1][k])
+        out[f"whole_{k}"] = total / n if n else float("nan")
+    out["sampled_acc"] = mean(acc_host)
+    if logger is not None:
+        logger.info(f"{tag}: " + " ".join(f"{k}={v:.4f}"
+                                          for k, v in out.items()))
+    return out

@@ -9,6 +9,9 @@ AdamW optimizer for each of student and T-predictor, the NTM matrix
 step counter and the ``torch.Generator`` that draws the dropout and
 stochastic-depth masks. The contrastive memory bank and the EMA shadow of
 the weights for evaluation are not ported: the flagship has both off.
+
+``state_dict`` / ``load_state_dict`` carry the whole state, for
+checkpoints: a restored run continues exactly where the saved one was.
 """
 from __future__ import annotations
 
@@ -68,10 +71,62 @@ class SemiTrainState:
         """Take weights and matrices from a dict with the keys of
         ``engine.convert.semi_state_from_jax``: ``model``, ``teacher`` and
         ``t_predictor`` state_dicts, ``ema_t`` and ``cm``; each keeps the
-        device and dtype it has in the state."""
+        device and dtype it has in the state. Converted from a full-state
+        checkpoint, the dict also holds both optimizers' moments by
+        parameter name (``opt``, ``t_opt``: ``{"step", "exp_avg",
+        "exp_avg_sq"}``) and ``step``, which are taken too."""
         self.model.load_state_dict(tensors["model"], strict=True)
         self.teacher.load_state_dict(tensors["teacher"], strict=True)
         self.t_predictor.load_state_dict(tensors["t_predictor"], strict=True)
         self.ema_t = tensors["ema_t"].to(self.ema_t)
         self.cm = tensors["cm"].to(self.cm)
+        for key, opt, module in (("opt", self.opt, self.model),
+                                 ("t_opt", self.t_opt, self.t_predictor)):
+            if key in tensors:
+                _load_moments(opt, module, tensors[key])
+        if "step" in tensors:
+            self.step = int(tensors["step"])
         return self
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Everything a step reads or updates: the three modules' weights
+        and buffers, both AdamW states, ``ema_t``, ``cm``, the mask
+        generator's state and ``step``."""
+        return {"model": self.model.state_dict(),
+                "teacher": self.teacher.state_dict(),
+                "t_predictor": self.t_predictor.state_dict(),
+                "opt": self.opt.state_dict(),
+                "t_opt": self.t_opt.state_dict(),
+                "ema_t": self.ema_t, "cm": self.cm,
+                "generator": self.generator.get_state(),
+                "step": int(self.step)}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> "SemiTrainState":
+        """Restore ``state_dict()``'s output onto this state's devices. The
+        teacher is the saved teacher."""
+        self.model.load_state_dict(sd["model"], strict=True)
+        self.teacher.load_state_dict(sd["teacher"], strict=True)
+        self.t_predictor.load_state_dict(sd["t_predictor"], strict=True)
+        self.opt.load_state_dict(sd["opt"])
+        self.t_opt.load_state_dict(sd["t_opt"])
+        self.ema_t = sd["ema_t"].to(self.ema_t)
+        self.cm = sd["cm"].to(self.cm)
+        self.generator.set_state(sd["generator"].cpu())
+        self.step = int(sd["step"])
+        return self
+
+
+def _load_moments(opt: torch.optim.Optimizer, module: torch.nn.Module,
+                  moments: Dict[str, Any]) -> None:
+    """Set AdamW's per-parameter state from moments keyed by parameter
+    name; every trainable parameter must have both."""
+    names = {id(p): n for n, p in module.named_parameters()}
+    for group in opt.param_groups:
+        for p in group["params"]:
+            name = names[id(p)]
+            if name not in moments["exp_avg"]:
+                raise KeyError(f"no optimizer moments for {name!r}")
+            opt.state[p] = {
+                "step": torch.tensor(float(moments["step"])),
+                "exp_avg": moments["exp_avg"][name].to(p),
+                "exp_avg_sq": moments["exp_avg_sq"][name].to(p)}

@@ -1,5 +1,7 @@
-"""The FixMatch + NTM train step and the class-mean bootstrap step
-(``geot_tpu/engine/steps.py:147-423, 451``), flagship branches.
+"""The train and eval steps (``geot_tpu/engine/steps.py``), flagship
+branches: the FixMatch + NTM semi step (``:147-423``), the supervised
+warm-up step (``:83``), the eval and confusion steps (``:426, 435``) and
+the class-mean bootstrap step (``:451``).
 
 One step: the frozen teacher's softmax on the weak view gives the pseudo
 labels (or the student's own weak view, after ``switch_ep``); the student
@@ -9,6 +11,10 @@ is ``Poly1FocalLoss`` on the labelled part + the masked
 ``Poly1FocalLoss_U_corr`` on the corrected strong part + the 3D manifold
 loss on the instance matrices; AdamW updates the student (gradients
 clipped to a global norm) and the T-predictor with one learning rate.
+
+The eval, confusion and bootstrap steps run the model in eval mode (running
+BatchNorm statistics, no dropout) under ``no_grad``; the two train steps
+put the student back in train mode.
 
 The other ``criterion_u`` branches, ``pseudo_refine``, the feature-space,
 identity and contrastive losses, ``threed_anchors``,
@@ -33,17 +39,65 @@ _UNPORTED = ("use_feat_loss", "use_identity_loss", "use_contrastive",
              "ema_eval", "reference_bugs")
 
 
+def _refuse_unported(cfg: Dict[str, Any]) -> None:
+    on = [k for k in _UNPORTED if cfg.get(k)]
+    if on:
+        raise NotImplementedError(f"not ported: {on}")
+    if cfg["criterion_args"]["NAME"] != "Poly1FocalLoss":
+        raise NotImplementedError("only the flagship supervised loss is "
+                                  "ported: Poly1FocalLoss")
+
+
+def _zero_missing_grads(modules) -> None:
+    """A parameter the loss does not reach (T_linear, T_revision) gets a
+    zero gradient, as under ``jax.grad``, so weight decay still applies."""
+    for m in modules:
+        for p in m.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
+def make_supervised_step(cfg: Dict[str, Any]) -> Callable:
+    """``step(state, batch_l, lr) -> metrics``: one supervised update of
+    the student and its AdamW (``steps.py:83``, the phase
+    ``epoch <= supervised_epochs``; ``geot_tpu/engine/train.py:539-553``
+    trains the state's student, batch statistics and optimizer with it).
+    ``batch_l`` holds ``pos, x, cls, y``; the loss is the supervised
+    criterion on the labelled forward; gradients are clipped to a global
+    norm as in the semi step."""
+    _refuse_unported(cfg)
+    criterion = build_criterion_from_cfg(cfg["criterion_args"])
+    clip = cfg.get("grad_norm_clip")
+
+    def step(state: SemiTrainState, batch_l: Dict[str, torch.Tensor],
+             lr: float) -> Dict[str, torch.Tensor]:
+        model = state.model
+        model.train()
+        logits = model(batch_l, generator=state.generator)[0]
+        loss = criterion(logits, batch_l["y"])
+        state.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        _zero_missing_grads([model])
+        if clip is not None:
+            torch.nn.utils.clip_grad_norm_(model.parameters(), float(clip))
+        set_learning_rate(state.opt, lr)
+        state.opt.step()
+        state.step += 1
+        loss = loss.detach()
+        return {"loss": loss, "sup_loss": loss,
+                "unsup_loss": torch.zeros_like(loss)}
+
+    return step
+
+
 def make_semi_step(cfg: Dict[str, Any]) -> Callable:
     """``step(state, batch_l, batch_u, lr, use_teacher) -> metrics``:
     one update of ``state`` in place. ``batch_l`` holds ``pos, x, cls, y``
     and ``batch_u`` ``pos_w, x_w, cls_w, pos_s, x_s, cls_s, raw_pos, y``,
     tensors on the state's device; metrics are 0-d (or per-class) tensors
     on that device."""
-    on = [k for k in _UNPORTED if cfg.get(k)]
-    if on:
-        raise NotImplementedError(f"not ported: {on}")
-    if cfg["criterion_args"]["NAME"] != "Poly1FocalLoss" or \
-            cfg["criterion_u_args"]["NAME"] != "Poly1FocalLoss_U_corr":
+    _refuse_unported(cfg)
+    if cfg["criterion_u_args"]["NAME"] != "Poly1FocalLoss_U_corr":
         raise NotImplementedError(
             "only the flagship losses are ported: Poly1FocalLoss and "
             "Poly1FocalLoss_U_corr")
@@ -111,11 +165,7 @@ def make_semi_step(cfg: Dict[str, Any]) -> Callable:
         state.opt.zero_grad(set_to_none=True)
         state.t_opt.zero_grad(set_to_none=True)
         loss.backward()
-        # a parameter the loss does not reach (T_linear, T_revision) gets a
-        # zero gradient, as under jax.grad, so weight decay still applies
-        for p in list(model.parameters()) + list(t_pred.parameters()):
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        _zero_missing_grads([model, t_pred])
         if clip is not None:
             torch.nn.utils.clip_grad_norm_(model.parameters(), float(clip))
         set_learning_rate(state.opt, lr)
@@ -134,6 +184,34 @@ def make_semi_step(cfg: Dict[str, Any]) -> Callable:
             stats["student_acc"] = (student == target_u).float().mean()
         return {"loss": loss.detach(), "sup_loss": sup_loss.detach(),
                 "unsup_loss": unsup.detach(), **metrics, **stats}
+
+    return step
+
+
+def make_eval_step() -> Callable:
+    """``step(model, batch) -> logits (B, N, C)``: the eval-mode forward of
+    ``batch``'s ``pos, x, cls`` (``steps.py:426``)."""
+
+    @torch.no_grad()
+    def step(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+        model.eval()
+        return model(batch)[0]
+
+    return step
+
+
+def make_confusion_step(num_classes: int) -> Callable:
+    """``step(model, batch) -> (C, C)`` hard-label confusion counts, rows
+    the label and columns the prediction (``steps.py:435``), float32 as
+    there; ``engine.train.cal_confusion`` sums and row-normalises them."""
+
+    @torch.no_grad()
+    def step(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
+        model.eval()
+        pred = model(batch)[0].argmax(dim=-1).reshape(-1)
+        onehot_t = F.one_hot(batch["y"].reshape(-1).long(), num_classes)
+        onehot_p = F.one_hot(pred, num_classes)
+        return onehot_t.float().T @ onehot_p.float()
 
     return step
 
