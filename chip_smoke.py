@@ -62,15 +62,44 @@ Phases, each printed with the seconds elapsed when it starts:
    Prints epoch wall and data time, host
    ms between steps, validate ms per scan (first pass apart), checkpoint
    bytes and save/load ms, and peak memory.
+9. fast serving: the serving topology (``fast_pyramid=1024``,
+   ``fast_graph``) through the entry points. ``fps_stratified`` on the
+   card is bit-equal to the CPU's on a sampled scan and on a 2,000-point
+   scan sampled to 16,000 (duplicates), and is a permutation; the
+   flagship at full width with seeded weights serves 6 scans in float32
+   and 6 in bfloat16 through ``predict_scan`` (latency, peak memory, a
+   profiled window's device idle share), each scan launching 1
+   ``fps_cluster`` and 6 ``knn_split`` and nothing else; float32 on the
+   card against the port's CPU forward (max |dlogit| <= 1e-3 x the logit
+   p99, argmax agreement >= 0.999); bfloat16 on the card against the
+   port's CPU bfloat16 forward (argmax agreement >= 0.98, max |dlogit| <=
+   2 x the CPU's own bfloat16-vs-float32 difference; bounds fixed before
+   the first card run); 2 test-time votes, a two-member ensemble, and
+   ``predict_stream`` over 4 scans whose labels equal ``predict_scan``'s in
+   the same draw order, each with its launch counts checked; one request
+   to ``python -m geot_tpu_torch.engine.serve --fast`` in a child process,
+   whose labels equal ``predict_scan``'s.
+10. fast trainer: ``parse_and_run`` on
+   ``cfgs/tooth_semi/transformer_finetune_fixmatch_ntm_fast.yaml`` (a
+   student in the serving topology, the exact teacher) for 1 epoch with
+   validation and the test pass, then ``mode=test`` with 2 votes on its
+   best checkpoint: metrics in [0, 1], losses finite, launches checked
+   against the counts the code implies, ``fps_cluster`` launches counted
+   by shape ((6, 16000) -> 1024 and (2, 16000) -> 8192 once a step);
+   prints epoch wall and data time, host ms between steps, peak memory.
+Phase 3 also holds ``fps_cluster`` at the serving topology's prefix,
+(1|6, 16000) -> 1024 and a duplicate-heavy cloud, and ``knn_split`` at a
+fast scan's 6 searches, against their plain versions, with times and
+bounds.
 Then the ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; without a CUDA device it exits 1 at once.
 
     python3 chip_smoke.py --profile
 
-adds, after phase 8, a ``torch.profiler`` trace of 3 served scans and 2
-train steps: device time by kernel and the device's busy share of the wall
-time.
+adds, after phase 10, a ``torch.profiler`` trace of 3 served scans, 2
+train steps and 2 ``_fast.yaml`` train steps: device time by kernel and
+the device's busy share of the wall time.
 """
 from __future__ import annotations
 
@@ -362,11 +391,74 @@ def _kernels_knn(bound: Bound, path_shapes, ties_case):
     for rec in (new, old):
         rec["bound_by"] = bound(t_ops, t_bytes)[1]
         rec["max_abs_err"] = err
-    log(f"knn per scan (8 searches): split kernel {new['ms']:.4f} ms "
+    log(f"knn per scan ({len(path_shapes)} searches): split kernel "
+        f"{new['ms']:.4f} ms "
         f"(wrapper {new['wrapper_ms']:.4f}), unsplit kernel {old['ms']:.4f} ms "
         f"(wrapper {old['wrapper_ms']:.4f}), plain {new['plain_ms']:.2f} ms, bound "
         f"{new['bound_ms']:.4f} ms")
     return new, old
+
+
+def _kernels_fast(bound: Bound, pos, pos6, full, world):
+    """The serving topology's kernel shapes: ``fps_cluster`` for the
+    true-FPS prefix of 1024 at B = 1 (a served scan) and B = 6 (the fast
+    student) and on a duplicate-heavy cloud; ``knn_split`` at a fast scan's
+    6 searches, on points in the stratified order."""
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+
+    dev = pos.device
+    # 2,000 distinct points sampled to 16,000 with replacement, as
+    # predict_scan samples a small scan: min-distances reach 0 and the
+    # smallest-index rule decides every later pick
+    idx = np.random.default_rng(3).choice(2000, 16000, replace=True)
+    dup = pos[:, torch.from_numpy(idx).to(dev)].contiguous()
+    fps_rec = {}
+    for label, xyz in (("(1,16000,3)->1024", pos),
+                       ("(6,16000,3)->1024", pos6),
+                       ("duplicate-heavy (1,16000 of 2000,3)->1024", dup)):
+        B = xyz.shape[0]
+        before = ops.LAUNCHES["fps_cluster"]
+        got = ops.fps(xyz, 1024)
+        check(ops.LAUNCHES["fps_cluster"] == before + 1,
+              f"fps {label}: not routed to fps_cluster")
+        ref = ops.fps_ref(xyz, 1024)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"fps {label}: indices differ from "
+              f"fps_ref at {int((got != ref).sum())} places")
+        msg = f"fps {label}: indices bit-equal to fps_ref"
+        if not label.startswith("dup"):
+            ms = cuda_ms(lambda: ops.fps(xyz, 1024), 10)
+            b_ms, b_by = _fps_bound(bound, B, 16000, 1024)
+            fps_rec[f"ms_b{B}"] = ms
+            fps_rec[f"bound_ms_b{B}"] = b_ms
+            fps_rec["bound_by"] = b_by
+            msg += f"; {ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})"
+            if B == 1:
+                fps_rec["plain_ms_b1"] = cuda_ms(
+                    lambda: ops.fps_ref(xyz, 1024), 1)
+                msg += f", plain {fps_rec['plain_ms_b1']:.1f} ms"
+        log(msg)
+
+    perm = ops.fps_stratified(pos, 16000, 1024)
+    sp = ops.gather_points(pos, perm)
+    c512, c4096, c8192 = (sp[:, :n].contiguous() for n in (512, 4096, 8192))
+    shapes = (("propagation_2 three_nn, rows 512-4095",
+               sp[:, 512:4096].contiguous(), c512, 3),
+              ("propagation_1 three_nn, rows 512-8191",
+               sp[:, 512:8192].contiguous(), c512, 3),
+              ("dgcnn_pro_2 cross", c4096, c512, 4),
+              ("dgcnn_pro_1 cross", c8192, c4096, 4),
+              ("propagation_0 three_nn, rows 8192-15999",
+               sp[:, 8192:].contiguous(), c8192, 3),
+              ("upsample three_nn", full, world, 3))
+    ties = torch.cat([c8192, c8192[:, :3000]], dim=1).contiguous()
+    knn_new, knn_old = _kernels_knn(bound, shapes,
+                                    ("ties", sp[:, 8192:].contiguous(),
+                                     ties, 3))
+    return fps_rec, knn_new, knn_old
 
 
 def phase_kernels(bound: Bound):
@@ -408,6 +500,17 @@ def phase_kernels(bound: Bound):
     ties = torch.cat([c4096, c4096[:, :1000]], dim=1).contiguous()
     knn_rec, knnu_rec = _kernels_knn(bound, path_shapes,
                                      ("ties", c4096, ties, 4))
+    fast_fps, fast_knn, fast_knnu = _kernels_fast(bound, pos, pos6, full,
+                                                  world)
+    fps_rec["fast_prefix_1024"] = fast_fps
+    knn_rec["fast_scan_6_searches"] = {
+        k: fast_knn[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                 "bound_ms", "bound_by")}
+    knnu_rec["fast_scan_6_searches"] = {
+        k: fast_knnu[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                  "bound_ms", "bound_by")}
+    for rec, extra in ((knn_rec, fast_knn), (knnu_rec, fast_knnu)):
+        rec["max_abs_err"] = max(rec["max_abs_err"], extra["max_abs_err"])
 
     # the bucket-pruned kernels: equal to their plain versions AND to the
     # path's kernels, at the serving and training FPS shapes and the
@@ -558,9 +661,10 @@ def phase_serving():
     return scans, results, launches, lat, peak_mb
 
 
-def _profile(label: str, fn, reps: int) -> None:
+def _profile(label: str, fn, reps: int, top: int = 15):
     """Device time by kernel over ``reps`` calls of ``fn`` after a warm-up,
-    and the device's busy share of the wall time."""
+    and the device's busy share of the wall time; returns (wall ms, device
+    busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -581,9 +685,10 @@ def _profile(label: str, fn, reps: int) -> None:
     log(f"{label} x {reps}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %), idle "
         f"{100 * (1 - busy_us / wall_us):.1f} %")
-    for e in rows[:15]:
+    for e in rows[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  "
             f"{e.key[:90]}")
+    return wall_us / 1e3, busy_us / 1e3
 
 
 def phase_profile(scans, train):
@@ -591,8 +696,9 @@ def phase_profile(scans, train):
     goes on the device."""
     from geot_tpu_torch.data.build import MODEL_KEYS, SEMI_KEYS, to_device
     from geot_tpu_torch.engine.predict import load_model, predict_scan
+    from geot_tpu_torch.engine.state import SemiTrainState
     from geot_tpu_torch.engine.steps import make_semi_step
-    from geot_tpu_torch import FLAGSHIP_SEMI_CFG
+    from geot_tpu_torch import FLAGSHIP_SEG_ARGS, FLAGSHIP_SEMI_CFG
 
     log("phase 7: profile")
     model = load_model(seed=0, device="cuda")
@@ -603,6 +709,13 @@ def phase_profile(scans, train):
     bu = to_device(bu, SEMI_KEYS, "cuda")
     step = make_semi_step(FLAGSHIP_SEMI_CFG)
     _profile("train step", lambda: step(state, bl, bu, 1e-3, True), 2)
+    # the _fast.yaml step: a student in the serving topology, the exact
+    # teacher
+    fast = SemiTrainState.create(
+        FLAGSHIP_SEMI_CFG, seg_args=dict(FLAGSHIP_SEG_ARGS, **FAST),
+        teacher_args=FLAGSHIP_SEG_ARGS, seed=0, device="cuda")
+    fast.cm = state.cm
+    _profile("fast train step", lambda: step(fast, bl, bu, 1e-3, True), 2)
 
 
 def phase_http(scans, results):
@@ -1076,6 +1189,359 @@ def phase_trainer():
             "deterministic_resume_bit_equal": len(tags)}
 
 
+# the serving topology of geot_tpu's ``serve --fast``
+FAST = {"fast_pyramid": 1024, "fast_graph": True}
+# launches per fast scan: the true-FPS prefix; the non-prefix rows of the 3
+# FeaturePropagation levels, the 2 DGCNN cross-level searches (fast_graph
+# drops the 2 fine-level self-searches) and the full-resolution upsample
+_PER_FAST_SCAN = {"fps_cluster": 1, "knn_split": 6}
+# bfloat16 on the card against the port's CPU bfloat16 forward of the same
+# weights and input: bounds fixed from the CPU tests (tests/test_torch_fast.py
+# ::test_bfloat16_forward_matches_jax) before the first card run (PERF.md
+# §6): argmax agreement >= 0.98, and max |dlogit| at most 2 x the CPU's own
+# bfloat16-vs-float32 max |dlogit|
+BF16_AGREE = 0.98
+BF16_ERR_RATIO = 2.0
+
+
+def _launch_counts(**per):
+    from geot_tpu_torch import ops
+
+    return dict(dict.fromkeys(ops.LAUNCHES, 0), **per)
+
+
+def phase_fast_serving(scans):
+    """The serving topology (``fast_pyramid=1024``, ``fast_graph``) through
+    the entry points: ``fps_stratified`` on the card against the CPU,
+    ``predict_scan`` in float32 and bfloat16 (latency, idle share, peak
+    memory, launches per scan), each forward against the port's CPU
+    forward, votes, a two-member ensemble, ``predict_stream`` and one
+    request to ``serve --fast`` in a child process."""
+    import copy
+    import queue
+    import threading
+
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import FLAGSHIP_SEG_ARGS, FLAGSHIP_SEMI_CFG, ops
+    from geot_tpu_torch.data.tooth_semi import _synthetic_scan, pc_norm
+    from geot_tpu_torch.data.transforms import build_transforms_from_cfg
+    from geot_tpu_torch.engine.predict import (load_model, map_pred_to_fdi,
+                                               predict_scan, predict_stream)
+
+    log("phase 9: fast serving (fast_pyramid=1024, fast_graph)")
+    small, _ = _synthetic_scan(32, 2000)
+    sel = np.random.default_rng(0).choice(2000, 16000, replace=True)
+    for label, x in (("a sampled scan", _scan_sample(31)[1]),
+                     ("a 2,000-point scan sampled to 16,000",
+                      pc_norm(small)[0][sel])):
+        xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))[None]
+        got = ops.fps_stratified(xt.cuda(), 16000, 1024).cpu()
+        want = ops.fps_stratified(xt, 16000, 1024)
+        check(torch.equal(got, want), f"fps_stratified on {label}: card "
+              f"differs from CPU at {int((got != want).sum())} places")
+        check(torch.equal(got.sort(dim=1).values[0],
+                          torch.arange(16000, dtype=torch.int32)),
+              f"fps_stratified on {label}: not a permutation")
+        log(f"fps_stratified (1,16000)->16000, prefix 1024, on {label}: "
+            f"card bit-equal to the CPU, a permutation")
+
+    out = {"launches": _launch_counts()}
+
+    def counted(want, what):
+        got = dict(ops.LAUNCHES)
+        check(got == want, f"{what}: launches {got}, expected {want}")
+        for k in got:
+            out["launches"][k] += got[k]
+
+    models = {}
+    per_scan = _launch_counts(**_PER_FAST_SCAN)
+    for name, dtype in (("float32", None), ("bfloat16", "bfloat16")):
+        model = load_model(dict(FLAGSHIP_SEG_ARGS, **FAST, dtype=dtype),
+                           seed=0, device="cuda")
+        models[name] = model
+        predict_scan(model, scans[0], jaw=0)                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        lat = []
+        for n in range(6):
+            pts, jaw = scans[n % len(scans)], n % 2
+            ops.reset_launches()
+            t = time.perf_counter()
+            pred, logits = predict_scan(model, pts, jaw=jaw)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t) * 1e3)
+            counted(per_scan, f"fast {name} scan {n}")
+            check(logits.shape == (16000, 17) and logits.dtype ==
+                  torch.float32 and bool(torch.isfinite(logits).all()),
+                  f"fast {name} scan {n}: logits not finite/shaped")
+            check(pred.shape == (len(pts),) and pred.dtype == np.uint8
+                  and _fdi_ok(map_pred_to_fdi(pred, jaw), jaw),
+                  f"fast {name} scan {n}: bad labels")
+        # above what was resident before: the models of earlier phases
+        peak_mb = (torch.cuda.max_memory_allocated() - resident) / 2 ** 20
+        it = iter(scans * 3)
+        wall, busy = _profile(f"fast {name} scan", lambda: predict_scan(
+            model, next(it)), 3, top=8)
+        out[name] = {"latency_ms": lat, "peak_mb": peak_mb,
+                     "profiled_wall_ms_per_scan": wall / 3,
+                     "device_busy_ms_per_scan": busy / 3,
+                     "idle_share": 1 - busy / wall}
+        log(f"fast {name}: 6 scans {', '.join(f'{x:.2f}' for x in lat)} "
+            f"ms; peak memory "
+            f"{peak_mb:.0f} MiB above the resident {resident / 2 ** 20:.0f} "
+            f"MiB; launches per scan {per_scan}")
+
+    # each forward on the card against the port's CPU forward, one input
+    pos = torch.from_numpy(_scan_sample(21)[1])[None]
+    cls = torch.zeros((1, 1), dtype=torch.long)
+    fwd = {}
+    with torch.no_grad():
+        for name, model in models.items():
+            t = time.perf_counter()
+            cpu_model = copy.deepcopy(model).cpu()
+            fwd[name] = (model({"pos": pos.cuda(), "x": None,
+                                "cls": cls.cuda()})[0].cpu(),
+                         cpu_model({"pos": pos, "x": None, "cls": cls})[0])
+            log(f"fast {name} forward on the CPU: "
+                f"{time.perf_counter() - t:.1f} s")
+    (a32, b32), (abf, bbf) = fwd["float32"], fwd["bfloat16"]
+    p99 = float(b32.abs().flatten().kthvalue(
+        int(0.99 * b32.numel())).values)
+    diff32 = float((a32 - b32).abs().max())
+    agree32 = float((a32.argmax(-1) == b32.argmax(-1)).float().mean())
+    diffbf = float((abf - bbf).abs().max())
+    agreebf = float((abf.argmax(-1) == bbf.argmax(-1)).float().mean())
+    cpu_bf_err = float((bbf - b32).abs().max())
+    card_bf_err = float((abf - a32).abs().max())
+    log(f"fast float32, card vs CPU: max |dlogit| {diff32:.3e} (logit p99 "
+        f"{p99:.3f}: {diff32 / p99:.2e} of it), argmax agreement "
+        f"{agree32:.6f}")
+    log(f"fast bfloat16, card vs CPU: max |dlogit| {diffbf:.3e}, argmax "
+        f"agreement {agreebf:.6f}; bfloat16-vs-float32 max |dlogit| CPU "
+        f"{cpu_bf_err:.3e}, card {card_bf_err:.3e}; bound: agreement >= "
+        f"{BF16_AGREE}, max |dlogit| <= {BF16_ERR_RATIO} x {cpu_bf_err:.3e}")
+    check(diff32 <= 1e-3 * p99 and agree32 >= 0.999,
+          "fast float32 forward: card disagrees with the CPU")
+    check(agreebf >= BF16_AGREE and diffbf <= BF16_ERR_RATIO * cpu_bf_err,
+          "fast bfloat16 forward: card disagrees with the CPU")
+    out["card_vs_cpu"] = {"f32_max_abs": diff32, "f32_p99": p99,
+                          "f32_agree": agree32, "bf16_max_abs": diffbf,
+                          "bf16_agree": agreebf,
+                          "bf16_vs_f32_cpu": cpu_bf_err,
+                          "bf16_vs_f32_card": card_bf_err}
+
+    # votes, a two-member ensemble and the stream, in float32
+    model = models["float32"]
+    vote_t = build_transforms_from_cfg(
+        "vote", FLAGSHIP_SEMI_CFG["datatransforms"])
+    ops.reset_launches()
+    t = time.perf_counter()
+    pred, _ = predict_scan(model, scans[0], jaw=0, num_votes=2,
+                           vote_transform=vote_t)
+    torch.cuda.synchronize()
+    vote_ms = (time.perf_counter() - t) * 1e3
+    counted(_launch_counts(fps_cluster=3, knn_split=3 * 5 + 1), "2 votes")
+    check(_fdi_ok(map_pred_to_fdi(pred, 0), 0), "2 votes: bad labels")
+    members = (model, load_model(dict(FLAGSHIP_SEG_ARGS, **FAST), seed=1,
+                                 device="cuda"))
+    ops.reset_launches()
+    t = time.perf_counter()
+    pred, _ = predict_scan(members, scans[1], jaw=1)
+    torch.cuda.synchronize()
+    ens_ms = (time.perf_counter() - t) * 1e3
+    counted(_launch_counts(fps_cluster=2, knn_split=2 * 5 + 1), "ensemble")
+    check(_fdi_ok(map_pred_to_fdi(pred, 1), 1), "ensemble: bad labels")
+    items = [(f"scan{n}", scans[n % len(scans)], n % 2) for n in range(4)]
+    rng = np.random.default_rng(0)
+    expect = [predict_scan(members, p, jaw=j, seed=rng)[0]
+              for _, p, j in items]
+    list(predict_stream(members, iter(items), seed=0))       # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t = time.perf_counter()
+    streamed = list(predict_stream(members, iter(items), seed=0,
+                                   inflight=2))
+    stream_s = time.perf_counter() - t
+    counted(_launch_counts(fps_cluster=4 * 2, knn_split=4 * (2 * 5 + 1)),
+            "stream")
+    check([x[0] for x in streamed] == [x[0] for x in items],
+          "stream: order")
+    for (name, _, got, _), exp in zip(streamed, expect):
+        check(np.array_equal(got, exp), f"stream {name}: labels differ "
+              f"from predict_scan at {int((got != exp).sum())} points")
+    log(f"fast float32: 2 votes {vote_ms:.1f} ms a scan; a two-member "
+        f"ensemble {ens_ms:.1f} ms a scan; predict_stream of 4 scans "
+        f"through the ensemble {stream_s * 1e3:.1f} ms, labels equal to "
+        f"predict_scan in the same draw order")
+    out.update(vote_ms=vote_ms, ensemble_ms=ens_ms,
+               stream_ms_per_scan=stream_s * 1e3 / 4)
+
+    # one request to the serving CLI with --fast, in a child process
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "geot_tpu_torch.engine.serve", "--fast",
+         "--port", "0"], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+
+    def read():
+        for x in proc.stdout:
+            lines.put(x)
+        lines.put("")                   # the child closed its output
+
+    threading.Thread(target=read, daemon=True).start()
+    try:
+        line, seen = "", []
+        while "serving on" not in line:
+            try:
+                line = lines.get(timeout=300)
+            except queue.Empty:
+                line = ""
+            seen.append(line)
+            check(bool(line), "serve --fast did not start: "
+                  + "".join(seen[-20:]))
+        base = line.split("serving on ")[1].split()[0]
+        buf = io.BytesIO()
+        np.save(buf, scans[2])
+        req = urllib.request.Request(f"{base}/predict?jaw=lower",
+                                     data=buf.getvalue(), method="POST")
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            d = json.load(r)
+        http_ms = (time.perf_counter() - t) * 1e3
+        want, _ = predict_scan(model, scans[2], jaw=0)
+        same = float(np.mean(np.asarray(d["labels"]) ==
+                             np.asarray(map_pred_to_fdi(want, 0))))
+        check(d["n_points"] == len(scans[2]) and _fdi_ok(d["labels"], 0)
+              and same >= 0.999, f"serve --fast: bad answer (agreement "
+              f"with predict_scan {same})")
+        log(f"serve --fast (child process): POST /predict {http_ms:.1f} ms "
+            f"round trip, labels agree with predict_scan {same:.6f}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    out["http_ms"] = http_ms
+    return out
+
+
+def phase_fast_trainer():
+    """``_fast.yaml`` (a student in the serving topology, an exact teacher)
+    through ``parse_and_run`` at full width: 1 epoch with validation and
+    the test pass, then ``mode=test`` with 2 votes on its best checkpoint;
+    ``fps_cluster`` launches counted by (batch, npoint)."""
+    import collections
+    import importlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.engine import train as train_mod
+    from geot_tpu_torch.engine.checkpoint import ckpt_path
+
+    log("phase 10: fast trainer (parse_and_run, _fast.yaml, full width)")
+    fps_mod = importlib.import_module("geot_tpu_torch.ops.fps")
+    cfg_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "cfgs", "tooth_semi",
+                            "transformer_finetune_fixmatch_ntm_fast.yaml")
+    root = tempfile.mkdtemp(prefix="geot_fast_trainer_")
+    shapes = collections.Counter()
+    real = fps_mod.fps_cluster
+
+    def counting(xyz, npoint, plan):
+        shapes[f"({xyz.shape[0]},{xyz.shape[1]})->{npoint}"] += 1
+        return real(xyz, npoint, plan)
+
+    fps_mod.fps_cluster = counting
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        t = time.perf_counter()
+        res = train_mod.parse_and_run(["--cfg", cfg_path, "epochs=1",
+                                       "val_freq=1", f"root_dir={root}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(ops.LAUNCHES)
+        shapes_a = dict(shapes)
+        peak_mb = (torch.cuda.max_memory_allocated() - resident) / 2 ** 20
+        (run_dir,) = [os.path.join(root, "tooth_semi", d)
+                      for d in os.listdir(os.path.join(root, "tooth_semi"))]
+        with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+            sc = {d["tag"]: d["value"] for d in map(json.loads, f)}
+        with open(os.path.join(run_dir, "step_times.jsonl")) as f:
+            step_ms = [json.loads(x)["dt"] * 1e3 for x in f]
+        for split in ("val", "test"):
+            bad = {k: v for k, v in res[split].items()
+                   if not (math.isfinite(v) and 0.0 <= v <= 1.0)}
+            check(not bad, f"fast run: {split} metrics outside [0, 1]: "
+                  f"{bad}")
+        check(all(math.isfinite(sc[k]) for k in (
+            "train_loss", "train_loss_l", "train_loss_u",
+            "insT_threed_loss")), "fast run: a loss is not finite")
+        # cm bootstrap 12 batches + 12 steps + val and test 12 batches
+        # each: the student (B = 2 or 6, prefix 1024) everywhere, the exact
+        # teacher (B = 2, 8192) in the steps; knn_split 5 a fast forward,
+        # 7 an exact one, 1 an upsampled scan
+        want = _launch_counts(fps_cluster=12 + 2 * 12 + 12 + 12,
+                              knn_split=12 * 5 + 12 * (5 + 7)
+                              + 2 * 12 * (5 + 2))
+        want_shapes = {"(2,16000)->1024": 36, "(6,16000)->1024": 12,
+                       "(2,16000)->8192": 12}
+        check(launches == want, f"fast run launches {launches}, expected "
+              f"{want}")
+        check(shapes_a == want_shapes, f"fast run fps_cluster shapes "
+              f"{shapes_a}, expected {want_shapes}")
+
+        shapes.clear()
+        ops.reset_launches()
+        best = ckpt_path(os.path.join(run_dir, "checkpoint"),
+                         os.path.basename(run_dir), "best")
+        t = time.perf_counter()
+        res_t = train_mod.parse_and_run(
+            ["--cfg", cfg_path, "mode=test", "num_votes=2",
+             f"pretrained_path={best}", f"root_dir={root}"])
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t
+        launches_t = dict(ops.LAUNCHES)
+        want = _launch_counts(fps_cluster=12 * 3,
+                              knn_split=12 * (3 * 5 + 2))
+        check(launches_t == want, f"mode=test with 2 votes: launches "
+              f"{launches_t}, expected {want}")
+        check(dict(shapes) == {"(2,16000)->1024": 36},
+              f"mode=test fps_cluster shapes {dict(shapes)}")
+        bad = {k: v for k, v in res_t["test"].items()
+               if not (math.isfinite(v) and 0.0 <= v <= 1.0)}
+        check(not bad, f"mode=test with votes: metrics outside [0, 1]: "
+              f"{bad}")
+    finally:
+        fps_mod.fps_cluster = real
+        shutil.rmtree(root, ignore_errors=True)
+    later = step_ms[1:]
+    log(f"fast run: {wall:.1f} s wall; epoch {sc['epoch_seconds']:.2f} s "
+        f"(data {sc['data_seconds']:.2f} s); host ms between steps mean "
+        f"{sum(later) / len(later):.1f} (min {min(later):.1f}, max "
+        f"{max(later):.1f}); peak memory {peak_mb:.0f} MiB above the "
+        f"resident {resident / 2 ** 20:.0f} MiB; fps_cluster "
+        f"launches by shape {shapes_a}; launches {launches}")
+    log(f"mode=test with 2 votes: {test_s:.1f} s; whole miou "
+        f"{res_t['test']['whole_miou']:.6f}; launches {launches_t}")
+    total = {k: launches[k] + launches_t[k] for k in launches}
+    return {"launches": total, "epoch_seconds": sc["epoch_seconds"],
+            "data_seconds": sc["data_seconds"], "step_ms": step_ms,
+            "fps_cluster_shapes": shapes_a, "peak_mb": peak_mb,
+            "wall_s": wall, "test_votes_s": test_s}
+
+
 def resume_check(root: str) -> int:
     """``--resume-check ROOT`` (phase 8 runs it in a child process with
     ``CUBLAS_WORKSPACE_CONFIG`` set): with deterministic algorithms on, the
@@ -1122,26 +1588,35 @@ def main() -> int:
     phase_http(scans, results)
     train = phase_train()
     trainer = phase_trainer()
+    fast = phase_fast_serving(scans)
+    fast_trainer = phase_fast_trainer()
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
-    # launches on the three main paths: 3 served scans, the train run
-    # (2 cm batches + 3 steps) and the trainer's run A; the first versions
-    # of FPS and kNN and the pruned kernels are on no path
+    # launches on the main paths: 3 served scans, the train run (2 cm
+    # batches + 3 steps), the trainer's run A, the fast scans (12, votes,
+    # ensemble, stream) and the fast trainer's runs; the first versions of
+    # FPS and kNN and the pruned kernels are on no path
     trained = {k: sum(c[k] for c in train["cm_batches"] + train["per_step"])
                for k in serving}
     per_step = train["per_step"][0]
     log(f"launches: serving {serving}, training {trained}, trainer "
-        f"{trainer['launches']}")
+        f"{trainer['launches']}, fast serving {fast['launches']}, fast "
+        f"trainer {fast_trainer['launches']}")
 
     def entry(name, replaces):
         return {"name": name, "route": "cuda",
                 "source": f"geot_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces,
                 "launches": (serving[name] + trained[name]
-                             + trainer["launches"][name]),
+                             + trainer["launches"][name]
+                             + fast["launches"][name]
+                             + fast_trainer["launches"][name]),
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
                 "launches_trainer_run": trainer["launches"][name],
+                "launches_fast_scan": _PER_FAST_SCAN.get(name, 0),
+                "launches_fast_serving": fast["launches"][name],
+                "launches_fast_trainer": fast_trainer["launches"][name],
                 "library_ms": None, **recs[name]}
 
     kernels = [

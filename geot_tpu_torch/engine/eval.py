@@ -1,8 +1,10 @@
 """Full-resolution prediction and validation
-(``geot_tpu/engine/eval.py:26-71, 105-300``): softmax the logits of the
-sample, 3-NN + inverse-distance interpolate them to every point of the raw
-scan and take the argmax; for validation, count a (C, C) confusion matrix
-per scan on the device and turn it into IoU, DSC and accuracy on the host.
+(``geot_tpu/engine/eval.py:26-300``): softmax the logits of the sample,
+3-NN + inverse-distance interpolate them to every point of the raw scan and
+take the argmax; for validation, count a (C, C) confusion matrix per scan on
+the device and turn it into IoU, DSC and accuracy on the host. Test-time
+voting (``tta_vote_logits``) averages the softmax over extra passes on
+transformed positions.
 """
 from __future__ import annotations
 
@@ -64,6 +66,26 @@ def get_pred_whole(logits: torch.Tensor, pos: torch.Tensor, full_points_list,
     return preds
 
 
+def tta_vote_logits(logits: torch.Tensor, pos_host: np.ndarray,
+                    num_votes: int, transform, rng: np.random.Generator,
+                    run_on_pos: Callable[[torch.Tensor], torch.Tensor]
+                    ) -> torch.Tensor:
+    """The reference's test-time voting (``geot_tpu/engine/eval.py:81``):
+    the softmax of ``logits`` plus that of ``num_votes`` passes of
+    ``run_on_pos`` over ``transform``-ed copies of ``pos_host``, averaged and
+    returned as log-probabilities. The transform draws from ``rng`` on the
+    host and sees ``pos_host`` as the caller has it: the batched (B, N, 3)
+    positions in ``validate`` (one draw for the batch), one (N, 3) scan in
+    ``predict_scan``."""
+    probs = torch.softmax(logits, dim=-1)
+    for _ in range(num_votes):
+        voted = transform({"pos": np.asarray(pos_host).copy()}, rng)
+        vpos = torch.from_numpy(np.ascontiguousarray(voted["pos"]))
+        probs = probs + torch.softmax(
+            run_on_pos(vpos.to(logits.device)), dim=-1)
+    return torch.log(probs / (num_votes + 1) + 1e-12)
+
+
 def _upsample_cm(probs: torch.Tensor, pos: torch.Tensor,
                  full_points: torch.Tensor, center: torch.Tensor,
                  scale: torch.Tensor, labels: torch.Tensor,
@@ -120,6 +142,7 @@ def _eval_cache(loader, device: torch.device, bucket: int) -> List[Dict]:
     for batch in loader:
         entry = {"model_batch": {k: put(batch[k]) for k in ("pos", "x",
                                                              "cls")},
+                 "pos_host": np.asarray(batch["pos"]),
                  "y": put(batch["y"]), "samples": []}
         for i, full in enumerate(batch["points"]):
             full = np.asarray(full, dtype=np.float32)
@@ -141,28 +164,46 @@ def _eval_cache(loader, device: torch.device, bucket: int) -> List[Dict]:
 def validate(eval_step: Callable, model: torch.nn.Module, val_loader,
              cfg: Optional[Dict[str, Any]] = None,
              logger: Optional[logging.Logger] = None, num_votes: int = 0,
-             bucket: int = BUCKET, tag: str = "val") -> Dict[str, float]:
+             data_transform=None, bucket: int = BUCKET,
+             tag: str = "val") -> Dict[str, float]:
     """Whole-scan metrics of ``model`` over ``val_loader``
     (``geot_tpu/engine/eval.py:144``): per scan, the full-resolution
     confusion matrix gives accuracy, mIoU and mDSC; they are averaged over
     the mandible (``cls`` 0) scans, the maxillary (``cls`` 1) scans and all
     scans, plus ``sampled_acc``, the accuracy on the sampled points.
 
+    ``num_votes > 0`` averages the softmax over that many extra passes on
+    positions transformed by ``data_transform`` (the config's ``vote``
+    pipeline), drawn from one numpy generator seeded with ``cfg.seed``
+    (``tta_vote_logits``); without a transform it raises, where
+    ``geot_tpu`` would quietly not vote.
+
     Everything runs on the device of ``model`` and is fetched to the host
-    once, at the end. Voting (``num_votes > 0``) is not ported."""
-    if num_votes:
-        raise NotImplementedError("num_votes > 0 (test-time voting) is not "
-                                  "ported")
+    once, at the end."""
+    if num_votes and data_transform is None:
+        raise ValueError("num_votes > 0 needs a vote transform pipeline "
+                         "(datatransforms.vote)")
     cfg = cfg or {}
     num_classes = int(cfg.get("num_classes", 17))
+    vote_rng = np.random.default_rng(int(cfg.get("seed", 0)))
     param = next(model.parameters())
+
+    def model_batch(batch):
+        # the model reads its own float dtype; the upsample float32 points
+        return {k: v.to(param.dtype) if v.is_floating_point() else v
+                for k, v in batch.items()}
+
     cms, sides, accs = [], [], []
     for entry in _eval_cache(val_loader, param.device, bucket):
         pos = entry["model_batch"]["pos"]
-        # the model reads its own float dtype; the upsample float32 points
-        logits = eval_step(model, {k: v.to(param.dtype) if
-                                   v.is_floating_point() else v
-                                   for k, v in entry["model_batch"].items()})
+        logits = eval_step(model, model_batch(entry["model_batch"]))
+        if num_votes:
+            def run(vpos, batch=entry["model_batch"]):
+                return eval_step(model, model_batch(dict(batch, pos=vpos,
+                                                         x=vpos)))
+
+            logits = tta_vote_logits(logits, entry["pos_host"], num_votes,
+                                     data_transform, vote_rng, run)
         if logits.shape[-1] != num_classes:
             raise ValueError(f"cfg.num_classes={num_classes} != model "
                              f"classes {logits.shape[-1]}")

@@ -1,8 +1,16 @@
 """HTTP serving endpoint over ``predict_scan`` (stdlib ``http.server``),
-the counterpart of ``geot_tpu/engine/serve.py:110-285`` for ``.npy``
+the counterpart of ``geot_tpu/engine/serve.py:110-330`` for ``.npy``
 bodies.
 
-    python -m geot_tpu_torch.engine.serve [--ckpt state_dict.pt] [--port 8756]
+    python -m geot_tpu_torch.engine.serve [--cfg <yaml>] [--fast]
+        [--ckpt weights.pt[,more.pt ...]] [--port 8756] [k=v ...]
+
+``--cfg`` takes the model (``model.segmentor_args``) and ``num_points``
+from a config, with ``k=v`` overrides (e.g.
+``model.segmentor_args.dtype=bfloat16``); without it the flagship is
+served. ``--fast`` serves the stratified pyramid (``fast_pyramid=1024``)
+with ``fast_graph``. A comma-separated ``--ckpt`` serves the ensemble of
+its members.
 
 API:
   GET  /healthz                    -> {"status": "ok", "scans_served": N}
@@ -19,12 +27,13 @@ import threading
 import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
 
+from ..core.config import FLAGSHIP_SEG_ARGS, EasyConfig
 from .predict import load_model, map_pred_to_fdi, predict_scan
 
 # a single oversized POST must not exhaust host memory (a 1M-point f32 .npy
@@ -34,11 +43,11 @@ READ_TIMEOUT_S = 30.0
 
 
 class _Service:
-    """The model on its device, and a lock serialising scans across HTTP
-    threads."""
+    """The model (or the ensemble's members) on its device, and a lock
+    serialising scans across HTTP threads."""
 
     def __init__(self, seg_args: Optional[Dict[str, Any]] = None,
-                 ckpt: Optional[str] = None, seed: int = 0,
+                 ckpt: "str | Sequence[str] | None" = None, seed: int = 0,
                  num_points: int = 16000,
                  device: "str | torch.device" = "cuda", warmup: bool = True):
         self.model = load_model(seg_args, ckpt, seed=seed, device=device)
@@ -140,7 +149,7 @@ def make_handler(service: _Service):
 
 
 def serve(seg_args: Optional[Dict[str, Any]] = None,
-          ckpt: Optional[str] = None, port: int = 8756,
+          ckpt: "str | Sequence[str] | None" = None, port: int = 8756,
           host: str = "127.0.0.1", seed: int = 0, num_points: int = 16000,
           device: "str | torch.device" = "cuda",
           warmup: bool = True) -> ThreadingHTTPServer:
@@ -155,17 +164,51 @@ def serve(seg_args: Optional[Dict[str, Any]] = None,
     return httpd
 
 
+def serving_args(cfg_path: Optional[str], opts, fast: bool):
+    """``(seg_args, num_points)`` of a config file with ``k=v`` overrides
+    (the flagship without one); ``fast`` turns on the serving topology as
+    ``geot_tpu/engine/serve.py:309-311`` does."""
+    cfg = EasyConfig()
+    if cfg_path:
+        cfg.load(cfg_path, recursive=True)
+    else:
+        cfg.update({"model": {"segmentor_args": dict(FLAGSHIP_SEG_ARGS)}})
+    cfg.update(list(opts))
+    if fast:
+        cfg.model.segmentor_args.fast_pyramid = 1024
+        cfg.model.segmentor_args.fast_graph = True
+    return (dict(cfg.model.segmentor_args),
+            int(cfg.get("num_points", 16000)))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser("GeoT serving endpoint (PyTorch/CUDA)")
+    parser.add_argument("--cfg", default=None,
+                        help="config whose model and num_points to serve; "
+                             "the flagship without one")
     parser.add_argument("--ckpt", default=None,
-                        help="state_dict saved with torch.save; seeded "
-                             "random weights without one")
+                        help="state_dict saved with torch.save or a "
+                             "checkpoint of the port's trainer; "
+                             "comma-separate several for a mean-softmax "
+                             "ensemble; seeded random weights without one")
+    parser.add_argument("--artifact", default=None,
+                        help="an exported forward (not ported)")
+    parser.add_argument("--fast", action="store_true",
+                        help="stratified-FPS pyramid (fast_pyramid=1024) + "
+                             "fast_graph")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--port", type=int, default=8756)
     parser.add_argument("--host", default="127.0.0.1")
-    args = parser.parse_args(argv)
-    httpd = serve(ckpt=args.ckpt, port=args.port, host=args.host,
-                  seed=args.seed)
+    args, opts = parser.parse_known_args(argv)
+    if args.artifact:
+        raise NotImplementedError(
+            "not ported: --artifact (serving an exported forward, "
+            "geot_tpu's engine/export.py; it needs the kernels registered "
+            "as torch.library custom ops so that torch.export can reach "
+            "them)")
+    seg_args, num_points = serving_args(args.cfg, opts, args.fast)
+    httpd = serve(seg_args, ckpt=args.ckpt, port=args.port, host=args.host,
+                  seed=args.seed, num_points=num_points)
     print(f"serving on http://{args.host}:{httpd.server_address[1]}",
           flush=True)
     try:

@@ -2,8 +2,9 @@
 
 ``geot_tpu`` threads one immutable pytree through a jitted step; here the
 state is a set of modules and tensors that the step updates in place: the
-student, the frozen teacher (a copy of the initial student, as in
-``geot_tpu``, where ``steps.py`` never replaces it), the T-predictor, an
+student, the frozen teacher (built from its own arguments, ``model_t``, and
+given the initial student's weights, as in ``geot_tpu``, where
+``steps.py`` never replaces it), the T-predictor, an
 AdamW optimizer for each of student and T-predictor, the NTM matrix
 ``ema_t`` and the class-mean matrix ``cm`` (both identity at creation), the
 step counter and the ``torch.Generator`` that draws the dropout and
@@ -15,7 +16,6 @@ checkpoints: a restored run continues exactly where the saved one was.
 """
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
@@ -42,20 +42,29 @@ class SemiTrainState:
     @classmethod
     def create(cls, cfg: Dict[str, Any],
                seg_args: Optional[Dict[str, Any]] = None, seed: int = 0,
-               device: "str | torch.device" = "cuda") -> "SemiTrainState":
+               device: "str | torch.device" = "cuda",
+               teacher_args: Optional[Dict[str, Any]] = None
+               ) -> "SemiTrainState":
         """Student ``WholePartSeg(seg_args)`` (the flagship by default) and
-        the T-predictor of ``cfg`` with weights drawn from ``seed``, the
-        teacher a copy of the student, and the masks' generator seeded with
-        ``seed``, all on ``device``."""
+        the T-predictor of ``cfg`` with weights drawn from ``seed``; the
+        teacher ``WholePartSeg(teacher_args)`` (the student's arguments by
+        default: ``geot_tpu/engine/train.py:335`` builds ``model_t`` or
+        else ``model``) with the student's initial weights, whose names do
+        not depend on the topology; the masks' generator seeded with
+        ``seed``; all on ``device``."""
         device = resolve_device(device)
+        seg_args = seg_args or FLAGSHIP_SEG_ARGS
         model = build_model_from_cfg({"NAME": "WholePartSeg",
-                                      "segmentor_args": seg_args or
-                                      FLAGSHIP_SEG_ARGS})
+                                      "segmentor_args": seg_args})
         init_weights(model, torch.Generator().manual_seed(seed))
         t_predictor = build_model_from_cfg(cfg["t_predictor"])
         init_weights(t_predictor, torch.Generator().manual_seed(seed + 2))
         model, t_predictor = model.to(device), t_predictor.to(device)
-        teacher = copy.deepcopy(model).eval().requires_grad_(False)
+        teacher = build_model_from_cfg({"NAME": "WholePartSeg",
+                                        "segmentor_args": teacher_args or
+                                        seg_args}).to(device)
+        teacher.load_state_dict(model.state_dict())
+        teacher.eval().requires_grad_(False)
         opt_cfg = dict(cfg["optimizer"])
         C = int(cfg["num_classes"])
         eye = torch.eye(C, device=device)

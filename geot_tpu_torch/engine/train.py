@@ -24,6 +24,12 @@ line runs on the CPU; the default is the card, and without one it raises.
 - ``resume``: continue a run from its checkpoint, whole state restored;
 - ``val`` / ``test``: score a checkpoint's weights on that split.
 
+``model_t`` builds the teacher (the ``_fast.yaml`` recipe: a student in the
+serving topology, an exact teacher); ``num_votes > 0`` adds test-time
+voting over the config's ``vote`` pipeline to ``val`` / ``test`` and a
+``test_voting`` pass after each test pass. A compute ``dtype`` other than
+float32 is for serving and the eval modes; the training modes refuse it.
+
 SIGTERM or SIGINT during training means: finish the epoch, checkpoint, stop
 (a second one stops at once). Metrics accumulate on the device and are
 fetched once an epoch. Switches whose branch the port lacks raise
@@ -50,6 +56,7 @@ from ..core.metrics import AverageMeter, cal_model_parm_nums
 from ..core.random import set_random_seed
 from ..data.build import (MODEL_KEYS, SEMI_KEYS, build_dataloader_from_cfg,
                           semi_pairs, to_device)
+from ..data.transforms import build_transforms_from_cfg
 from ..optim import build_scheduler_from_cfg
 from .checkpoint import (ckpt_path, load_checkpoint, load_variables,
                          save_checkpoint)
@@ -76,11 +83,6 @@ REF_TAGS = {"train_loss": "loss", "train_loss_l": "sup_loss",
 CLS_TAGS = {"train_over_th_acc_class": "pseudo_acc_classwise",
             "train_over_th_num_class": "over_th_classwise",
             "train_over_th_recall_class": "over_th_recall_classwise"}
-
-# segmentor arguments that only change training-time randomness: the
-# teacher (model_t) runs in eval mode, where they do nothing
-_TRAIN_ONLY_ARGS = ("drop_path_rate", "head_dropout", "pretrained_path")
-
 
 def cal_mean_feature(cm_step: Callable, model: torch.nn.Module,
                      loader: Iterable, num_classes: int,
@@ -116,12 +118,21 @@ def cal_confusion(confusion_step: Callable, model: torch.nn.Module,
 
 def refuse_unported(cfg) -> None:
     """Raise ``NotImplementedError`` naming the first switch of ``cfg``
-    whose branch of ``geot_tpu``'s trainer the port lacks."""
+    whose branch of ``geot_tpu``'s trainer the port lacks, or a compute
+    ``dtype`` other than float32 in a training mode."""
     model = cfg.get("model") or {}
+    model_t = cfg.get("model_t") or {}
     mode = str(cfg.get("mode") or "train")
+    training = mode not in EVAL_MODES
+
+    def reduced(m):
+        dtype = (m.get("segmentor_args") or {}).get("dtype")
+        return dtype not in (None, "float32")
+
     refused = {
+        "model.segmentor_args.dtype": training and reduced(model),
+        "model_t.segmentor_args.dtype": training and reduced(model_t),
         "ema_eval": bool(cfg.get("ema_eval")),
-        "num_votes": int(cfg.get("num_votes", 0) or 0) > 0,
         "profile_epoch": int(cfg.get("profile_epoch", 0) or 0) > 0,
         "wandb.use_wandb": bool((cfg.get("wandb") or {}).get("use_wandb")),
         "jax_distributed": bool(cfg.get("jax_distributed")),
@@ -136,23 +147,15 @@ def refuse_unported(cfg) -> None:
         "task": cfg.get("task") in ("partseg", "cls"),
         "model.generator_args": "generator_args" in model,
         "model.NAME": model.get("NAME") != "WholePartSeg",
+        "model_t.NAME": model_t.get("NAME", "WholePartSeg") != "WholePartSeg",
         "dataset_u": not ("dataset_u" in cfg and "criterion_u_args" in cfg),
     }
     on = [k for k, v in refused.items() if v]
     if on:
         raise NotImplementedError(
             f"not ported: {on[0]}={_get(cfg, on[0])!r} (the port trains "
-            f"the semi-supervised WholePartSeg recipe on one device)")
-    model_t = cfg.get("model_t")
-    if model_t is not None:
-        a, b = (dict(m.get("segmentor_args", {})) for m in (model, model_t))
-        for key in _TRAIN_ONLY_ARGS:
-            a.pop(key, None)
-            b.pop(key, None)
-        if a != b or model_t.get("NAME") != model.get("NAME"):
-            raise NotImplementedError(
-                "not ported: model_t that differs from model (the port's "
-                "teacher is a copy of the student)")
+            f"the semi-supervised WholePartSeg recipe in float32 on one "
+            f"device)")
 
 
 def _get(cfg, dotted: str):
@@ -208,6 +211,11 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     writer = SummaryWriter(cfg.run_dir) if cfg.get("run_dir") else None
     num_classes = int(cfg.num_classes)
     tf = cfg.get("datatransforms")
+    num_votes = int(cfg.get("num_votes", 0) or 0)
+    vote_t = build_transforms_from_cfg("vote", tf) if num_votes else None
+    if num_votes and vote_t is None:
+        raise ValueError(f"num_votes={num_votes} needs a vote transform "
+                         f"pipeline (datatransforms.vote)")
 
     def loader(batch_size, ds_cfg, split):
         return build_dataloader_from_cfg(int(batch_size), ds_cfg, tf,
@@ -249,15 +257,19 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
         model.load_state_dict(weights, strict=True)
         model.to(device)
         res = validate(eval_step, model, test_loader if split == "test"
-                       else val_loader, cfg, logger, tag=split)
+                       else val_loader, cfg, logger, num_votes=num_votes,
+                       data_transform=vote_t, tag=split)
         if writer:
             for k, v in res.items():
                 writer.add_scalar(f"{mode}_{k}", v, 0)
             writer.close()
         return {split: res}
 
-    state = SemiTrainState.create(cfg, seg_args=dict(
-        cfg.model.segmentor_args), seed=seed, device=device)
+    model_t = cfg.get("model_t")
+    state = SemiTrainState.create(
+        cfg, seg_args=dict(cfg.model.segmentor_args), seed=seed,
+        device=device, teacher_args=(dict(model_t.segmentor_args)
+                                     if model_t else None))
     if weights is not None:
         state.model.load_state_dict(weights, strict=True)
         state.teacher.load_state_dict(weights, strict=True)
@@ -428,6 +440,15 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
                 if writer:
                     for k, v in res.items():
                         writer.add_scalar(f"test_{k}", v, epoch)
+                if num_votes:
+                    res_v = validate(eval_step, model, test_loader, cfg,
+                                     logger, num_votes=num_votes,
+                                     data_transform=vote_t,
+                                     tag="test_voting")
+                    results["test_voting"] = res_v
+                    if writer:
+                        for k, v in res_v.items():
+                            writer.add_scalar(f"test_{k}_voting", v, epoch)
 
             if preempted["sig"] is not None:
                 if cfg.get("ckpt_dir"):

@@ -2,8 +2,9 @@
 transition-matrix predictor ``SigTMean``.
 
 Counterpart of ``geot_tpu/models/backbone/transformer.py:33-469``
-(``_PointTransformerSegBase`` with ``with_T=True`` and
-``fast_pyramid=False``) and ``:651`` (``SigTMean``). In training mode
+(``_PointTransformerSegBase`` with ``with_T=True``, head mode "plain",
+the exact or the serving topology, float32 or bfloat16 compute) and
+``:651`` (``SigTMean``). In training mode
 (``module.train()``) BatchNorm uses batch statistics and updates its
 running ones as flax does, and stochastic depth (rate ``drop_path_rate *
 i / (depth - 1)`` in block i) and the seg head's dropout draw their masks
@@ -22,40 +23,46 @@ this module.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 
 from ...core.config import register_model
-from ...ops import (fps, gather_points, grouping_operation, knn,
-                   three_interpolation)
-from ..layers import (BatchNorm, DropPath, Dropout, GroupNorm, MlpBlock,
-                      SharedMLP)
+from ...ops import (fps, fps_stratified, gather_points, grouping_operation,
+                   knn, three_interpolation)
+from ..layers import (GELU, BatchNorm, Dense, DropPath, Dropout, DtypeArg,
+                      GroupNorm, LayerNorm, LeakyReLU, MlpBlock, SharedMLP,
+                      as_dtype, rounded, softmax)
 
 
 class MiniPointNetEncoder(nn.Module):
     """Per-group PointNet: 3 -> 256 local, max-pool global concat,
     -> ``encoder_channel``."""
 
-    def __init__(self, encoder_channel: int):
+    def __init__(self, encoder_channel: int, dtype: DtypeArg = None):
         super().__init__()
-        self.first_conv = nn.Sequential(nn.Linear(3, 128), BatchNorm(128),
-                                        nn.ReLU(), nn.Linear(128, 256))
-        self.second_conv = nn.Sequential(nn.Linear(512, 512), BatchNorm(512),
-                                         nn.ReLU(),
-                                         nn.Linear(512, encoder_channel))
+        self.first_conv = nn.Sequential(
+            Dense(3, 128, dtype=dtype), BatchNorm(128, dtype=dtype),
+            nn.ReLU(), Dense(128, 256, dtype=dtype))
+        self.second_conv = nn.Sequential(
+            Dense(512, 512, dtype=dtype), BatchNorm(512, dtype=dtype),
+            nn.ReLU(), Dense(512, encoder_channel, dtype=dtype))
 
     def forward(self, point_groups: torch.Tensor) -> torch.Tensor:
         # point_groups (B, G, K, 3) -> (B, G, encoder_channel)
         x = self.first_conv(point_groups)                    # (B, G, K, 256)
         g = x.amax(dim=2, keepdim=True)                      # (B, G, 1, 256)
         # Linear(concat([broadcast(g), x])) factored so the global term is
-        # computed once per group (geot_tpu's _FactoredConcatDense)
+        # computed once per group (geot_tpu's _FactoredConcatDense, which
+        # casts inputs and parameters to the compute dtype first)
         conv = self.second_conv[0]
+        dt = conv.compute_dtype or torch.promote_types(x.dtype,
+                                                       conv.weight.dtype)
+        w, b = conv.weight.to(dt), conv.bias.to(dt)
         C = x.shape[-1]
-        x = x @ conv.weight[:, C:].T + (g @ conv.weight[:, :C].T + conv.bias)
+        x = x.to(dt) @ w[:, C:].T + (g.to(dt) @ w[:, :C].T + b)
         x = self.second_conv[1:](x)
         return x.amax(dim=2)
 
@@ -64,11 +71,11 @@ class Attention(nn.Module):
     """Multi-head self-attention over the group tokens (the flagship's
     attention and projection dropout rates are 0)."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype: DtypeArg = None):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, dim * 3, bias=False)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Dense(dim, dim * 3, bias=False, dtype=dtype)
+        self.proj = Dense(dim, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
@@ -76,21 +83,25 @@ class Attention(nn.Module):
         hd = C // H
         qkv = self.qkv(x).reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]                     # (B, H, N, hd)
-        attn = (q @ k.transpose(-2, -1)) * (hd ** -0.5)
-        out = (attn.softmax(dim=-1) @ v).transpose(1, 2).reshape(B, N, C)
+        # the scale rounded to q's dtype first, as JAX's weak typing does
+        attn = (q @ k.transpose(-2, -1)) * rounded(hd ** -0.5, q.dtype)
+        out = (softmax(attn) @ v).transpose(1, 2).reshape(B, N, C)
         return self.proj(out)
 
 
 class Block(nn.Module):
-    """Pre-norm ViT block with stochastic depth."""
+    """Pre-norm ViT block with stochastic depth. The norms compute in the
+    residual stream's dtype (``geot_tpu`` gives them no ``dtype``), the
+    attention and the MLP in ``dtype``."""
 
-    def __init__(self, dim: int, num_heads: int, drop_path: float = 0.0):
+    def __init__(self, dim: int, num_heads: int, drop_path: float = 0.0,
+                 dtype: DtypeArg = None):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = Attention(dim, num_heads)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
+        self.attn = Attention(dim, num_heads, dtype)
         self.drop_path = DropPath(drop_path)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = MlpBlock(dim, 4 * dim)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
+        self.mlp = MlpBlock(dim, 4 * dim, dtype)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -104,11 +115,13 @@ class TransformerStack(nn.Module):
     returned."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
-                 drop_path_rate: float, extract_layers: Sequence[int]):
+                 drop_path_rate: float, extract_layers: Sequence[int],
+                 dtype: DtypeArg = None):
         super().__init__()
         dpr = ([float(drop_path_rate)] if depth == 1 else
                [float(drop_path_rate) * i / (depth - 1) for i in range(depth)])
-        self.blocks = nn.ModuleList(Block(dim, num_heads, drop_path=dpr[i])
+        self.blocks = nn.ModuleList(Block(dim, num_heads, drop_path=dpr[i],
+                                          dtype=dtype)
                                     for i in range(depth))
         self.extract_layers = tuple(extract_layers)
 
@@ -123,22 +136,32 @@ class TransformerStack(nn.Module):
 
 
 class PosEmbed(nn.Sequential):
-    """3 -> 128 -> dim MLP with exact GELU (names ``pos_embed.0/.2``)."""
+    """3 -> 128 -> dim MLP with exact GELU (names ``pos_embed.0/.2``), in
+    the centers' dtype."""
 
     def __init__(self, dim: int):
-        super().__init__(nn.Linear(3, 128), nn.GELU(approximate="none"),
-                         nn.Linear(128, dim))
+        super().__init__(Dense(3, 128), GELU(), Dense(128, dim))
 
 
 class FeaturePropagation(nn.Module):
-    """three_nn + inverse-distance interpolation + skip concat + SharedMLP."""
+    """three_nn + inverse-distance interpolation + skip concat + SharedMLP.
 
-    def __init__(self, channels: Sequence[int]):
+    ``prefix_n`` (the serving order): the first ``prefix_n`` unknown rows
+    ARE the known rows, so their interpolation is ``known_feats`` itself
+    and only the remaining rows are searched."""
+
+    def __init__(self, channels: Sequence[int], dtype: DtypeArg = None):
         super().__init__()
-        self.mlp = SharedMLP(channels)
+        self.mlp = SharedMLP(channels, dtype)
 
-    def forward(self, unknown_xyz, known_xyz, unknown_feats, known_feats):
-        interp = three_interpolation(unknown_xyz, known_xyz, known_feats)
+    def forward(self, unknown_xyz, known_xyz, unknown_feats, known_feats,
+                prefix_n: Optional[int] = None):
+        if prefix_n is not None:
+            rest = three_interpolation(unknown_xyz[:, prefix_n:], known_xyz,
+                                       known_feats)
+            interp = torch.cat([known_feats.to(rest.dtype), rest], dim=1)
+        else:
+            interp = three_interpolation(unknown_xyz, known_xyz, known_feats)
         if unknown_feats is not None:
             interp = torch.cat([interp, unknown_feats.to(interp.dtype)], dim=-1)
         return self.mlp(interp)
@@ -146,38 +169,60 @@ class FeaturePropagation(nn.Module):
 
 class DGCNNPropagation(nn.Module):
     """Graph-conv upsampling: two edge convs (k=4) with GroupNorm(4) +
-    LeakyReLU(0.2) and max over neighbours; hidden 4D/3, output D."""
+    LeakyReLU(0.2) and max over neighbours; hidden 4D/3, output D.
 
-    def __init__(self, dim: int = 384, k: int = 4):
+    ``reuse_cross_idx`` (the serving ``fast_graph``): the second edge conv
+    reuses the first one's cross-level neighbour indices instead of a
+    fine-level self-kNN. Valid only when the coarse rows are a prefix of the
+    fine rows (the stratified order), so an index addresses the same point
+    in both."""
+
+    def __init__(self, dim: int = 384, k: int = 4, dtype: DtypeArg = None):
         super().__init__()
         hidden = 4 * dim // 3
         self.k = k
-        self.layer1 = nn.Sequential(nn.Linear(2 * dim, hidden, bias=False),
-                                    GroupNorm(4, hidden, eps=1e-5),
-                                    nn.LeakyReLU(0.2))
-        self.layer2 = nn.Sequential(nn.Linear(2 * hidden, dim, bias=False),
-                                    GroupNorm(4, dim, eps=1e-5),
-                                    nn.LeakyReLU(0.2))
+        self.layer1 = nn.Sequential(
+            Dense(2 * dim, hidden, bias=False, dtype=dtype),
+            GroupNorm(4, hidden, eps=1e-5, dtype=dtype), LeakyReLU(0.2))
+        self.layer2 = nn.Sequential(
+            Dense(2 * hidden, dim, bias=False, dtype=dtype),
+            GroupNorm(4, dim, eps=1e-5, dtype=dtype), LeakyReLU(0.2))
 
-    def _graph_feature(self, coor_q, x_q, coor_k, x_k):
-        _, idx = knn(coor_q, coor_k, self.k)                 # (B, Nq, k)
+    def _graph_feature(self, coor_q, x_q, coor_k, x_k, idx=None):
+        if idx is None:
+            _, idx = knn(coor_q, coor_k, self.k)             # (B, Nq, k)
         neigh = grouping_operation(x_k, idx)                 # (B, Nq, k, C)
         center = x_q[:, :, None, :].expand_as(neigh)
-        return torch.cat([neigh - center, center], dim=-1)
+        return torch.cat([neigh - center, center], dim=-1), idx
 
-    def forward(self, coor, f, coor_q, f_q):
+    def forward(self, coor, f, coor_q, f_q, reuse_cross_idx: bool = False):
         # coor/f: coarse level; coor_q/f_q: fine level
-        h = self.layer1(self._graph_feature(coor_q, f_q, coor, f)).amax(dim=2)
-        h2 = self._graph_feature(coor_q, h, coor_q, h)
+        h, cross_idx = self._graph_feature(coor_q, f_q, coor, f)
+        h = self.layer1(h).amax(dim=2)
+        h2, _ = self._graph_feature(coor_q, h, coor_q, h,
+                                    cross_idx if reuse_cross_idx else None)
         return self.layer2(h2).amax(dim=2)
 
 
 @register_model("PointTransformer_seg_T")
 class PointTransformerSegT(nn.Module):
     """The GeoT flagship segmentor. ``forward`` returns
-    ``(logit (B, N, C), correction, sigma, f_l0 (B, N, D))``.
-    ``head_dropout`` is the seg head's dropout rate (0.5 as in the
-    reference; ``geot_tpu``'s argument of the same name)."""
+    ``(logit (B, N, C) float32 or wider, correction, sigma, f_l0 (B, N,
+    D))``. ``head_dropout`` is the seg head's dropout rate (0.5 as in the
+    reference; ``geot_tpu``'s argument of the same name).
+
+    Serving topology (``geot_tpu``'s arguments of the same names):
+    ``fast_pyramid`` True or an int L runs FPS only for the first
+    ``num_group`` (True) or ``max(L, num_group)`` selections and fills the
+    rest of the cloud by ``fps_stratified``; the whole cloud is processed in
+    that order, so each decoder level's support rows are a prefix of its
+    query rows and skip their 3-NN search, and the outputs are put back in
+    the caller's order at the end. ``fast_graph`` (only with
+    ``fast_pyramid``) makes both DGCNN layers reuse their cross-level
+    indices. ``dtype`` ("bfloat16", "float32", None) is the compute dtype
+    of the layers that ``geot_tpu`` gives one (``models.layers``);
+    parameters stay float32, and FPS and every neighbour search read
+    float32 coordinates."""
 
     def __init__(self, trans_dim: int = 384, depth: int = 12,
                  drop_path_rate: float = 0.1, nclasses: int = 17,
@@ -185,27 +230,33 @@ class PointTransformerSegT(nn.Module):
                  num_group: int = 512, encoder_dims: int = 256,
                  downsample_targets: Sequence[int] = (8192, 4096, 2048),
                  extract_layers: Sequence[int] = (4, 8, 12),
-                 head_dropout: float = 0.5):
+                 head_dropout: float = 0.5,
+                 fast_pyramid: Union[bool, int] = False,
+                 fast_graph: bool = False, dtype: DtypeArg = None):
         super().__init__()
         D = trans_dim
         self.num_group = num_group
         self.group_size = group_size
         self.downsample_targets = tuple(downsample_targets)
-        self.encoder = MiniPointNetEncoder(encoder_dims)
-        self.reduce_dim = (nn.Linear(encoder_dims, D) if encoder_dims != D
+        self.fast_pyramid = fast_pyramid
+        self.fast_graph = bool(fast_graph)
+        self.compute_dtype = as_dtype(dtype)
+        self.encoder = MiniPointNetEncoder(encoder_dims, dtype)
+        self.reduce_dim = (Dense(encoder_dims, D) if encoder_dims != D
                            else None)
         self.pos_embed = PosEmbed(D)
         self.blocks = TransformerStack(D, depth, num_heads, drop_path_rate,
-                                       extract_layers)
-        self.norm = nn.LayerNorm(D, eps=1e-5)
-        self.propogation_2 = FeaturePropagation([D + 3, D * 4, D])
-        self.propogation_1 = FeaturePropagation([D + 3, D * 4, D])
-        self.propogation_0 = FeaturePropagation([D + 5, D * 4, D])
-        self.dgcnn_pro_1 = DGCNNPropagation(D, k=4)
-        self.dgcnn_pro_2 = DGCNNPropagation(D, k=4)
-        self.seg_head = nn.Sequential(nn.Linear(D, 128), BatchNorm(128),
+                                       extract_layers, dtype)
+        self.norm = LayerNorm(D, eps=1e-5, dtype=dtype)
+        self.propogation_2 = FeaturePropagation([D + 3, D * 4, D], dtype)
+        self.propogation_1 = FeaturePropagation([D + 3, D * 4, D], dtype)
+        self.propogation_0 = FeaturePropagation([D + 5, D * 4, D], dtype)
+        self.dgcnn_pro_1 = DGCNNPropagation(D, k=4, dtype=dtype)
+        self.dgcnn_pro_2 = DGCNNPropagation(D, k=4, dtype=dtype)
+        self.seg_head = nn.Sequential(Dense(D, 128, dtype=dtype),
+                                      BatchNorm(128, dtype=dtype),
                                       Dropout(head_dropout),
-                                      nn.Linear(128, nclasses))
+                                      Dense(128, nclasses))
         # T_revision is in the reference checkpoint but unused in forward
         self.T_revision = nn.Linear(nclasses, nclasses, bias=False)
         self.T_linear = nn.Linear(nclasses, nclasses, bias=False)
@@ -219,11 +270,22 @@ class PointTransformerSegT(nn.Module):
                 generator: Optional[torch.Generator] = None):
         B, N, _ = pts.shape
         pts = pts.contiguous()
-        # the tokenizer centers and the decoder pyramid are prefixes of ONE
-        # FPS run (greedy selections are incremental)
-        max_n = max(max(self.downsample_targets), self.num_group)
-        # the FPS kernel reads float32 coordinates whatever the model's dtype
-        fps_pts = gather_points(pts, fps(pts.float().contiguous(), max_n))
+        perm = None
+        if self.fast_pyramid:
+            L = (self.num_group if self.fast_pyramid is True
+                 else max(int(self.fast_pyramid), self.num_group))
+            max_n = max(max(self.downsample_targets), L)
+            # the whole cloud in [true-FPS prefix | stratified fill] order
+            perm = fps_stratified(pts, N, L)                 # (B, N)
+            pts = gather_points(pts, perm)
+            fps_pts = pts[:, :max_n]
+        else:
+            # the tokenizer centers and the decoder pyramid are prefixes of
+            # ONE FPS run (greedy selections are incremental)
+            max_n = max(max(self.downsample_targets), self.num_group)
+            # the FPS kernel reads float32 coordinates whatever the dtype
+            fps_pts = gather_points(pts, fps(pts.float().contiguous(),
+                                             max_n))
         center = fps_pts[:, :self.num_group]
         _, knn_idx = knn(center, pts, self.group_size)
         neighborhood = grouping_operation(pts, knn_idx) - center[:, :, None, :]
@@ -240,16 +302,27 @@ class PointTransformerSegT(nn.Module):
         f_l0_in = torch.cat([onehot[:, None, :].expand(B, N, 2), pts], dim=-1)
 
         c = [fps_pts[:, :t] for t in self.downsample_targets]
+        prefix = self.num_group if perm is not None else None
+        reuse = self.fast_graph and perm is not None
         f_l3 = taps[2]
-        f_l2 = self.propogation_2(c[1], center, c[1], taps[1])
-        f_l1 = self.propogation_1(c[0], center, c[0], taps[0])
-        f_l2 = self.dgcnn_pro_2(center, f_l3, c[1], f_l2)
-        f_l1 = self.dgcnn_pro_1(c[1], f_l2, c[0], f_l1)
-        f_l0 = self.propogation_0(pts, c[0], f_l0_in, f_l1)
+        f_l2 = self.propogation_2(c[1], center, c[1], taps[1], prefix)
+        f_l1 = self.propogation_1(c[0], center, c[0], taps[0], prefix)
+        f_l2 = self.dgcnn_pro_2(center, f_l3, c[1], f_l2, reuse)
+        f_l1 = self.dgcnn_pro_1(c[1], f_l2, c[0], f_l1, reuse)
+        f_l0 = self.propogation_0(pts, c[0], f_l0_in, f_l1,
+                                  c[0].shape[1] if perm is not None else None)
         head = self.seg_head
         logit = head[3](head[2](head[1](head[0](f_l0)), generator))
         # logits in at least float32 (geot_tpu casts to float32, for bf16)
         logit = logit.to(torch.promote_types(logit.dtype, torch.float32))
+        if perm is not None:
+            # back to the caller's point order: the inverse permutation is
+            # a scatter of iota
+            inv = torch.empty_like(perm, dtype=torch.long).scatter_(
+                1, perm.long(), torch.arange(N, device=perm.device)
+                .expand(B, N))
+            logit = gather_points(logit, inv)
+            f_l0 = gather_points(f_l0, inv)
 
         correction = self.T_linear(T) if T is not None else None
         return logit, correction, self.sigma, f_l0

@@ -5,7 +5,7 @@ every op runs its plain PyTorch version for CPU tensors."""
 from ._build import LAUNCHES, reset_launches
 from .fps import (FpsPlan, cluster_exchange, fps, fps_block, fps_bucket,
                   fps_bucket_plan, fps_bucket_ref, fps_cluster, fps_gather,
-                  fps_plan, fps_ref)
+                  fps_plan, fps_ref, fps_stratified)
 from .group import gather_points, grouping_operation
 from .interpolate import three_interpolate, three_interpolation, three_nn
 from .knn import (knn, knn_pruned_plan, knn_small_k, knn_small_k_pruned,
@@ -16,8 +16,9 @@ from .morton import morton_codes, spatial_sort
 __all__ = ["LAUNCHES", "reset_launches", "FpsPlan", "cluster_exchange",
            "fps", "fps_block", "fps_bucket", "fps_bucket_plan",
            "fps_bucket_ref", "fps_cluster", "fps_gather", "fps_plan",
-           "fps_ref", "gather_points", "grouping_operation",
-           "three_interpolate", "three_interpolation", "three_nn", "knn",
+           "fps_ref", "fps_stratified", "gather_points",
+           "grouping_operation", "three_interpolate", "three_interpolation",
+           "three_nn", "knn",
            "knn_pruned_plan", "knn_small_k", "knn_small_k_pruned",
            "knn_small_k_pruned_ref", "knn_small_k_ref",
            "knn_small_k_unsplit", "knn_split_plan", "morton_codes",

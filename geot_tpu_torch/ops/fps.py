@@ -10,6 +10,11 @@ PyTorch version with the semantics of ``geot_tpu/ops/fps.py:_fps_impl``:
 idx[0] = 0, the running min-distance starts at 1e10, and each step takes the
 first maximum.
 
+``fps_stratified`` is the serving pyramid's order
+(``geot_tpu/ops/fps.py:95-167``): true FPS (``fps``, so the cluster kernel
+on the card) for a prefix, then the rest of the cloud in a fixed order, in
+plain PyTorch around the kernel as in ``geot_tpu``.
+
 ``fps_bucket`` is the wrapper of ``csrc/fps_bucket.cu`` (the port of
 ``geot_tpu/ops/pallas_fps.py:fps_bucket_pallas``): the same contract, bit
 for bit, computed over Morton-sorted 1024-point buckets that are skipped
@@ -19,13 +24,15 @@ when their box proves no min-distance in them can change.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build
 from .group import gather_points
-from .morton import spatial_sort
+from .morton import morton_codes, spatial_sort
 
 # fps_block: points per cloud whose xyz the kernel keeps in registers (512
 # threads x 32, their min-distance in shared memory); the min-distance of
@@ -206,6 +213,73 @@ def fps_block(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 def fps_gather(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """FPS returning the sampled coordinates (B, npoint, 3)."""
     return gather_points(xyz, fps(xyz, npoint))
+
+
+def _bitrev_schedule(n: int) -> np.ndarray:
+    """The bit-reversed visit order of 0..n-1 (van der Corput): every prefix
+    of it is spread evenly over [0, n)."""
+    bits = max(1, (n - 1).bit_length())
+    idx = np.arange(1 << bits)
+    rev = np.zeros_like(idx)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev[rev < n]
+
+
+@functools.lru_cache(maxsize=16)
+def _bitrev_on(n: int, device: torch.device) -> torch.Tensor:
+    """``_bitrev_schedule(n)`` on ``device``, uploaded once: a copy from
+    pageable host memory would wait for the device's queue on every call."""
+    return torch.from_numpy(_bitrev_schedule(n)).to(device)
+
+
+def fps_stratified(xyz: torch.Tensor, npoint: int, fps_prefix: int,
+                   perm_seed: int = 0, fill: str = "morton") -> torch.Tensor:
+    """(B, N, 3) -> (B, npoint) int32 indices without repeats: true FPS for
+    the first ``fps_prefix`` (``fps``), then the points not yet taken in a
+    fixed order. ``fill="morton"`` visits the cloud's Morton curve in
+    bit-reversed order, so every prefix of the fill covers the cloud
+    evenly; ``fill="perm"`` takes ``np.random.default_rng(perm_seed)
+    .permutation(N)``. With ``npoint == N`` the result is a permutation.
+
+    A cloud with fewer distinct points than ``fps_prefix`` makes FPS repeat
+    indices once its min-distances reach 0; only the first occurrence of
+    each head index is kept, and the kept entries of [head | fill] are
+    packed in order by a stable partition (two cumulative sums and one
+    scatter), as ``geot_tpu`` does, so the result is bit-equal to its."""
+    B, N, _ = xyz.shape
+    fps_prefix = min(fps_prefix, npoint)
+    xyz = xyz.float().contiguous()
+    head = fps(xyz, fps_prefix)
+    if fps_prefix == npoint:
+        return head
+    dev = xyz.device
+    if fill == "morton":
+        # stable, as jnp.argsort: equal codes are common at 10 bits an axis
+        curve = torch.sort(morton_codes(xyz), dim=-1, stable=True).indices
+        cand = curve[:, _bitrev_on(N, dev)]
+    elif fill == "perm":
+        perm = np.random.default_rng(perm_seed).permutation(N)
+        cand = torch.from_numpy(perm).to(dev)[None].expand(B, N)
+    else:
+        raise ValueError(f"fps_stratified: fill must be 'morton' or "
+                         f"'perm', got {fill!r}")
+    head = head.long()
+    L = head.shape[1]
+    taken = torch.zeros((B, N), dtype=torch.bool, device=dev).scatter_(
+        1, head, True)
+    untaken = ~taken.gather(1, cand)
+    jot = torch.arange(L, device=dev).expand(B, L)
+    first = torch.full((B, N), L, device=dev).scatter_reduce(
+        1, head, jot, reduce="amin")
+    occ = first.gather(1, head) == jot
+    # kept: the k distinct head indices and the N - k untaken candidates,
+    # exactly N, so ``pos`` is a bijection onto [0, L + N)
+    seqv = torch.cat([head, cand], dim=1)
+    keep = torch.cat([occ, untaken], dim=1)
+    pos = torch.where(keep, keep.cumsum(1) - 1, N + (~keep).cumsum(1) - 1)
+    part = torch.empty_like(seqv).scatter_(1, pos, seqv)
+    return part[:, :npoint].to(torch.int32)
 
 
 def _check_fps_args(name: str, xyz: torch.Tensor, npoint: int) -> None:

@@ -38,9 +38,11 @@ def morton_codes(xyz: torch.Tensor,
         mn = xyz.amin(dim=1, keepdim=True)
         mx = xyz.amax(dim=1, keepdim=True)
     # tensor / tensor: torch computes ``scalar / tensor`` as a reciprocal
-    # times the scalar, which rounds differently from JAX's division
+    # times the scalar, which rounds differently from JAX's division (and
+    # ``full_like``, not a tensor made from a Python number, which on the
+    # card would be a copy that waits for the device's queue)
     extent = (mx - mn).clamp_min(1e-9)
-    scale = extent.new_tensor(1023.0) / extent
+    scale = torch.full_like(extent, 1023.0) / extent
     q = ((xyz - mn) * scale).clamp(0.0, 1023.0).to(torch.int32)
     code = (_spread3(q[..., 0]) | (_spread3(q[..., 1]) << 1)
             | (_spread3(q[..., 2]) << 2))

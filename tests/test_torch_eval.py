@@ -200,7 +200,10 @@ def test_validate_equals_geot_tpu(models, monkeypatch):
 
 
 def test_validate_refuses_votes(models):
-    with pytest.raises(NotImplementedError, match="num_votes"):
+    """Votes need a vote pipeline: without one ``validate`` refuses them
+    (``geot_tpu`` would quietly not vote). Voting itself is held against
+    ``geot_tpu`` in ``tests/test_torch_fast.py``."""
+    with pytest.raises(ValueError, match="num_votes"):
         teval.validate(make_eval_step(), models[2], [], {}, num_votes=2)
 
 

@@ -59,11 +59,14 @@ def test_fps_kernel_matches_plain(cuda, B, N, npoint, dup):
                                atol=0)
 
 
-# the flagship's FPS shapes (serving B = 1, teacher B = 2, student B = 6),
-# ties, a cloud whose ranges are ragged, and one smaller than the cluster
+# the flagship's FPS shapes (serving B = 1, teacher B = 2, student B = 6;
+# the serving topology's true-FPS prefix of 1024 at B = 1 and 6), ties, a
+# cloud whose ranges are ragged, and one smaller than the cluster
 @pytest.mark.parametrize("B,N,npoint,dup", [(1, 16000, 8192, False),
                                              (2, 16000, 8192, False),
                                              (6, 16000, 8192, False),
+                                             (1, 16000, 1024, False),
+                                             (6, 16000, 1024, False),
                                              (1, 3000, 2048, True),
                                              (3, 12345, 3000, False),
                                              (1, 10, 20, False)])
@@ -75,6 +78,39 @@ def test_fps_cluster_kernel_matches_plain(cuda, B, N, npoint, dup):
     got = ops.fps_cluster(xyz, npoint, plan)
     assert ops.LAUNCHES["fps_cluster"] == n0 + 1
     torch.testing.assert_close(got, ops.fps_ref(xyz, npoint), rtol=0, atol=0)
+
+
+def _sampled(seed, B, distinct, N):
+    """B clouds of N points drawn with replacement from ``distinct`` ones,
+    as ``predict_scan`` samples a scan smaller than its sample."""
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal((B, distinct, 3)).astype(np.float32)
+    idx = rng.choice(distinct, (B, N), replace=True)
+    return torch.from_numpy(np.take_along_axis(base, idx[..., None], 1))
+
+
+def test_fps_on_a_duplicate_heavy_cloud(cuda):
+    """2,000 distinct points sampled to 16,000 -> 1,024: min-distances
+    reach 0 after 2,000 picks at most, ties everywhere before."""
+    xyz = _sampled(4, 1, 2000, 16000).to(cuda)
+    got = ops.fps(xyz, 1024)
+    torch.testing.assert_close(got, ops.fps_ref(xyz, 1024), rtol=0, atol=0)
+    small = _sampled(5, 2, 300, 16000).to(cuda)     # fewer than 1,024
+    torch.testing.assert_close(ops.fps(small, 1024),
+                               ops.fps_ref(small, 1024), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("distinct", [None, 2000, 300])
+def test_fps_stratified_on_the_card_equals_the_cpu(cuda, distinct):
+    xyz = (_cloud(6, (2, 16000, 3)) if distinct is None
+           else _sampled(6, 2, distinct, 16000))
+    n0 = ops.LAUNCHES["fps_cluster"]
+    got = ops.fps_stratified(xyz.to(cuda), 16000, 1024)
+    assert ops.LAUNCHES["fps_cluster"] == n0 + 1
+    want = ops.fps_stratified(xyz, 16000, 1024)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    assert torch.equal(got.sort(dim=1).values.cpu(),
+                       torch.arange(16000, dtype=torch.int32).expand(2, -1))
 
 
 def test_fps_routes_an_oversized_cloud_to_the_block_kernel(cuda):
@@ -123,7 +159,12 @@ def test_knn_kernel_matches_plain(cuda, Q, N, k, dup):
     (1, 4096, 512, 4, False), (1, 4096, 4096, 4, False),
     (1, 8192, 4096, 4, False), (1, 8192, 8192, 4, False),
     (1, 16000, 8192, 3, False), (1, 40960, 16000, 3, False),
-    (6, 16000, 8192, 3, False), (1, 4096, 3000, 4, True)])
+    (6, 16000, 8192, 3, False), (1, 4096, 3000, 4, True),
+    # the serving topology's searches: the non-prefix rows of the three
+    # FeaturePropagation levels, at B = 1 and at the student's B = 6
+    (1, 3584, 512, 3, False), (1, 7680, 512, 3, False),
+    (1, 7808, 8192, 3, False), (6, 7808, 8192, 3, False),
+    (6, 8192, 4096, 4, False)])
 def test_knn_split_kernel_matches_plain_at_path_shapes(cuda, B, Q, N, k, dup):
     s = _cloud(9, (B, N, 3), dup).to(cuda)
     q = torch.cat([s[:, :min(Q, s.shape[1]) // 2],
@@ -210,3 +251,27 @@ def test_forward_on_the_card_matches_the_cpu(cuda):
     assert ops.LAUNCHES["knn_small_k"] == n0["knn_small_k"]
     assert (a - b).abs().max().item() <= 1e-3
     assert (a.argmax(-1) == b.argmax(-1)).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+def test_fast_forward_on_the_card_matches_the_cpu(cuda, dtype):
+    """The serving topology (prefix 64 of 256 points, fast_graph) on the
+    card against the CPU; in bfloat16 both sides round in bfloat16, so the
+    bar is the statistical one of ``tests/test_torch_fast.py``."""
+    args = dict(SMALL_ARGS, fast_pyramid=64, fast_graph=True, dtype=dtype)
+    cpu = load_model(args, seed=1, device="cpu")
+    gpu = load_model(args, seed=1, device=cuda)
+    pts = _cloud(3, (4, 256, 3))
+    n0 = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        a = cpu(pts)[0]
+        b = gpu(pts.to(cuda))[0].cpu()
+    assert ops.LAUNCHES["fps_cluster"] == n0["fps_cluster"] + 1
+    assert ops.LAUNCHES["fps"] == n0["fps"]
+    assert b.dtype == torch.float32
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    if dtype is None:
+        assert (a - b).abs().max().item() <= 1e-3
+        assert agree >= 0.999
+    else:
+        assert agree >= 0.98
