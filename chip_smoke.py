@@ -87,6 +87,25 @@ Phases, each printed with the seconds elapsed when it starts:
    against the counts the code implies, ``fps_cluster`` launches counted
    by shape ((6, 16000) -> 1024 and (2, 16000) -> 8192 once a step);
    prints epoch wall and data time, host ms between steps, peak memory.
+11. semi-step branches: ``knn_split`` at the self-search of a whole cloud,
+   (2, 16000) x (2, 16000), k = 2 (``Poly1FocalLoss_U_top2``), bit-equal to
+   the plain version on sampled scans and on 2,000 distinct points sampled
+   to 16,000, with its split plan and times; at full width (2 + 2 + 2
+   clouds) one warm-up and 2 timed steps each of the flagship, all flags
+   (feature-space, identity and contrast losses, ``pseudo_refine``,
+   ``filter_outlier``), ``threed_anchors=4096`` and every other
+   ``criterion_u`` name, losses finite and launches counted (top2: one
+   more ``knn_split``, the self-search); the all-flags step's peak memory
+   and, with the anchored and flagship steps, device time by kernel; the
+   all-flags step on the card against the CPU (1 + 1 + 1 clouds, dropout
+   off, the same contrast draws), in float32 and float64: loss terms
+   within 1e-4 relative, the feature-space term within 1e-3 of the whole
+   loss and the rest of the loss within 1e-4, ``ema_t`` within 1e-5, the
+   bank's ``ptr`` equal; ``skip_nonfinite_updates`` with a NaN in a strong
+   view: skipped, the whole state bit-equal, the next step trains; the
+   trainer on the flagship YAML with every switch, ``threed_anchors=4096``
+   and ``ema_eval=0.99`` for 2 epochs: ``val`` and ``val_raw`` each epoch,
+   the test pass on the tree that won, launches as the code implies.
 Phase 3 also holds ``fps_cluster`` at the serving topology's prefix,
 (1|6, 16000) -> 1024 and a duplicate-heavy cloud, and ``knn_split`` at a
 fast scan's 6 searches, against their plain versions, with times and
@@ -1542,6 +1561,383 @@ def phase_fast_trainer():
             "wall_s": wall, "test_votes_s": test_s}
 
 
+# phase 11: the switches of the semi step on top of the flagship, as
+# geot_tpu's all-flags runs set them (feat_k 16, the bank at trans_dim and
+# 4096 rows); contrast_threshold is lowered where the bank must move, since
+# no point of a random-init teacher clears the reference's 0.9
+ALL_FLAGS = {"use_feat_loss": True, "feat_k": 16, "use_identity_loss": True,
+             "use_contrastive": True, "pseudo_refine": True,
+             "filter_outlier": True}
+U_NAMES = ("Poly1FocalLoss_U_corr", "Poly1FocalLoss_U", "Weight_CELoss_U",
+           "MSE_Loss_U", "Poly1FocalLoss_U_T", "Poly1FocalLoss_U_T_v1",
+           "Poly1FocalLoss_U_Cur", "Poly1FocalLoss_U_top2")
+# the loss terms of the all-flags step, card against CPU: phase 6's bound;
+# the feature-space term against the whole loss (3.3e-5 in float32 at full
+# width on an H100 at 700 W, PERF.md section 6)
+BRANCH_LOSS_RTOL = 1e-4
+BRANCH_FEAT_OF_LOSS = 1e-3
+_LOSS_TERMS = ("loss", "sup_loss", "unsup_loss", "feat_loss",
+               "identity_loss", "threed_loss", "contrast_loss")
+
+
+def _state_tensors(state):
+    """Every tensor of ``state.state_dict()`` by path, cloned; the
+    generator's state apart (a skipped step still draws)."""
+    import torch
+
+    out = {}
+
+    def walk(d, prefix):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            elif isinstance(v, torch.Tensor) and k != "generator":
+                out[prefix + str(k)] = v.detach().clone()
+    walk(state.state_dict(), "")
+    return out
+
+
+def _kernels_self_search(bound: Bound):
+    """Kernel 2 at the self-search of a whole cloud, (2, 16000) x (2,
+    16000), k = 2 (``Poly1FocalLoss_U_top2``): bit-equal to the plain
+    version on two sampled scans and on 2,000 distinct points sampled to
+    16,000; its split plan; kernel-only, wrapper and plain times."""
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+
+    dev = torch.device("cuda")
+    scan = torch.cat([torch.from_numpy(_scan_sample(s)[1])[None]
+                      for s in (31, 32)]).to(dev).contiguous()
+    rng = np.random.default_rng(5)
+    dup = scan[:, torch.from_numpy(rng.integers(0, 2000, 16000)).to(dev)]
+    dup = dup.contiguous()
+    for label, xyz in (("scans", scan), ("2000 distinct of 16000", dup)):
+        d, i = ops.knn_small_k(xyz, xyz, 2)
+        d_r, i_r = ops.knn_small_k_ref(xyz, xyz, 2)
+        torch.cuda.synchronize()
+        check(torch.equal(i, i_r), f"self-search {label}: idx differ from "
+              f"knn_small_k_ref at {int((i != i_r).sum())} places")
+        check(torch.equal(d, d_r), f"self-search {label}: d2 not bit-equal")
+        not_self = int((i[..., 0] != torch.arange(16000, device=dev)).sum())
+        log(f"knn_split self-search {label} (2,16000)x(2,16000),k=2: idx "
+            f"equal, d2 bit-equal to knn_small_k_ref; column 0 is not the "
+            f"query at {not_self} of 32000 rows")
+    check(not_self > 0, "the duplicate cloud has no tie at column 0")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    S, split_len = ops.knn_split_plan(2, 16000, 16000, sms)
+    check(S > 1 and (S - 1) * split_len < 16000 <= S * split_len,
+          f"split plan ({S}, {split_len}) at Q = N = 16000")
+    t = {"ms": graph_ms(lambda: ops.knn_small_k(scan, scan, 2), 20),
+         "wrapper_ms": cuda_ms(lambda: ops.knn_small_k(scan, scan, 2), 20),
+         "plain_ms": cuda_ms(lambda: ops.knn_small_k_ref(scan, scan, 2), 2)}
+    # 8 fp32 operations a pair distance and compare; inputs read once,
+    # d2 and idx written once
+    b_ms, b_by = bound(8.0 * 2 * 16000 * 16000,
+                       2 * (2 * 16000 * 12 + 16000 * 2 * 8))
+    log(f"knn_split self-search: {S} splits of {split_len}; kernel "
+        f"{t['ms']:.4f} ms (wrapper {t['wrapper_ms']:.4f}), plain "
+        f"{t['plain_ms']:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(t, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+                splits=S, split_len=split_len)
+
+
+def phase_branches(bound: Bound, cm):
+    """Every branch of the semi step at full width (2 + 2 + 2 clouds of
+    16,000 points): kernel 2 at the self-search shape; one step of the
+    flagship, of all flags, of ``threed_anchors=4096`` and of each
+    ``criterion_u`` name, timed and counted; the all-flags step on the card
+    against the CPU (1 + 1 + 1 clouds, the same contrast draws); a step
+    with a NaN skipped whole; the trainer on the flagship YAML with every
+    switch of the slice and ``ema_eval``. Returns the kernels' records and
+    the launches of the path."""
+    import importlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from geot_tpu_torch import FLAGSHIP_SEG_ARGS, FLAGSHIP_SEMI_CFG, ops
+    from geot_tpu_torch.data.build import (MODEL_KEYS, build_semi_loaders,
+                                           semi_keys, semi_pairs, to_device)
+    from geot_tpu_torch.engine import train as train_mod
+    from geot_tpu_torch.engine.state import SemiTrainState
+    from geot_tpu_torch.engine.steps import make_semi_step
+
+    log("phase 11: the semi-step branches at full width")
+    rec = _kernels_self_search(bound)
+    knn_mod = importlib.import_module("geot_tpu_torch.ops.knn")
+    real_small_k = knn_mod.knn_small_k
+    self_searches = []
+
+    def counting(query, support, k):
+        if query is support and k == 2:
+            self_searches.append(tuple(query.shape))
+        return real_small_k(query, support, k)
+
+    dev = torch.device("cuda")
+    base = dict(FLAGSHIP_SEMI_CFG, skip_nonfinite_updates=False)
+    loaders = build_semi_loaders(base)
+    for loader in loaders:
+        loader.set_epoch(1)
+    pairs = [(to_device(bl, MODEL_KEYS, dev), to_device(bu, semi_keys(bu),
+                                                         dev))
+             for bl, bu in semi_pairs(*loaders, limit=3)]
+    # a per-point score for Poly1FocalLoss_U_Cur
+    cur = torch.rand((2, 16000), generator=torch.Generator().manual_seed(9))
+    for _, bu in pairs:
+        bu["cur"] = cur.to(dev)
+    state = SemiTrainState.create(base, seed=0, device=dev)
+    state.cm = cm.to(dev)
+    lr = 1e-3
+    per_step = dict(dict.fromkeys(ops.LAUNCHES, 0), fps_cluster=2,
+                    knn_split=14)
+    variants = [("flagship", {}),
+                ("all flags", dict(ALL_FLAGS, contrast_threshold=0.0)),
+                ("threed_anchors=4096", {"threed_anchors": 4096})]
+    variants += [(f"criterion_u {n}", {"criterion_u_args": {"NAME": n}})
+                 for n in U_NAMES[1:]]
+    times, launches = {}, dict.fromkeys(ops.LAUNCHES, 0)
+    # every variant starts from the same state
+    start = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                 and all(isinstance(t, torch.Tensor) for t in v.values())
+                 else v) for k, v in state.state_dict().items()}
+    knn_mod.knn_small_k = counting
+    try:
+        for label, extra in variants:
+            state.load_state_dict(start)
+            step = make_semi_step(dict(base, **extra))
+            step(state, *pairs[0], lr, True)              # warm-up
+            torch.cuda.synchronize()
+            ms = []
+            for bl, bu in pairs[1:]:
+                ops.reset_launches()
+                n_self = len(self_searches)
+                t = time.perf_counter()
+                m = step(state, bl, bu, lr, True)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                got = dict(ops.LAUNCHES)
+                for k, v in got.items():
+                    launches[k] += v
+                top2 = label.endswith("top2")
+                want = dict(per_step, knn_split=14 + top2)
+                check(got == want, f"{label}: launches {got}, expected "
+                      f"{want}")
+                check(len(self_searches) - n_self == top2,
+                      f"{label}: {len(self_searches) - n_self} self-searches")
+                terms = {k: float(m[k]) for k in _LOSS_TERMS if k in m}
+                check(all(math.isfinite(v) for v in terms.values()),
+                      f"{label}: a loss is not finite: {terms}")
+            times[label] = ms
+            log(f"step {label}: {', '.join(f'{x:.1f}' for x in ms)} ms; "
+                + ", ".join(f"{k} {v:.6f}" for k, v in terms.items()))
+        rec["launches"] = sum(1 for s in self_searches if s == (2, 16000, 3))
+        check(self_searches == [(2, 16000, 3)] * 3,
+              f"self-searches {self_searches}, expected 3 at (2, 16000, 3)")
+    finally:
+        knn_mod.knn_small_k = real_small_k
+    flag_ms = sum(times["flagship"]) / 2
+    log("step ms against the flagship's " + f"{flag_ms:.1f}: " + "; ".join(
+        f"{k} {sum(v) / 2:.1f} ({sum(v) / 2 / flag_ms:.2f}x)"
+        for k, v in times.items()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    all_flags = make_semi_step(dict(base, **ALL_FLAGS,
+                                    contrast_threshold=0.0))
+    all_flags(state, *pairs[1], lr, True)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - resident) / 2 ** 20
+    log(f"all-flags step peak memory {peak_mb:.0f} MiB above the resident "
+        f"{resident / 2 ** 20:.0f} MiB")
+    split = {}
+    for label, extra in (("all-flags step", dict(ALL_FLAGS,
+                                                 contrast_threshold=0.0)),
+                         ("threed_anchors=4096 step",
+                          {"threed_anchors": 4096}),
+                         ("flagship step", {})):
+        step = make_semi_step(dict(base, **extra))
+        split[label] = _profile(label, lambda: step(state, *pairs[1], lr,
+                                                    True), 1, top=12)
+
+    # card against CPU: one all-flags step from the same seeded state,
+    # 1 + 1 + 1 clouds, dropout off, the same contrast draws; in float32,
+    # and in float64 (the model and step in float64 around the float32
+    # searches), as phase 6
+    cfg1 = dict(base, batch_size_l=1, batch_size_u=1, **ALL_FLAGS)
+    seg = dict(FLAGSHIP_SEG_ARGS, drop_path_rate=0.0, head_dropout=0.0)
+    bl1 = {k: v[:1].cpu() for k, v in pairs[0][0].items()}
+    bu1 = {k: v[:1].cpu() for k, v in pairs[0][1].items() if k != "cur"}
+    gen = torch.Generator().manual_seed(11)
+    draws = (torch.rand((1, 16000), generator=gen),
+             torch.randperm(1024, generator=gen))
+    th = None
+    compare = {}
+    for dt in (torch.float32, torch.float64):
+        res = {}
+        for name in ("cuda", "cpu"):
+            st = SemiTrainState.create(cfg1, seg_args=seg, seed=1,
+                                       device=name)
+            for mod in (st.model, st.teacher, st.t_predictor):
+                mod.to(dt)
+            st.ema_t, st.cm = st.ema_t.to(dt), cm.to(name, dt)
+            st.contrast.queue = st.contrast.queue.to(dt)
+            b_l, b_u = ({k: (v.to(name, dt) if v.is_floating_point()
+                             else v.to(name)) for k, v in b.items()}
+                        for b in (bl1, bu1))
+            if th is None:
+                # the gate passes the teacher's most confident 2-4 % (some
+                # 500 of the cloud's 16,000 points: fewer than the 1,024
+                # the loss samples, so its validity mask is live), set in
+                # the widest gap between two confidences there, so the
+                # CPU's rounding of them passes the same points
+                with torch.no_grad():
+                    conf = torch.sort(torch.softmax(st.teacher(
+                        b_u, if_teacher=True)[0], -1).amax(-1).float()
+                        .flatten())[0]
+                lo, hi = int(0.96 * conf.numel()), int(0.98 * conf.numel())
+                j = lo + int((conf[lo + 1:hi] - conf[lo:hi - 1]).argmax())
+                th = float((conf[j] + conf[j + 1]) / 2)
+            t = time.perf_counter()
+            m = make_semi_step(dict(cfg1, contrast_threshold=th))(
+                st, b_l, b_u, lr, True,
+                draws={"contrast": tuple(d.to(name) for d in draws)})
+            terms = {k: float(m[k]) for k in _LOSS_TERMS}
+            res[name] = (terms, int(st.contrast.ptr),
+                         st.ema_t.double().cpu())
+            log(f"all-flags {str(dt)[6:]} step, 1 + 1 + 1 clouds, on the "
+                f"{name}: {time.perf_counter() - t:.1f} s; {terms}; bank "
+                f"ptr {res[name][1]}")
+        (lg, pg, eg), (lc, pc, ec) = res["cuda"], res["cpu"]
+        # the feature-space term sums +1 and -1 weighted distances over
+        # 17-channel neighbour sets, which follow the float32 rounding of
+        # random init's near-equal softmax rows: it is held within
+        # BRANCH_FEAT_OF_LOSS of the whole loss, and the rest of the loss
+        # (loss - feat_loss) at the per-term bound
+        for d in (lg, lc):
+            d["loss_without_feat"] = d["loss"] - d["feat_loss"]
+        rel = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc}
+        feat = abs(lg["feat_loss"] - lc["feat_loss"]) / abs(lc["loss"])
+        log(f"card vs CPU all-flags {str(dt)[6:]} step: loss terms "
+            f"relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+            + f"; feat_loss {feat:.2e} of the loss; ptr {pg} and {pc}; "
+            f"ema_t max |d| {float((eg - ec).abs().max()):.2e}")
+        held = {k: v for k, v in rel.items() if k not in ("loss",
+                                                          "feat_loss")}
+        check(all(v <= BRANCH_LOSS_RTOL for v in held.values())
+              and feat <= BRANCH_FEAT_OF_LOSS,
+              f"card vs CPU all-flags {dt} loss terms differ: {rel}; "
+              f"feat_loss {feat} of the loss")
+        check(pg == pc and 0 < pg < 1024, f"bank ptr {pg} on the card, "
+              f"{pc} on the CPU: the same count of valid rows, some but "
+              f"not all of the 1,024 sampled")
+        # ema_t moves by 1e-3 x class_T, whose filter_outlier anchors
+        # (a 0.97 quantile, then an argmax over near-equal softmax rows)
+        # follow the forward's rounding: 1e-5, where phase 6 (no filter)
+        # holds 1e-6
+        check(float((eg - ec).abs().max()) <= 1e-5, "ema_t differs")
+        compare[str(dt)[6:]] = dict(rel, feat_of_loss=feat,
+                                    ema_t=float((eg - ec).abs().max()))
+
+    # skip_nonfinite_updates: a NaN in the strong view skips the step whole
+    guard = dict(base, skip_nonfinite_updates=True, ema_eval=0.99,
+                 **ALL_FLAGS, contrast_threshold=0.0)
+    gstate = SemiTrainState.create(guard, seed=2, device=dev)
+    gstate.cm = cm.to(dev)
+    gstep = make_semi_step(guard)
+    m = gstep(gstate, *pairs[0], lr, True)
+    check(float(m["skipped"]) == 0.0, "a clean step was skipped")
+    before = _state_tensors(gstate)
+    bl, bu = pairs[1]
+    bad = dict(bu, pos_s=bu["pos_s"].clone())
+    bad["pos_s"][1, 7, 0] = float("nan")
+    m = gstep(gstate, bl, bad, lr, True)
+    check(float(m["skipped"]) == 1.0 and float(m["loss"]) == 0.0,
+          f"the NaN step: skipped {float(m['skipped'])}, loss "
+          f"{float(m['loss'])}")
+    after = _state_tensors(gstate)
+    unequal = [k for k, v in before.items() if not torch.equal(v, after[k])]
+    check(after.keys() == before.keys() and not unequal,
+          f"a skipped step changed {unequal[:5]}")
+    check(gstate.step == 2, "step counter")
+    m = gstep(gstate, *pairs[2], lr, True)
+    moved = _state_tensors(gstate)
+    changed = {g: sum(1 for k in before if k.startswith(g)
+                      and not torch.equal(before[k], moved[k]))
+               for g in ("model/", "opt/", "t_opt/", "ema_params/",
+                         "ema_t", "contrast/")}
+    check(float(m["skipped"]) == 0.0 and all(changed.values()),
+          f"the next clean step did not train: {changed}")
+    log(f"skip_nonfinite_updates: the NaN step skipped, {len(before)} "
+        f"state tensors bit-equal (weights, both AdamW states, BatchNorm "
+        f"buffers, ema_t, the bank, the EMA shadow); the next step changed "
+        f"{changed}")
+    del gstate, before, after, moved
+
+    # the trainer: the flagship YAML with every switch of the slice
+    cfg_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "cfgs", "tooth_semi",
+                            "transformer_finetune_fixmatch_ntm.yaml")
+    root = tempfile.mkdtemp(prefix="geot_branches_")
+    loads = []
+    real_load = train_mod.load_variables
+
+    def recording(path, prefer_ema="auto"):
+        loads.append(prefer_ema)
+        return real_load(path, prefer_ema)
+
+    train_mod.load_variables = recording
+    opts = [f"{k}={v}" for k, v in ALL_FLAGS.items()] + [
+        "contrast_threshold=0.0", "threed_anchors=4096", "ema_eval=0.99",
+        "skip_nonfinite_updates=True", "epochs=2", "val_freq=1",
+        "test_freq=2", f"root_dir={root}"]
+    try:
+        ops.reset_launches()
+        t = time.perf_counter()
+        out = train_mod.parse_and_run(["--cfg", cfg_path, *opts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        trainer_launches = dict(ops.LAUNCHES)
+        (run_dir,) = [os.path.join(root, "tooth_semi", d)
+                      for d in os.listdir(os.path.join(root, "tooth_semi"))]
+        with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+            sc = {}
+            for d in map(json.loads, f):
+                sc.setdefault(d["tag"], []).append(d["value"])
+    finally:
+        train_mod.load_variables = real_load
+        shutil.rmtree(root, ignore_errors=True)
+    for split in ("val", "val_raw", "test"):
+        bad = {k: v for k, v in out[split].items()
+               if not (math.isfinite(v) and 0.0 <= v <= 1.0)}
+        check(not bad, f"trainer {split} metrics outside [0, 1]: {bad}")
+    for tag in ("manifold_loss_feat", "insT_identity_loss",
+                "insT_threed_loss", "contrast_loss", "val_raw_whole_miou"):
+        check(tag in sc and all(map(math.isfinite, sc[tag])),
+              f"trainer: scalar {tag} missing or not finite")
+    check("skipped_steps" not in sc, "trainer skipped steps")
+    won = bool(out["best"]["ema_selected"])
+    check(loads == [won], f"the test pass loaded {loads}, the best tree was "
+          f"{'ema' if won else 'raw'}")
+    want = _expected(steps=24, cm_batches=12, eval_batches=5 * 12)
+    check(trainer_launches == want, f"trainer launches {trainer_launches}, "
+          f"expected {want} (24 steps, 12 cm batches, val + val_raw twice "
+          f"and test)")
+    for k, v in trainer_launches.items():
+        launches[k] += v
+    log(f"trainer (every switch, ema_eval=0.99): {wall:.1f} s; epochs "
+        + ", ".join(f"{v:.2f} s" for v in sc["epoch_seconds"])
+        + f"; val whole miou {out['val']['whole_miou']:.6f} (EMA), val_raw "
+        f"{out['val_raw']['whole_miou']:.6f}; best tree "
+        f"{'ema' if won else 'raw'} at epoch {out['best']['epoch']}, "
+        f"reloaded for the test pass; launches {trainer_launches}")
+    return {"self_search": rec, "launches": launches, "step_ms": times,
+            "peak_mb": peak_mb, "profile": split, "card_vs_cpu": compare,
+            "trainer_s": wall}
+
+
 def resume_check(root: str) -> int:
     """``--resume-check ROOT`` (phase 8 runs it in a child process with
     ``CUBLAS_WORKSPACE_CONFIG`` set): with deterministic algorithms on, the
@@ -1590,18 +1986,21 @@ def main() -> int:
     trainer = phase_trainer()
     fast = phase_fast_serving(scans)
     fast_trainer = phase_fast_trainer()
+    branches = phase_branches(Bound(limit_w), train["state"].cm)
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
     # launches on the main paths: 3 served scans, the train run (2 cm
     # batches + 3 steps), the trainer's run A, the fast scans (12, votes,
-    # ensemble, stream) and the fast trainer's runs; the first versions of
-    # FPS and kNN and the pruned kernels are on no path
+    # ensemble, stream), the fast trainer's runs and the branch steps and
+    # trainer of phase 11; the first versions of FPS and kNN and the pruned
+    # kernels are on no path
     trained = {k: sum(c[k] for c in train["cm_batches"] + train["per_step"])
                for k in serving}
     per_step = train["per_step"][0]
     log(f"launches: serving {serving}, training {trained}, trainer "
         f"{trainer['launches']}, fast serving {fast['launches']}, fast "
-        f"trainer {fast_trainer['launches']}")
+        f"trainer {fast_trainer['launches']}, semi-step branches "
+        f"{branches['launches']}")
 
     def entry(name, replaces):
         return {"name": name, "route": "cuda",
@@ -1610,13 +2009,15 @@ def main() -> int:
                 "launches": (serving[name] + trained[name]
                              + trainer["launches"][name]
                              + fast["launches"][name]
-                             + fast_trainer["launches"][name]),
+                             + fast_trainer["launches"][name]
+                             + branches["launches"][name]),
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
                 "launches_trainer_run": trainer["launches"][name],
                 "launches_fast_scan": _PER_FAST_SCAN.get(name, 0),
                 "launches_fast_serving": fast["launches"][name],
                 "launches_fast_trainer": fast_trainer["launches"][name],
+                "launches_semi_branches": branches["launches"][name],
                 "library_ms": None, **recs[name]}
 
     kernels = [
@@ -1626,6 +2027,12 @@ def main() -> int:
         entry("knn_small_k", "geot_tpu/ops/pallas_knn.py:98"),
         entry("fps_bucket", "geot_tpu/ops/pallas_fps.py:181"),
         entry("knn_small_k_pruned", "geot_tpu/ops/pallas_knn_pruned.py:104"),
+        # kernel 2 at the self-search of a whole cloud (Poly1FocalLoss_U_top2):
+        # launches at that shape in phase 11
+        {"name": "knn_split_self_search_2x16000_k2", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/knn_split.cu",
+         "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
+         **branches["self_search"]},
     ]
     log("done")
     print(smi, flush=True)

@@ -91,6 +91,29 @@ knn_small_k_kernel(const float* __restrict__ q_all,
     }
   }
   if (!active) return;
+  // fewer than K finite d2 (an inf or NaN coordinate): the rest in the
+  // plain version's order, by the bits of d2 (+inf, then NaN), then index
+  if (bi[K - 1] == N) {
+    for (int j = 0; j < N; ++j) {
+      const float dx = qx - sp[3 * j], dy = qy - sp[3 * j + 1],
+                  dz = qz - sp[3 * j + 2];
+      float cd = dx * dx + dy * dy + dz * dz;
+      if (cd < __int_as_float(0x7f800000)) continue;   // already listed
+      int ci = j;
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        const unsigned kc = __float_as_uint(cd), ks = __float_as_uint(bd[s]);
+        if (bi[s] == N || kc < ks || (kc == ks && ci < bi[s])) {
+          const float td = bd[s];
+          const int ti = bi[s];
+          bd[s] = cd;
+          bi[s] = ci;
+          cd = td;
+          ci = ti;
+        }
+      }
+    }
+  }
   float* dp = d_all + ((size_t)b * Q + q) * K;
   int* ip = i_all + ((size_t)b * Q + q) * K;
 #pragma unroll

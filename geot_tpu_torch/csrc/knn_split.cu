@@ -36,6 +36,13 @@
 //
 // Arithmetic: d2 = dx*dx + dy*dy + dz*dz with separate roundings under
 // --fmad=false, as knn_small_k.cu and the plain version knn_small_k_ref.
+//
+// Non-finite d2 (an inf or NaN coordinate): the plain version orders d2 by
+// its bits, so +inf and then NaN come after every number, equal bits by
+// index. The scan inserts finite d2 only; a list that it leaves short is
+// completed from the split's non-finite d2 in that order by a second pass
+// (fill_nonfinite), which runs only for such a query, and the merge ranks
+// by the bits. Without it a NaN query would return the index N.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -79,6 +86,43 @@ __device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d,
   }
   bd[0] = c[0] ? d : bd[0];
   bi[0] = c[0] ? i : bi[0];
+}
+
+// Insert (d, i) by (bits of d, index), for non-finite d2 and the merge: an
+// empty slot (index N) takes any candidate; a non-negative float, +inf and
+// a positive NaN order like their bits. Candidates come in ascending index
+// order, so strict < keeps ties to the smaller index.
+template <int K>
+__device__ __forceinline__ void insert_bits(float (&bd)[K], int (&bi)[K],
+                                            float d, int i, int N) {
+  bool c[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s)
+    c[s] = bi[s] == N || __float_as_uint(d) < __float_as_uint(bd[s]);
+#pragma unroll
+  for (int s = K - 1; s >= 1; --s) {
+    bd[s] = c[s] ? (c[s - 1] ? bd[s - 1] : d) : bd[s];
+    bi[s] = c[s] ? (c[s - 1] ? bi[s - 1] : i) : bi[s];
+  }
+  bd[0] = c[0] ? d : bd[0];
+  bi[0] = c[0] ? i : bi[0];
+}
+
+// After the scan of supports [lo, hi): a slot still empty means fewer than
+// K of them had a finite d2 to the query; take the non-finite ones in
+// (bits, index) order. Reads the supports again from global memory, and
+// only for such a query.
+template <int K>
+__device__ void fill_nonfinite(float (&bd)[K], int (&bi)[K], float qx,
+                               float qy, float qz, const float* sp, int lo,
+                               int hi, int N) {
+  if (bi[K - 1] != N) return;
+  for (int j = lo; j < hi; ++j) {
+    const float dx = qx - sp[3 * j], dy = qy - sp[3 * j + 1],
+                dz = qz - sp[3 * j + 2];
+    const float d = dx * dx + dy * dy + dz * dz;
+    if (!(d < __int_as_float(0x7f800000))) insert_bits<K>(bd, bi, d, j, N);
+  }
 }
 
 // one support against the thread's query
@@ -151,6 +195,7 @@ knn_split_kernel(const float* __restrict__ q_all,
 
   // (split, b, q, k) layout; with one split that is the output itself
   if (q >= Q) return;
+  fill_nonfinite<K>(bd, bi, qx, qy, qz, sp, s_lo, s_hi, N);
   const size_t o = ((size_t)split * B * Q + (size_t)b * Q + q) * K;
 #pragma unroll
   for (int s = 0; s < K; ++s) {
@@ -177,7 +222,8 @@ knn_merge_kernel(const float* __restrict__ sd, const int* __restrict__ si,
   for (int p = 0; p < S; ++p) {     // split order: ascending indices
     const size_t o = ((size_t)p * BQ + row) * K;
 #pragma unroll
-    for (int e = 0; e < K; ++e) insert<K>(bd, bi, sd[o + e], si[o + e]);
+    for (int e = 0; e < K; ++e)
+      if (si[o + e] != N) insert_bits<K>(bd, bi, sd[o + e], si[o + e], N);
   }
   const size_t o = (size_t)row * K;
 #pragma unroll

@@ -8,7 +8,7 @@ JAX for them, ``data/build.py:152``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Iterator, List, Optional
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -152,6 +152,13 @@ def build_semi_loaders(cfg: Dict[str, Any], data_root: str = "",
         for bs, key, name in (
             ("batch_size_l", "dataset_l", "TeethSegSemiLDataset"),
             ("batch_size_u", "dataset_u", "TeethSegSemiUDataset")))
+
+
+def semi_keys(batch: Dict[str, Any]) -> Tuple[str, ...]:
+    """The keys of an unlabelled batch the semi step reads: ``SEMI_KEYS``,
+    and ``cur`` (per-point curvature, which ``Poly1FocalLoss_U_Cur`` gates
+    on) when the dataset carries it (``geot_tpu/engine/train.py:39-42``)."""
+    return SEMI_KEYS + (("cur",) if "cur" in batch else ())
 
 
 def to_device(batch: Dict[str, Any], keys: Iterable[str],

@@ -79,6 +79,14 @@ def load_checkpoint(path: str, state: SemiTrainState,
     payload = _read(path)
     saved = dict(payload["state"])
     full = state.state_dict()
+    # the EMA shadow may be empty on either side: empty in the checkpoint
+    # and kept by the run counts as missing (the caller seeds it from the
+    # restored weights); saved but not kept by the run is dropped
+    if "ema_params" in saved:
+        if not full["ema_params"]:
+            saved["ema_params"] = {}
+        elif not saved["ema_params"]:
+            del saved["ema_params"]
     missing = [k for k in full if k not in saved]
     if missing_fields is not None:
         missing_fields.extend(missing)
@@ -105,10 +113,29 @@ def load_checkpoint(path: str, state: SemiTrainState,
     return int(payload.get("epoch", 0)), dict(payload.get("extra", {}))
 
 
-def load_variables(path: str) -> Dict[str, torch.Tensor]:
+def variables_of(payload: Dict[str, Any],
+                 prefer_ema: "bool | str" = "auto") -> Dict[str, torch.Tensor]:
+    """The student's ``state_dict`` of a loaded checkpoint, its weights
+    replaced by the EMA shadow's when ``prefer_ema`` and the checkpoint
+    has one; ``"auto"`` takes the tree that the run's best-val selection
+    recorded (``extra["ema_selected"]``), the shadow when there is no
+    record (``geot_tpu/engine/checkpoint.py:374``)."""
+    st = payload["state"]
+    if prefer_ema == "auto":
+        rec = (payload.get("extra") or {}).get("ema_selected")
+        prefer_ema = True if rec is None else bool(rec)
+    out = dict(st["model"])
+    if prefer_ema and st.get("ema_params"):
+        out.update(st["ema_params"])
+    return out
+
+
+def load_variables(path: str, prefer_ema: "bool | str" = "auto"
+                   ) -> Dict[str, torch.Tensor]:
     """The student's ``state_dict`` (weights and BatchNorm statistics) of a
-    checkpoint, on the CPU, without building a train state."""
-    return _read(path)["state"]["model"]
+    checkpoint, on the CPU, without building a train state; the weights
+    are the EMA shadow's as ``variables_of`` picks them."""
+    return variables_of(_read(path), prefer_ema)
 
 
 def discover_checkpoint(run_dir: str, prefer: str = "best") -> str:

@@ -5,8 +5,8 @@ tree of a ``WholePartSeg`` (nested dicts of numpy arrays; no JAX needed)
 and returns the port's ``state_dict``, running statistics included.
 ``t_params_from_jax`` does the same for the ``Ins_T_mean`` T-predictor, and
 ``semi_state_from_jax`` for a ``SemiTrainState``: student, teacher,
-T-predictor, ``ema_t`` and ``cm``, and, from a full-state checkpoint, both
-optax AdamW states and ``step``. Dense kernels (in, out) become
+T-predictor, ``ema_t``, ``cm``, the contrast bank and the EMA shadow,
+and, from a full-state checkpoint, both optax AdamW states and ``step``. Dense kernels (in, out) become
 Linear weights (out, in); flax BatchNorm ``scale``/``bias`` + ``mean``/
 ``var`` become ``weight``/``bias`` + ``running_mean``/``running_var``;
 LayerNorm and GroupNorm ``scale`` becomes ``weight``.
@@ -61,16 +61,24 @@ def _walk(tree: Dict[str, Any], prefix: str = ""):
             yield from _walk(v, f"{prefix}/{k}" if prefix else k)
 
 
+def _float(a) -> torch.Tensor:
+    """float32, or float64 where the array is float64 (``geot_tpu`` with
+    x64 on)."""
+    a = np.asarray(a)
+    return torch.from_numpy(np.array(
+        a, dtype=np.float64 if a.dtype == np.float64 else np.float32))
+
+
 def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """``geot_tpu`` WholePartSeg variables -> port ``state_dict``."""
+    """``geot_tpu`` WholePartSeg variables -> port ``state_dict``, in
+    float32 (float64 leaves stay float64)."""
     params = variables["params"]["segmentor"]
     stats = variables.get("batch_stats", {}).get("segmentor", {})
     stats_by_path = dict(_walk(stats))
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, arr):
-        sd["segmentor." + key] = torch.from_numpy(
-            np.array(arr, dtype=np.float32))
+        sd["segmentor." + key] = _float(arr)
 
     for path, leaves in _walk(params):
         if path == "":            # T_linear / T_revision / sigma
@@ -95,8 +103,7 @@ def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def t_params_from_jax(t_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``Ins_T_mean`` params (``{"T_predictor": {"fc": (C, 2C, C)}}``) ->
     the port's ``InsTMean`` state_dict; the layout is the same."""
-    return {"T_predictor.fc": torch.from_numpy(np.array(
-        t_params["T_predictor"]["fc"], dtype=np.float32))}
+    return {"T_predictor.fc": _float(t_params["T_predictor"]["fc"])}
 
 
 def _adam_state(opt_state: Dict[str, Any]) -> Dict[str, Any]:
@@ -127,15 +134,15 @@ def _moments(opt_state: Dict[str, Any], convert) -> Dict[str, Any]:
 def semi_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
     """A ``geot_tpu`` ``SemiTrainState`` as a dict of numpy trees (keys
     ``params``, ``batch_stats``, ``t_params``, ``teacher_params``,
-    ``teacher_batch_stats``, ``ema_t``, ``cm``; a full-state checkpoint,
-    as ``geot_tpu.engine.checkpoint._restore`` reads it, also has
-    ``opt_state``, ``t_opt_state`` and ``step``) -> what
-    ``engine.state.SemiTrainState.load`` takes. The optimizer moments are
-    matched to parameters by name, never by position: torch keeps them in
-    param-group order, optax in tree order."""
-    def f32(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
+    ``teacher_batch_stats``, ``ema_t``, ``cm``, and where present
+    ``contrast`` (a ``ContrastState`` or a dict with ``queue`` and
+    ``ptr``) and ``ema_params`` (empty when the run kept no shadow); a
+    full-state checkpoint, as ``geot_tpu.engine.checkpoint._restore``
+    reads it, also has ``opt_state``, ``t_opt_state`` and ``step``) ->
+    what ``engine.state.SemiTrainState.load`` takes. The optimizer moments
+    are matched to parameters by name, never by position: torch keeps them
+    in param-group order, optax in tree order. Floating leaves come as
+    float32, or float64 where they are float64."""
     out = {
         "model": params_from_jax({"params": state["params"],
                                   "batch_stats": state["batch_stats"]}),
@@ -143,8 +150,8 @@ def semi_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
                                     "batch_stats":
                                     state["teacher_batch_stats"]}),
         "t_predictor": t_params_from_jax(state["t_params"]),
-        "ema_t": f32(state["ema_t"]),
-        "cm": f32(state["cm"]),
+        "ema_t": _float(state["ema_t"]),
+        "cm": _float(state["cm"]),
     }
     if "opt_state" in state:
         out["opt"] = _moments(state["opt_state"], lambda tree: params_from_jax(
@@ -153,4 +160,13 @@ def semi_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
         out["t_opt"] = _moments(state["t_opt_state"], t_params_from_jax)
     if "step" in state:
         out["step"] = int(np.asarray(state["step"]))
+    if "contrast" in state:
+        c = state["contrast"]
+        queue, ptr = ((c["queue"], c["ptr"]) if isinstance(c, dict)
+                      else (c.queue, c.ptr))
+        out["contrast"] = {"queue": _float(queue),
+                           "ptr": torch.tensor(int(np.asarray(ptr)))}
+    if state.get("ema_params"):
+        out["ema_params"] = params_from_jax({"params": state["ema_params"],
+                                             "batch_stats": {}})
     return out

@@ -25,6 +25,7 @@ from ..core.config import FLAGSHIP_SEG_ARGS, build_model_from_cfg, \
     resolve_device
 from ..data.tooth_semi import FDI_LABEL_MAP, pc_norm
 from ..models.segmentation.base_seg import init_weights
+from .checkpoint import variables_of
 from .eval import _upsample_pred, get_pred_whole, pad_to_bucket, \
     tta_vote_logits
 
@@ -49,10 +50,11 @@ def read_weights(path: str) -> Dict[str, torch.Tensor]:
     """A ``WholePartSeg`` state_dict from ``path``: a file written by
     ``torch.save`` of a state_dict (e.g. of ``engine.convert
     .params_from_jax``) or a checkpoint of the port's trainer (its
-    student)."""
+    student, with the EMA weights when the run's best-val selection chose
+    them: ``use_ema: auto``)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if "state" in sd and "model" in sd["state"]:
-        sd = sd["state"]["model"]
+        sd = variables_of(sd, "auto")
     return sd
 
 

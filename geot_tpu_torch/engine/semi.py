@@ -1,9 +1,12 @@
 """Noise-transition-matrix (NTM) estimation and the FixMatch bookkeeping
 (``geot_tpu/engine/semi.py``), in PyTorch.
 
-Row normalisation divides each row by its own sum, ``geot_tpu``'s fix of
-the reference's broadcast bug; the ``reference_bugs`` reproduction of that
-package is not ported (the flagship has it off).
+Row normalisation divides each row by its own sum, and ``filter_outlier``
+zeroes scores for the anchors' selection only: ``geot_tpu``'s fixes of two
+reference bugs (``geot_tpu/engine/semi.py:9-30``). ``reference_bugs=True``
+reproduces both, as there: the (C,) row sums broadcast over the last axis,
+and the anchor row gathered for class c carries zeros at every class c' <=
+c where that point's probability cleared c''s quantile.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ _PROJ_D2 = (LABEL_PROJ[:, None].astype(np.float32)
 
 
 def estimate_class_T(probs_u: torch.Tensor, filter_outlier: bool = False,
-                     quantile: float = 0.97) -> torch.Tensor:
+                     quantile: float = 0.97,
+                     reference_bugs: bool = False) -> torch.Tensor:
     """Row c = the softmax row of the most confident point for class c
     (``semi.py:49``). probs_u (B, N, C), already detached."""
     C = probs_u.shape[-1]
@@ -31,16 +35,28 @@ def estimate_class_T(probs_u: torch.Tensor, filter_outlier: bool = False,
     scores = flat
     if filter_outlier:
         thresh = torch.quantile(flat, quantile, dim=0, keepdim=True)
-        scores = torch.where(flat >= thresh, 0.0, flat)
-    return flat[torch.argmax(scores, dim=0)]          # first max, as jnp
+        zero_mask = flat >= thresh
+        scores = torch.where(zero_mask, 0.0, flat)
+    idx_best = torch.argmax(scores, dim=0)            # first max, as jnp
+    rows = flat[idx_best]
+    if filter_outlier and reference_bugs:
+        ar = torch.arange(C, device=flat.device)
+        rows = torch.where(zero_mask[idx_best] & (ar[None, :] <= ar[:, None]),
+                           0.0, rows)
+    return rows
 
 
-def _row_normalize(x: torch.Tensor) -> torch.Tensor:
-    """``semi.py:81``: each row divided by its own sum."""
+def _row_normalize(x: torch.Tensor,
+                   reference_bugs: bool = False) -> torch.Tensor:
+    """``semi.py:81``: each row divided by its own sum, or with
+    ``reference_bugs`` entry [i, j] by row j's sum."""
+    if reference_bugs:
+        return x / x.sum(dim=1)[None, :]
     return x / x.sum(dim=1, keepdim=True)
 
 
-def gaussian_prior_T(sigma: torch.Tensor) -> torch.Tensor:
+def gaussian_prior_T(sigma: torch.Tensor,
+                     reference_bugs: bool = False) -> torch.Tensor:
     """Row c: a gaussian over projected-label distance with the model's
     per-class sigma (``semi.py:93``). Row 0 (gum) is the delta at [0, 0];
     column 0 is zero for the tooth rows."""
@@ -53,7 +69,7 @@ def gaussian_prior_T(sigma: torch.Tensor) -> torch.Tensor:
     keep[0, :] = 0.0
     delta = torch.zeros_like(keep)
     delta[0, 0] = 1.0
-    return _row_normalize(prior * keep + delta)
+    return _row_normalize(prior * keep + delta, reference_bugs)
 
 
 class NTMUpdate(NamedTuple):
@@ -64,21 +80,24 @@ class NTMUpdate(NamedTuple):
 
 def ntm_update(ema_t: torch.Tensor, probs_u: torch.Tensor,
                sigma: torch.Tensor, geo_lambda: float = 0.999,
-               ema_t_decay: float = 0.999,
-               filter_outlier: bool = False) -> NTMUpdate:
+               ema_t_decay: float = 0.999, filter_outlier: bool = False,
+               reference_bugs: bool = False) -> NTMUpdate:
     """One step of the NTM state machine (``semi.py:114``): ``class_T``
     from the batch anchors; ``new_T = geo_lambda * class_T + (1 -
     geo_lambda) * prior`` with row 0 from ``class_T``; ``ema_t_corr`` =
     EMA(ema_t, new_T), differentiable through sigma; the persistent
-    ``ema_t`` = EMA(ema_t, class_T), detached."""
-    class_T = estimate_class_T(probs_u.detach(), filter_outlier).detach()
-    prior_T = gaussian_prior_T(sigma)
+    ``ema_t`` = EMA(ema_t, class_T), detached. ``reference_bugs``: the
+    reference's two bugs, see the module's docstring."""
+    rb = reference_bugs
+    class_T = estimate_class_T(probs_u.detach(), filter_outlier,
+                               reference_bugs=rb).detach()
+    prior_T = gaussian_prior_T(sigma, rb)
     new_T = geo_lambda * class_T + (1.0 - geo_lambda) * prior_T
-    new_T = _row_normalize(torch.cat([class_T[:1], new_T[1:]]))
+    new_T = _row_normalize(torch.cat([class_T[:1], new_T[1:]]), rb)
     ema_t_corr = _row_normalize(ema_t * ema_t_decay
-                                + new_T * (1.0 - ema_t_decay))
+                                + new_T * (1.0 - ema_t_decay), rb)
     new_ema_t = _row_normalize(ema_t * ema_t_decay
-                               + class_T * (1.0 - ema_t_decay))
+                               + class_T * (1.0 - ema_t_decay), rb)
     return NTMUpdate(ema_t=new_ema_t.detach(), ema_t_corr=ema_t_corr,
                      class_T=class_T)
 

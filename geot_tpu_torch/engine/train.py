@@ -30,6 +30,14 @@ voting over the config's ``vote`` pipeline to ``val`` / ``test`` and a
 ``test_voting`` pass after each test pass. A compute ``dtype`` other than
 float32 is for serving and the eval modes; the training modes refuse it.
 
+``ema_eval`` keeps an EMA shadow of the student: validation scores it and
+the raw weights (``val_raw``), the better of the two is the candidate for
+``best`` (``extra["ema_selected"]``), and the test pass reloads that tree
+from the best checkpoint; ``use_ema`` picks the tree that ``val`` / ``test``
+/ ``finetune`` load (``auto``: the run's own selection for the eval modes,
+the raw weights for finetune). Steps skipped by ``skip_nonfinite_updates``
+are counted per epoch (``skipped_steps``).
+
 SIGTERM or SIGINT during training means: finish the epoch, checkpoint, stop
 (a second one stops at once). Metrics accumulate on the device and are
 fetched once an epoch. Switches whose branch the port lacks raise
@@ -54,8 +62,8 @@ from ..core.logger import (generate_exp_directory, resume_exp_directory,
                            setup_logger_dist)
 from ..core.metrics import AverageMeter, cal_model_parm_nums
 from ..core.random import set_random_seed
-from ..data.build import (MODEL_KEYS, SEMI_KEYS, build_dataloader_from_cfg,
-                          semi_pairs, to_device)
+from ..data.build import (MODEL_KEYS, build_dataloader_from_cfg,
+                          semi_keys, semi_pairs, to_device)
 from ..data.transforms import build_transforms_from_cfg
 from ..optim import build_scheduler_from_cfg
 from .checkpoint import (ckpt_path, load_checkpoint, load_variables,
@@ -132,7 +140,6 @@ def refuse_unported(cfg) -> None:
     refused = {
         "model.segmentor_args.dtype": training and reduced(model),
         "model_t.segmentor_args.dtype": training and reduced(model_t),
-        "ema_eval": bool(cfg.get("ema_eval")),
         "profile_epoch": int(cfg.get("profile_epoch", 0) or 0) > 0,
         "wandb.use_wandb": bool((cfg.get("wandb") or {}).get("use_wandb")),
         "jax_distributed": bool(cfg.get("jax_distributed")),
@@ -164,11 +171,12 @@ def _get(cfg, dotted: str):
     return cfg
 
 
-def _port_weights(path: str) -> Dict[str, torch.Tensor]:
-    """The student weights of a port checkpoint; any other file (a
-    reference torch ``.pth``) is refused."""
+def _port_weights(path: str, prefer_ema) -> Dict[str, torch.Tensor]:
+    """The student weights of a port checkpoint (the EMA shadow's as
+    ``load_variables`` picks them); any other file (a reference torch
+    ``.pth``) is refused."""
     try:
-        return load_variables(path)
+        return load_variables(path, prefer_ema)
     except (KeyError, TypeError) as e:
         raise NotImplementedError(
             f"not ported: pretrained_path={path!r} is not a checkpoint of "
@@ -242,7 +250,13 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
                 raise FileNotFoundError(msg)
             logger.warning(msg + " (and mode=train does not read it)")
         else:
-            weights = _port_weights(str(pretrained))
+            # use_ema (geot_tpu/engine/train.py:267-272): auto loads the
+            # tree the source run selected for the eval modes, the raw
+            # weights for finetune; true / false force it
+            use_ema = cfg.get("use_ema", "auto")
+            weights = _port_weights(str(pretrained), (
+                ("auto" if eval_only else False) if use_ema == "auto"
+                else bool(use_ema)))
             if mode == "train":
                 logger.warning(f"pretrained_path={pretrained} was NOT "
                                f"loaded: mode=train ignores it; use "
@@ -273,10 +287,15 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     if weights is not None:
         state.model.load_state_dict(weights, strict=True)
         state.teacher.load_state_dict(weights, strict=True)
+        if state.ema_params:
+            state.seed_ema()
         logger.info(f"loaded weights from {pretrained}")
     logger.info(f"model params: "
                 f"{cal_model_parm_nums(state.model) / 1e6:.3f} M")
-    sup_step = make_supervised_step(cfg)
+    # the warm-up trains the student without the shadow, as geot_tpu's
+    # semi trainer, whose supervised phase steps a TrainState view that
+    # has none (geot_tpu/engine/train.py:538-541)
+    sup_step = make_supervised_step(dict(cfg, ema_eval=None))
     schedule = build_scheduler_from_cfg(cfg)
     supervised_epochs = int(cfg.get("supervised_epochs", 0))
     switch_ep = int(cfg.get("switch_ep", 0))
@@ -296,6 +315,11 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
         start_epoch = ckpt_epoch + 1
         best.update(extra)
         logger.info(f"resumed from {pretrained} at epoch {ckpt_epoch}")
+        if state.ema_params and "ema_params" in resume_missing:
+            # a checkpoint from before the shadow (or saved with it off):
+            # seed it from the restored weights, not the fresh init
+            state.seed_ema()
+            logger.info("ema_eval: seeded EMA shadow from restored weights")
 
     # cm from the current weights: fresh for train, loaded for finetune,
     # restored for a resume whose checkpoint lacks it (a whole-state resume
@@ -347,7 +371,8 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
                 batches = _Timed(semi_pairs(train_loader_l, train_loader_u))
                 run = (lambda b: semi_step(
                     state, to_device(b[0], MODEL_KEYS, device),
-                    to_device(b[1], SEMI_KEYS, device), lr, use_teacher))
+                    to_device(b[1], semi_keys(b[1]), device), lr,
+                    use_teacher))
             else:
                 batches = _Timed(train_loader_l)
                 run = (lambda b: sup_step(
@@ -382,6 +407,12 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
                         f"sup={meters['sup_loss'].avg:.5f} "
                         f"unsup={meters['unsup_loss'].avg:.5f} "
                         f"({wall:.1f}s, data {batches.seconds:.1f}s)")
+            n_skip = round(float(ep_mean.get("skipped", 0.0)) * n)
+            if n_skip:
+                logger.warning(f"epoch {epoch}: {n_skip}/{n} steps skipped "
+                               f"(non-finite loss/gradients)")
+                if writer:
+                    writer.add_scalar("skipped_steps", n_skip, epoch)
             if writer:
                 writer.add_scalar("lr", lr, epoch)
                 writer.add_scalar("epoch_seconds", wall, epoch)
@@ -398,14 +429,28 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
             # last epoch always runs it
             val_freq = int(cfg.get("val_freq", 250) or 0)
             if (val_freq and epoch % val_freq == 0) or epoch == epochs:
-                res = validate(eval_step, state.model, val_loader, cfg,
-                               logger)
+                ema_on = bool(state.ema_params)
+                res = validate(eval_step, state.eval_model(), val_loader,
+                               cfg, logger)
                 results["val"] = res
-                is_best = (res["whole_miou"] >= best["miou"]
+                # the candidate for best: the better of the EMA and raw
+                # weights (geot_tpu/engine/train.py:601-636)
+                sel, sel_tree = res, ("ema" if ema_on else "raw")
+                if ema_on:
+                    res_raw = validate(eval_step, state.model, val_loader,
+                                       cfg, logger, tag="val_raw")
+                    results["val_raw"] = res_raw
+                    if writer:
+                        for k, v in res_raw.items():
+                            writer.add_scalar(f"val_raw_{k}", v, epoch)
+                    if res_raw["whole_miou"] > sel["whole_miou"]:
+                        sel, sel_tree = res_raw, "raw"
+                is_best = (sel["whole_miou"] >= best["miou"]
                            or np.isnan(best["miou"]))
-                if is_best and not np.isnan(res["whole_miou"]):
-                    best.update(miou=res["whole_miou"], dsc=res["whole_dsc"],
-                                acc=res["whole_acc"], epoch=epoch)
+                if is_best and not np.isnan(sel["whole_miou"]):
+                    best.update(miou=sel["whole_miou"], dsc=sel["whole_dsc"],
+                                acc=sel["whole_acc"], epoch=epoch,
+                                ema_selected=float(sel_tree == "ema"))
                 if writer:
                     for k, v in res.items():
                         writer.add_scalar(f"val_{k}", v, epoch)
@@ -422,15 +467,17 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
             test_freq = int(cfg.get("test_freq", 250) or 0)
             if (test_freq and epoch % test_freq == 0) or epoch == epochs:
                 # the best validated weights, as the reference reloads them
-                # before a test pass; the training state is left as it is
-                model = state.model
+                # before a test pass, of the tree that won there
+                # (ema_selected); the training state is left as it is
+                model = state.eval_model()
                 best_path = (ckpt_path(cfg["ckpt_dir"],
                                        cfg.get("run_name", "run"), "best")
                              if cfg.get("ckpt_dir") else None)
                 if best_path and os.path.exists(best_path):
                     if test_model is None:
                         test_model = copy.deepcopy(state.model)
-                    test_model.load_state_dict(load_variables(best_path))
+                    test_model.load_state_dict(load_variables(
+                        best_path, bool(best.get("ema_selected", 0))))
                     model = test_model
                     logger.info(f"test on the best checkpoint (epoch "
                                 f"{best['epoch']})")

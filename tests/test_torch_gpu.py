@@ -275,3 +275,157 @@ def test_fast_forward_on_the_card_matches_the_cpu(cuda, dtype):
         assert agree >= 0.999
     else:
         assert agree >= 0.98
+
+
+# --- the semi step's branches on the card ------------------------------------
+
+def test_knn_split_self_search_of_a_whole_cloud(cuda):
+    """``Poly1FocalLoss_U_top2``'s k = 2 self-search, (2, 16000) x (2,
+    16000): bit-equal to the plain version on a sampled scan and on 2,000
+    distinct points sampled to 16,000 (column 0 is then often a copy of
+    the query with a smaller index), and launched through ``ops.knn``."""
+    rng = np.random.default_rng(4)
+    scan = _cloud(5, (2, 16000, 3)).to(cuda)
+    base = rng.standard_normal((2, 2000, 3)).astype(np.float32)
+    dup = torch.from_numpy(np.ascontiguousarray(
+        base[:, rng.integers(0, 2000, 16000)])).to(cuda)
+    for xyz in (scan, dup):
+        n0 = ops.LAUNCHES["knn_split"]
+        d, i = ops.knn(xyz, xyz, 2, squared=True)
+        assert ops.LAUNCHES["knn_split"] == n0 + 1
+        d_r, i_r = ops.knn_small_k_ref(xyz, xyz, 2)
+        assert torch.equal(i, i_r) and torch.equal(d, d_r)
+    assert bool((i[..., 0] != torch.arange(16000, device=cuda)).any())
+    S, split_len = ops.knn_split_plan(
+        2, 16000, 16000,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert S > 1 and S * split_len >= 16000 > (S - 1) * split_len
+
+
+def _semi_cfg(**extra):
+    from geot_tpu_torch import FLAGSHIP_SEMI_CFG
+
+    return dict(FLAGSHIP_SEMI_CFG, num_points=256, batch_size_l=1,
+                batch_size_u=1, **extra)
+
+
+def _semi_batches(device):
+    from geot_tpu_torch.data.build import (MODEL_KEYS, build_semi_loaders,
+                                           semi_keys, semi_pairs, to_device)
+
+    cfg = _semi_cfg()
+    loaders = build_semi_loaders(cfg)
+    for loader in loaders:
+        loader.set_epoch(1)
+    bl, bu = next(semi_pairs(*loaders))
+    return (to_device(bl, MODEL_KEYS, device),
+            to_device(bu, semi_keys(bu), device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_all_flags_step_on_the_card_matches_the_cpu(cuda, dtype):
+    """Feature-space, identity and contrast losses, ``pseudo_refine`` and
+    ``filter_outlier`` on top of the 3D loss, teacher on, the same contrast
+    draws on both devices: ``ptr`` advanced by the same count, every loss
+    term within 1e-4 relative but the feature-space term, a sum of +1 and
+    -1 weighted distances over 17-channel neighbour sets that follow the
+    float32 rounding of random init's near-equal softmax rows: it is held
+    within 1e-3 of the whole loss, and the rest of the loss within 1e-4
+    (``chip_smoke.py`` phase 11's bounds)."""
+    from geot_tpu_torch.engine.state import SemiTrainState
+    from geot_tpu_torch.engine.steps import make_semi_step
+
+    cfg = _semi_cfg(use_feat_loss=True, use_identity_loss=True,
+                    use_contrastive=True, contrast_threshold=0.0,
+                    pseudo_refine=True, filter_outlier=True)
+    seg = dict(SMALL_ARGS, drop_path_rate=0.0, head_dropout=0.0)
+    gen = torch.Generator().manual_seed(3)
+    draws = {"contrast": (torch.rand((1, 256), generator=gen),
+                          torch.randperm(256, generator=gen))}
+    out = {}
+    for dev in ("cpu", cuda):
+        state = SemiTrainState.create(cfg, seg_args=seg, seed=2, device=dev)
+        for mod in (state.model, state.teacher, state.t_predictor):
+            mod.to(dtype)
+        state.ema_t, state.cm = state.ema_t.to(dtype), state.cm.to(dtype)
+        state.contrast.queue = state.contrast.queue.to(dtype)
+        bl, bu = ({k: (v.to(dtype) if v.is_floating_point() else v)
+                   for k, v in b.items()} for b in _semi_batches(dev))
+        m = make_semi_step(cfg)(
+            state, bl, bu, 1e-3, True,
+            draws={k: tuple(t.to(dev) for t in v) for k, v in draws.items()})
+        out[str(dev)] = ({k: float(m[k]) for k in (
+            "loss", "sup_loss", "unsup_loss", "feat_loss", "identity_loss",
+            "threed_loss", "contrast_loss")}, int(state.contrast.ptr))
+    (lc, pc), (lg, pg) = out["cpu"], out[str(cuda)]
+    assert pc == pg > 0
+    for d in (lc, lg):
+        d["loss"] -= d["feat_loss"]
+    for k, v in lc.items():
+        tol = 1e-3 * abs(lc["loss"] + lc["feat_loss"]) if k == "feat_loss" \
+            else 1e-4 * abs(v)
+        assert np.isfinite(lg[k]) and abs(lg[k] - v) <= tol, k
+
+
+def test_nonfinite_guard_on_the_card(cuda):
+    """A batch holding a NaN: ``skipped`` 1 and every tensor of the state
+    bit-equal to before the step (``step`` and the generator apart)."""
+    from geot_tpu_torch.engine.state import SemiTrainState
+    from geot_tpu_torch.engine.steps import make_semi_step
+
+    cfg = _semi_cfg(skip_nonfinite_updates=True, ema_eval=0.9,
+                    use_contrastive=True, contrast_threshold=0.0)
+    state = SemiTrainState.create(cfg, seg_args=SMALL_ARGS, seed=2,
+                                  device=cuda)
+    step = make_semi_step(cfg)
+    bl, bu = _semi_batches(cuda)
+    assert float(step(state, bl, bu, 1e-3, True)["skipped"]) == 0.0
+
+    def flat(sd, prefix=""):
+        out = {}
+        for k, v in sd.items():
+            if isinstance(v, dict):
+                out.update(flat(v, f"{prefix}{k}/"))
+            elif isinstance(v, torch.Tensor):
+                out[prefix + str(k)] = v.clone()
+        return out
+
+    before = flat(state.state_dict())
+    poisoned = dict(bu, pos_s=bu["pos_s"].clone())
+    poisoned["pos_s"][0, 0, 0] = float("nan")
+    m = step(state, bl, poisoned, 1e-3, True)
+    assert float(m["skipped"]) == 1.0 and float(m["loss"]) == 0.0
+    after = flat(state.state_dict())
+    assert before.keys() == after.keys()
+    for k, v in before.items():
+        if k != "generator":
+            assert torch.equal(v, after[k]), k
+    m = step(state, bl, bu, 1e-3, True)
+    assert float(m["skipped"]) == 0.0
+    assert not torch.equal(before["model/segmentor.seg_head.0.weight"],
+                           state.model.state_dict()[
+                               "segmentor.seg_head.0.weight"])
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_knn_kernels_take_nonfinite_coordinates_as_the_plain_version(cuda,
+                                                                     k):
+    """A NaN query and NaN and inf supports, one split and several: both
+    small-k kernels return the plain version's indices (never the index
+    N, which a gather downstream would read out of bounds) and its d2
+    where finite, NaN where it is NaN."""
+    s = _cloud(6, (2, 3000, 3))
+    q = torch.cat([s[:, :300], _cloud(7, (2, 300, 3))], dim=1).contiguous()
+    q[0, 3, 1] = float("nan")
+    s[1, 2:2999, 2] = float("nan")     # cloud 1: 2 finite supports, 1 at
+    s[1, 2999, 0] = float("inf")       # +inf, the rest NaN
+    q, s = q.to(cuda), s.to(cuda)
+    d_r, i_r = ops.knn_small_k_ref(q, s, k)
+    for fn in (ops.knn_small_k, ops.knn_small_k_unsplit):
+        d, i = fn(q, s, k)
+        assert torch.equal(i, i_r), fn.__name__
+        assert torch.equal(torch.isnan(d), torch.isnan(d_r))
+        fin = ~torch.isnan(d_r)
+        assert torch.equal(d[fin], d_r[fin])
+    assert torch.equal(i_r[0, 3].cpu(), torch.arange(k, dtype=torch.int32))
+    assert int(i_r.max()) < 3000

@@ -248,3 +248,72 @@ def test_new_wrappers_count_no_launch_on_the_cpu(rng):
                  lambda: ops.cluster_exchange(1, 8, 2, "cpu")):
         with pytest.raises(ValueError):
             call()
+
+
+def _knn_split_two_pass_emulate(q, s, k, plan):
+    """The split kernel's handling of non-finite d2, query by query: the
+    scan inserts finite d2 in index order (strict <); ``fill_nonfinite``
+    completes a short list from the split's inf and NaN d2 by (bits of d2,
+    index); the merge ranks the S lists by (bits, index), empty slots
+    (index N) left out."""
+    S, split_len = plan
+    B, Q, _ = q.shape
+    N = s.shape[1]
+
+    def bits(d):
+        return int(np.float32(d).view(np.uint32))
+
+    def put(lst, d, j, key):
+        pos = sum(1 for e in lst if key(e[0]) <= key(d))
+        lst.insert(pos, (d, j))
+        del lst[k:]
+
+    d_out = np.zeros((B, Q, k), F32)
+    i_out = np.zeros((B, Q, k), np.int64)
+    for b in range(B):
+        diff = q[b][:, None, :] - s[b][None]
+        sq = diff * diff
+        d2 = sq[..., 0] + sq[..., 1] + sq[..., 2]
+        for r in range(Q):
+            merged = []
+            for p in range(S):
+                lo, hi = p * split_len, min(N, (p + 1) * split_len)
+                lst = []
+                for j in range(lo, hi):
+                    if d2[r, j] < (lst[-1][0] if len(lst) == k else np.inf):
+                        put(lst, d2[r, j], j, float)
+                if len(lst) < k:
+                    for j in range(lo, hi):
+                        if not d2[r, j] < np.inf:
+                            put(lst, d2[r, j], j, bits)
+                for d, j in lst:
+                    put(merged, d, j, bits)
+            merged += [(np.inf, N)] * (k - len(merged))
+            d_out[b, r] = [d for d, _ in merged]
+            i_out[b, r] = [j for _, j in merged]
+    return d_out, i_out
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_knn_split_takes_nonfinite_coordinates_as_the_plain_version(rng, k):
+    """A NaN query, NaN and inf supports: the kernel's second pass and
+    bit-ranked merge give the plain version's indices (inf after every
+    number, NaN after inf, equal d2 by index), never the index N; d2 equal
+    where finite and NaN where the plain version's is."""
+    s = _cloud(rng, 2, 150)
+    q = np.ascontiguousarray(np.concatenate(
+        [s[:, :10], rng.standard_normal((2, 10, 3)).astype(F32)], axis=1))
+    q[0, 3, 1] = np.nan                     # every d2 of this query is NaN
+    s[1, 2:149, 2] = np.nan                 # cloud 1: 2 supports finite,
+    s[1, 149, 0] = np.inf                   # 1 at +inf, the rest NaN
+    for S, split_len in ((1, 150), (3, 50), (5, 30)):
+        d, i = _knn_split_two_pass_emulate(q, s, k, (S, split_len))
+        d_r, i_r = ops.knn_small_k_ref(_t(q), _t(s), k)
+        np.testing.assert_array_equal(i, i_r.numpy())
+        np.testing.assert_array_equal(d, d_r.numpy())   # NaN == NaN here
+        assert int(i.max()) < 150
+    assert np.isnan(d[0, 3]).all()
+    np.testing.assert_array_equal(i[0, 3], np.arange(k))
+    if k == 4:      # the 2 finite, the inf, the first NaN
+        assert set(i[1, :, :2].ravel()) == {0, 1}
+        assert (i[1, :, 2] == 149).all() and (i[1, :, 3] == 2).all()

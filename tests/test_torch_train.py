@@ -317,11 +317,13 @@ def test_state_refuses_a_missing_card_and_unported_branches(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SemiTrainState.create(CFG, seg_args=TRAIN_ARGS)
-    with pytest.raises(NotImplementedError):
-        make_semi_step(dict(CFG, use_contrastive=True))
-    with pytest.raises(NotImplementedError):
+    # the branches of geot_tpu's step that the port still lacks: the
+    # Hessian-diagonal optimizer; a loss neither package registers
+    with pytest.raises(NotImplementedError, match="adahessian"):
+        make_semi_step(dict(CFG, optimizer={"NAME": "adahessian"}))
+    with pytest.raises(KeyError, match="Poly1FocalLoss_X"):
         make_semi_step(dict(CFG, criterion_u_args={"NAME":
-                                                   "Poly1FocalLoss_U"}))
+                                                   "Poly1FocalLoss_X"}))
 
 
 def test_dropout_masks_follow_the_generator(batches):

@@ -166,8 +166,9 @@ def test_partial_checkpoints(tmp_path, caplog):
     missing = []
     assert ckpt.load_checkpoint(path, fresh, missing_fields=missing) == (
         7, {})
-    assert sorted(missing) == ["cm", "ema_t", "generator", "opt", "step",
-                               "t_opt", "t_predictor", "teacher"]
+    assert sorted(missing) == ["cm", "contrast", "ema_params", "ema_t",
+                               "generator", "opt", "step", "t_opt",
+                               "t_predictor", "teacher"]
     _assert_same(fresh.model.state_dict(), state.model.state_dict())
     _assert_same(fresh.teacher.state_dict(), state.model.state_dict())
     assert torch.equal(fresh.cm, cm) and fresh.step == 0
@@ -313,8 +314,14 @@ def test_sigterm_checkpoints_after_the_epoch_and_stops(tmp_path,
 
 # --- refusals --------------------------------------------------------------
 
+def _ported(opt, key):
+    """A case of a switch ported since it was listed: no key to match (the
+    case id keeps the key it was listed with)."""
+    return pytest.param(opt, None, id=f"{opt}-{key}")
+
+
 @pytest.mark.parametrize("opt,key", [
-    ("ema_eval=0.999", "ema_eval"), ("num_votes=2", None),
+    _ported("ema_eval=0.999", "ema_eval"), ("num_votes=2", None),
     ("profile_epoch=1", "profile_epoch"),
     ("wandb.use_wandb=True", "wandb.use_wandb"),
     ("jax_distributed=True", "jax_distributed"),
@@ -329,19 +336,23 @@ def test_sigterm_checkpoints_after_the_epoch_and_stops(tmp_path,
     ("model.segmentor_args.dtype=bfloat16", "model.segmentor_args.dtype"),
     ("model_t.segmentor_args.dtype=bfloat16",
      "model_t.segmentor_args.dtype"),
-    ("use_contrastive=True", "use_contrastive"),
-    ("pseudo_refine=True", "pseudo_refine"),
-    ("threed_anchors=64", "threed_anchors"),
-    ("skip_nonfinite_updates=True", "skip_nonfinite_updates"),
-    ("reference_bugs=True", "reference_bugs"),
-    ("use_feat_loss=True", "use_feat_loss"),
-    ("use_identity_loss=True", "use_identity_loss"),
-    ("criterion_u_args.NAME=Poly1FocalLoss_U", "Poly1FocalLoss_U_corr")])
+    _ported("use_contrastive=True", "use_contrastive"),
+    _ported("pseudo_refine=True", "pseudo_refine"),
+    _ported("threed_anchors=64", "threed_anchors"),
+    _ported("skip_nonfinite_updates=True", "skip_nonfinite_updates"),
+    _ported("reference_bugs=True", "reference_bugs"),
+    _ported("use_feat_loss=True", "use_feat_loss"),
+    _ported("use_identity_loss=True", "use_identity_loss"),
+    _ported("criterion_u_args.NAME=Poly1FocalLoss_U",
+            "Poly1FocalLoss_U_corr"),
+    ("optimizer.NAME=adahessian", "adahessian"),
+    ("sched=cosine", "cosine")])
 def test_unported_switches_are_refused(opt, key):
     """Each switch whose branch the port lacks is refused, naming its key;
-    the cases with no key (votes, a teacher of another topology) are
-    ported now and pass both checks; ``tests/test_torch_fast_train.py``
-    trains with them."""
+    the cases with no key (votes, a teacher of another topology, the semi
+    step's branches and ``ema_eval``) are ported now and pass both checks;
+    ``tests/test_torch_fast_train.py``, ``tests/test_torch_semi_trainer.py``
+    and ``tests/test_torch_ema.py`` train with them."""
     cfg = EasyConfig()
     cfg.load(SMOKE, recursive=True)
     cfg.update([opt])
