@@ -106,6 +106,22 @@ Phases, each printed with the seconds elapsed when it starts:
    trainer on the flagship YAML with every switch, ``threed_anchors=4096``
    and ``ema_eval=0.99`` for 2 epochs: ``val`` and ``val_raw`` each epoch,
    the test pass on the tree that won, launches as the code implies.
+12. supervised zoo: kernels 1 and 2 at the zoo's shapes on 4 sampled
+   scans, bit-equal to their plain versions and timed kernel-only (a CUDA
+   graph): the FPS chain of PointNet++ and PointMLP (16000 -> 4000 ->
+   1000 -> 250 -> 62), the transformer's 16000 -> 8192, the decoders'
+   four k = 3 searches (supports of 62 to 4,000 points), a 62-point cloud
+   on a 16-block cluster, 40 distinct points sampled to 1000 (index 0
+   repeats) and duplicated supports. Then for each of
+   ``cfgs/tooth_sup/{pointnet2,dgcnn,pointmlp,transformer}.yaml`` at its
+   published width and batch: 1 warm and 2 timed supervised steps with
+   their launches checked against the counts the code implies and peak
+   memory, one profiled step (device time by kernel, idle share), one
+   step on one cloud in float64 on the card and on the CPU (dropout off;
+   loss and per-tensor gradient bounds ``_ZOO_CMP_TOL``), and
+   ``parse_and_run`` for 1 epoch with validation, the test pass and
+   checkpoints, then ``mode=test`` on its best checkpoint (same test
+   metrics, launches checked).
 Phase 3 also holds ``fps_cluster`` at the serving topology's prefix,
 (1|6, 16000) -> 1024 and a duplicate-heavy cloud, and ``knn_split`` at a
 fast scan's 6 searches, against their plain versions, with times and
@@ -1938,6 +1954,424 @@ def phase_branches(bound: Bound, cm):
             "trainer_s": wall}
 
 
+# phase 12: the supervised tooth zoo, cfgs/tooth_sup/*.yaml at full width
+ZOO = ("pointnet2", "dgcnn", "pointmlp", "transformer")
+# (fps_cluster, knn_split) launches of one forward, from the code: PointNet++
+# and PointMLP one FPS per stage (4) and one 3-NN search per decoder level
+# (4: supports of 62, 250, 1000 and 4000 points); DGCNN none (its k = 20
+# searches take the tiled path, as in geot_tpu); PointTransformer_seg the
+# flagship's 1 + 7. An eval batch of 2 scans adds one upsample per scan.
+_ZOO_PER_FORWARD = {"pointnet2": (4, 4), "dgcnn": (0, 0), "pointmlp": (4, 4),
+                    "transformer": (1, 7)}
+# card vs CPU, one float64 step: loss relative and per-tensor gradient
+# bounds. DGCNN's feature-space searches run in float32 on both sides
+# (cuBLAS and the CPU's BLAS round the 64-channel |q|^2 - 2 q.s + |s|^2
+# in different orders), and at random init near-tied neighbours swap:
+# measured 5.5e-7 and 1.2e-3 on an H100 at 700 W (PERF.md section 6)
+_ZOO_CMP_TOL = {"pointnet2": (1e-6, 1e-3), "dgcnn": (1e-5, 1e-2),
+                "pointmlp": (1e-6, 1e-3), "transformer": (1e-6, 1e-3)}
+# the configs' dropout and stochastic-depth switches, off for the
+# card-vs-CPU step (PointMLP's fixed head dropout: its rate set to 0)
+_ZOO_NO_DROPOUT = {
+    "pointnet2": ["model.cls_args.dropout_ratio=0.0"],
+    "dgcnn": ["model.cls_args.dropout_ratio=0.0"],
+    "pointmlp": [],
+    "transformer": ["model.segmentor_args.drop_path_rate=0.0",
+                    "model.segmentor_args.head_dropout=0.0"]}
+
+
+def _zoo_cfg(name, *opts):
+    from geot_tpu_torch.core.config import EasyConfig
+
+    cfg = EasyConfig()
+    cfg.load(_zoo_path(name), recursive=True)
+    cfg.update(list(opts))
+    return cfg
+
+
+def _zoo_path(name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "cfgs",
+                        "tooth_sup", f"{name}.yaml")
+
+
+def _kernels_zoo(bound: Bound):
+    """Kernels 1 and 2 at the zoo's shapes on 4 sampled scans: the FPS chain
+    of PointNet++ and PointMLP (16000 -> 4000 -> 1000 -> 250 -> 62), the
+    supervised transformer's 16000 -> 8192, the decoders' four k = 3
+    searches (supports of 62 to 4000 points); each bit-equal to its plain
+    version and timed kernel-only (a CUDA graph of the calls); and the
+    named edge cases: a 62-point cloud on a 16-block cluster, a cloud with
+    fewer distinct points than npoint, duplicated supports."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+
+    fps_mod = importlib.import_module("geot_tpu_torch.ops.fps")
+    dev = torch.device("cuda")
+    xyz = torch.cat([torch.from_numpy(_scan_sample(s)[1])[None]
+                     for s in (21, 22, 23, 24)]).to(dev).contiguous()
+    B = xyz.shape[0]
+    C = fps_mod.card_cluster_size(dev, B)
+    levels = [xyz]
+    chain = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "calls": {}}
+    ops_, bytes_ = 0.0, 0.0
+    for npoint in (4000, 1000, 250, 62):
+        x = levels[-1]
+        N = x.shape[1]
+        plan = ops.fps_plan(N, C)
+        got = ops.fps(x, npoint)
+        ref = ops.fps_ref(x, npoint)
+        torch.cuda.synchronize()
+        label = f"({B},{N})->{npoint}"
+        check(torch.equal(got, ref), f"fps {label}: indices differ from "
+              f"fps_ref at {int((got != ref).sum())} places")
+        ms = graph_ms(lambda: ops.fps(x, npoint), 10)
+        plain = cuda_ms(lambda: ops.fps_ref(x, npoint), 1)
+        b_ms, b_by = _fps_bound(bound, B, N, npoint)
+        ops_ += 9.0 * B * (npoint - 1) * N
+        bytes_ += B * N * 12 + B * npoint * 4
+        chain["ms"] += ms
+        chain["plain_ms"] += plain
+        chain["bound_ms"] += b_ms
+        chain["calls"][label] = {"ms": ms, "plain_ms": plain,
+                                 "bound_ms": b_ms, "plan": list(plan)}
+        log(f"fps {label}: plan {plan.route} C={plan.C} per_cta "
+            f"{plan.per_cta} slots {plan.slots}; bit-equal to fps_ref; "
+            f"kernel {ms:.4f} ms ({ms * 1e3 / (npoint - 1):.3f} us a step), "
+            f"plain {plain:.1f} ms, bound {b_ms:.5f} ms ({b_by})")
+        levels.append(ops.gather_points(x, got).contiguous())
+    chain["bound_by"] = bound(ops_, bytes_)[1]
+    chain["max_abs_err"] = 0.0
+
+    got = ops.fps(xyz, 8192)
+    ref = ops.fps_ref(xyz, 8192)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "fps (4,16000)->8192 differs from fps_ref")
+    b_ms, b_by = _fps_bound(bound, B, 16000, 8192)
+    t8192 = {"ms": graph_ms(lambda: ops.fps(xyz, 8192), 3),
+             "plain_ms": cuda_ms(lambda: ops.fps_ref(xyz, 8192), 1),
+             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
+    log(f"fps ({B},16000)->8192 (the supervised transformer): bit-equal; "
+        f"kernel {t8192['ms']:.4f} ms, plain {t8192['plain_ms']:.1f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by})")
+
+    # a 62-point cloud on a 16-block cluster (4 points a block, most
+    # threads empty), and a cloud of 40 distinct points sampled to 1000:
+    # after 40 picks every min-distance is 0 and the first maximum,
+    # index 0, repeats
+    x62 = levels[-1]
+    plan16 = ops.fps_plan(62, 16)
+    got = ops.fps_cluster(x62, 16, plan16)
+    check(torch.equal(got, ops.fps_ref(x62, 16)),
+          f"fps_cluster 62 points on {plan16}: differs from fps_ref")
+    sel = torch.from_numpy(np.random.default_rng(4).choice(40, 1000))
+    few = xyz[:, :40][:, sel.to(dev)].contiguous()
+    got = ops.fps(few, 250)
+    ref = ops.fps_ref(few, 250)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "fps on 40 distinct points: differs")
+    zeros = int((got[:, 1:] == 0).sum())
+    check(zeros >= B * (250 - 40), f"fps on 40 distinct points repeats "
+          f"index 0 only {zeros} times")
+    log(f"fps edge cases: 62 points on {plan16.C} blocks of {plan16.per_cta} "
+        f"and 40 distinct points sampled to 1000 -> 250 ({zeros} repeats "
+        f"of index 0): bit-equal to fps_ref")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    knn = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "calls": {}}
+    ops_ = bytes_ = 0.0
+    dup = torch.cat([levels[2], levels[2][:, :500]], dim=1).contiguous()
+    for i, (q, s_) in enumerate([(levels[3], levels[4]),
+                                 (levels[2], levels[3]),
+                                 (levels[1], levels[2]),
+                                 (levels[0], levels[1]),
+                                 (levels[1], dup)]):
+        Q, N = q.shape[1], s_.shape[1]
+        S, split_len = ops.knn_split_plan(B, Q, N, sms)
+        d, idx = ops.knn_small_k(q, s_, 3)
+        d_r, i_r = ops.knn_small_k_ref(q, s_, 3)
+        torch.cuda.synchronize()
+        label = f"({B},{Q})x({B},{N}) k=3"
+        check(torch.equal(idx, i_r) and torch.equal(d, d_r),
+              f"knn_split {label}: differs from knn_small_k_ref")
+        if i == 4:
+            log(f"knn_split duplicated supports {label}: {S} splits; "
+                f"bit-equal")
+            continue
+        ms = graph_ms(lambda: ops.knn_small_k(q, s_, 3), 20)
+        wrap = cuda_ms(lambda: ops.knn_small_k(q, s_, 3), 20)
+        plain = cuda_ms(lambda: ops.knn_small_k_ref(q, s_, 3), 2)
+        flops, nbytes = 8.0 * B * Q * N, B * ((Q + N) * 12 + Q * 3 * 8)
+        b_ms, b_by = bound(flops, nbytes)
+        ops_ += flops
+        bytes_ += nbytes
+        for k, v in (("ms", ms), ("wrapper_ms", wrap), ("plain_ms", plain),
+                     ("bound_ms", b_ms)):
+            knn[k] += v
+        knn["calls"][label] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                               "splits": S}
+        log(f"knn_split {label}: {S} splits of {split_len}; bit-equal; "
+            f"kernel {ms:.4f} ms (wrapper {wrap:.4f}), plain {plain:.2f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by})")
+    knn["bound_by"] = bound(ops_, bytes_)[1]
+    knn["max_abs_err"] = 0.0
+    log(f"the decoders' 4 searches: kernel {knn['ms']:.4f} ms (wrapper "
+        f"{knn['wrapper_ms']:.4f}), bound {knn['bound_ms']:.5f} ms; the FPS "
+        f"chain: kernel {chain['ms']:.3f} ms, bound {chain['bound_ms']:.5f} "
+        f"ms")
+    return {"fps_chain": chain, "fps_8192": t8192, "knn_decoder": knn}
+
+
+def _zoo_card_vs_cpu(name, batch_np, lr, dev="cuda", opts=()):
+    """One supervised step of the config from the same weights on one
+    cloud, dropout off, in float64 around the float32 kernels, on the card
+    and on the CPU: loss and per-tensor gradients (the first AdamW moment,
+    relative to the tensor's largest) within ``_ZOO_CMP_TOL``. A tensor's
+    scale is floored at 1e-6 of the largest gradient: a bias before a
+    batch-statistics BatchNorm, PointMLP's ``affine_beta`` and, on one
+    cloud, its global and jaw tokens feed only a per-batch constant that
+    the next BatchNorm removes, so their gradient is 0 in exact
+    arithmetic."""
+    import torch
+
+    from geot_tpu_torch.data.build import MODEL_KEYS, to_device
+    from geot_tpu_torch.engine.state import TrainState
+    from geot_tpu_torch.engine.steps import make_supervised_step
+
+    cfg = _zoo_cfg(name, *opts, *_ZOO_NO_DROPOUT[name])
+    one = {k: v[:1] for k, v in batch_np.items()}
+    res = {}
+    for where, dev in (("card", dev), ("cpu", "cpu")):
+        st = TrainState.create(cfg, cfg.model, seed=1, device=dev)
+        st.model.double()
+        if name == "pointmlp":
+            st.model.dropout.rate = 0.0
+        b = {k: (v.double() if v.is_floating_point() else v)
+             for k, v in to_device(one, MODEL_KEYS, dev).items()}
+        t = time.perf_counter()
+        m = make_supervised_step(cfg)(st, b, lr)
+        loss = float(m["loss"])
+        secs = time.perf_counter() - t
+        grads = {n: st.opt.state[p]["exp_avg"].detach().cpu()
+                 for n, p in st.model.named_parameters()}
+        res[where] = (loss, grads)
+        log(f"{name}: one float64 step, 1 cloud, on the {where}: "
+            f"{secs:.1f} s; loss {loss:.10f}")
+    (lg, gg), (lc, gc) = res["card"], res["cpu"]
+    rel = abs(lg - lc) / abs(lc)
+    gmax = max(float(v.abs().max()) for v in gc.values())
+    errs, vanish = {}, 0
+    for k, ref in gc.items():
+        scale = max(float(ref.abs().max()), 1e-6 * gmax)
+        vanish += scale == 1e-6 * gmax
+        errs[k] = float((gg[k] - ref).abs().max()) / scale
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:2]
+    log(f"{name} card vs CPU float64 step: loss relative {rel:.2e}; "
+        f"per-tensor gradient max |d| / max |g|: worst "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst)
+        + f" ({len(errs)} tensors, {vanish} below 1e-6 of the largest "
+        f"gradient)")
+    loss_tol, grad_tol = _ZOO_CMP_TOL[name]
+    check(rel <= loss_tol, f"{name} card vs CPU loss differs: {rel}")
+    check(worst[0][1] <= grad_tol, f"{name} card vs CPU gradients: "
+          f"{worst}")
+    return {"loss_rel": rel, "grad_rel": worst[0][1]}
+
+
+def _zoo_model(name, dev="cuda", opts=()):
+    """One config at full width (``opts``: overrides, for a rehearsal at a
+    small size): 1 warm and 2 timed supervised steps, their launches and
+    peak memory, one profiled step, one step card vs CPU, then the trainer
+    for 1 epoch and ``mode=test`` on its best checkpoint."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.data.build import (MODEL_KEYS,
+                                           build_dataloader_from_cfg,
+                                           to_device)
+    from geot_tpu_torch.engine import train as train_mod
+    from geot_tpu_torch.engine.checkpoint import ckpt_path
+    from geot_tpu_torch.engine.state import TrainState
+    from geot_tpu_torch.engine.steps import make_supervised_step
+    from geot_tpu_torch.optim import build_scheduler_from_cfg
+
+    dev = torch.device(dev)
+    cfg = _zoo_cfg(name, *opts)
+    f, k = _ZOO_PER_FORWARD[name]
+    bs = int(cfg.batch_size_l)
+    t = time.perf_counter()
+    state = TrainState.create(cfg, cfg.model, seed=0, device=dev)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    loader = build_dataloader_from_cfg(bs, cfg.dataset_l, cfg.datatransforms,
+                                       split="train", seed=int(cfg.seed))
+    loader.set_epoch(1)
+    it = iter(loader)
+    batches = [next(it) for _ in range(3)]
+    log(f"{name}: {cfg.model.NAME}, {n_params} parameters, batch {bs} x "
+        f"{cfg.num_points} points; built in {time.perf_counter() - t:.1f} s")
+    step = make_supervised_step(cfg)
+    lr = build_scheduler_from_cfg(cfg)(1)
+    want = _launch_counts(fps_cluster=f, knn_split=k)
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    step_ms = []
+    for n, b in enumerate(batches):
+        b = to_device(b, MODEL_KEYS, dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        m = step(state, b, lr)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        got = dict(ops.LAUNCHES)
+        check(math.isfinite(float(m["loss"])), f"{name} step {n}: loss "
+              f"{float(m['loss'])}")
+        check(got == want, f"{name} step {n}: launches {got}, expected "
+              f"{want}")
+        for key, v in got.items():
+            launches[key] += v
+    peak_mb = (torch.cuda.max_memory_allocated() - resident) / 2 ** 20
+    log(f"{name}: steps {', '.join(f'{x:.1f}' for x in step_ms)} ms (the "
+        f"first warm); loss {float(m['loss']):.6f}; launches a step {want}; "
+        f"peak memory {peak_mb:.0f} MiB above the resident "
+        f"{resident / 2 ** 20:.0f} MiB")
+    b0 = to_device(batches[0], MODEL_KEYS, dev)
+    wall, busy = _profile(f"{name} supervised step",
+                          lambda: step(state, b0, lr), 1, top=10)
+    del state
+    torch.cuda.empty_cache()
+    compare = _zoo_card_vs_cpu(name, batches[0], lr, dev, opts)
+
+    root = tempfile.mkdtemp(prefix=f"geot_zoo_{name}_")
+    try:
+        steps = len(loader)
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = train_mod.parse_and_run(["--cfg", _zoo_path(name), "epochs=1",
+                                       "val_freq=1", "test_freq=1",
+                                       "save_freq=1", f"root_dir={root}",
+                                       f"device={dev.type}", *opts])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        run_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        got = dict(ops.LAUNCHES)
+        # 12 val + 12 test batches of 2 scans
+        want_run = _launch_counts(fps_cluster=steps * f + 24 * f,
+                                  knn_split=steps * k + 24 * (k + 2))
+        check(got == want_run, f"{name} trainer launches {got}, expected "
+              f"{want_run}")
+        (run_dir,) = [os.path.join(root, "tooth_sup", d)
+                      for d in os.listdir(os.path.join(root, "tooth_sup"))]
+        with open(os.path.join(run_dir, "scalars.jsonl")) as fh:
+            sc = {d["tag"]: d["value"] for d in map(json.loads, fh)}
+        with open(os.path.join(run_dir, "step_times.jsonl")) as fh:
+            between = [json.loads(x)["dt"] * 1e3 for x in fh][1:]
+        check(math.isfinite(sc["train_loss"]), f"{name}: train_loss")
+        for split in ("val", "test"):
+            bad = {k_: v for k_, v in res[split].items()
+                   if not (math.isfinite(v) and 0.0 <= v <= 1.0)}
+            check(not bad, f"{name} trainer: {split} metrics {bad}")
+        ck = os.path.join(run_dir, "checkpoint")
+        tags = ("latest", "best", "E1")
+        for tag in tags:
+            check(os.path.exists(ckpt_path(ck, os.path.basename(run_dir),
+                                           tag)), f"{name}: no {tag}")
+        best = ckpt_path(ck, os.path.basename(run_dir), "best")
+        ops.reset_launches()
+        t = time.perf_counter()
+        res_t = train_mod.parse_and_run(["--cfg", _zoo_path(name),
+                                         "mode=test",
+                                         f"pretrained_path={best}",
+                                         f"root_dir={root}",
+                                         f"device={dev.type}", *opts])
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t
+        got_t = dict(ops.LAUNCHES)
+        want_t = _launch_counts(fps_cluster=12 * f, knn_split=12 * (k + 2))
+        check(got_t == want_t, f"{name} mode=test launches {got_t}, "
+              f"expected {want_t}")
+        check(abs(res_t["test"]["whole_miou"] - res["test"]["whole_miou"])
+              <= 1e-6, f"{name}: mode=test whole_miou "
+              f"{res_t['test']['whole_miou']} vs the run's "
+              f"{res['test']['whole_miou']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"{name} trainer: {run_s:.1f} s for 1 epoch of {steps} steps, "
+        f"validation and the test pass; epoch {sc['epoch_seconds']:.2f} s "
+        f"(data {sc['data_seconds']:.2f} s); host ms between steps "
+        f"{', '.join(f'{x:.1f}' for x in between)}; peak memory "
+        f"{run_peak:.0f} MiB; val whole miou {res['val']['whole_miou']:.6f}; "
+        f"mode=test {test_s:.1f} s, whole miou "
+        f"{res_t['test']['whole_miou']:.6f}; launches {got} + {got_t}")
+    for key in launches:
+        launches[key] += got[key] + got_t[key]
+    return {"params": n_params, "step_ms": step_ms, "peak_mb": peak_mb,
+            "profile_wall_ms": wall, "profile_busy_ms": busy,
+            "compare": compare, "epoch_seconds": sc["epoch_seconds"],
+            "data_seconds": sc["data_seconds"], "run_s": run_s,
+            "run_peak_mb": run_peak, "test_s": test_s,
+            "launches": launches}
+
+
+def phase_zoo(bound: Bound):
+    """Phase 12: the kernels at the zoo's shapes, then each config of
+    ``cfgs/tooth_sup`` through its steps and the trainer."""
+    import collections
+    import importlib
+
+    from geot_tpu_torch import ops
+
+    log("phase 12: the supervised tooth zoo (cfgs/tooth_sup) at full width")
+    recs = _kernels_zoo(bound)
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    models = {}
+    # the kernels' launches by shape, through counting wrappers
+    fps_mod = importlib.import_module("geot_tpu_torch.ops.fps")
+    knn_mod = importlib.import_module("geot_tpu_torch.ops.knn")
+    real_fps, real_knn = fps_mod.fps_cluster, knn_mod.knn_small_k
+    shapes = collections.Counter()
+
+    def fps_counted(xyz, npoint, plan):
+        shapes[("fps", xyz.shape[1], npoint)] += 1
+        return real_fps(xyz, npoint, plan)
+
+    def knn_counted(q, s_, k):
+        shapes[("knn", q.shape[1], s_.shape[1], k)] += 1
+        return real_knn(q, s_, k)
+
+    fps_mod.fps_cluster, knn_mod.knn_small_k = fps_counted, knn_counted
+    try:
+        for name in ZOO:
+            models[name] = _zoo_model(name)
+            for key, v in models[name]["launches"].items():
+                launches[key] += v
+    finally:
+        fps_mod.fps_cluster, knn_mod.knn_small_k = real_fps, real_knn
+    chain = ((16000, 4000), (4000, 1000), (1000, 250), (250, 62))
+    by_shape = {
+        "fps_chain": {f"{n}->{m}": shapes[("fps", n, m)] for n, m in chain},
+        "knn_decoder": {f"{m}x{n}": shapes[("knn", m, n, 3)]
+                        for m, n in ((250, 62), (1000, 250), (4000, 1000),
+                                     (16000, 4000))}}
+    log(f"zoo launches at the chain and decoder shapes: {by_shape}")
+    log("zoo step ms (2 timed): " + "; ".join(
+        f"{n} {m['step_ms'][1]:.1f} / {m['step_ms'][2]:.1f}"
+        for n, m in models.items()) + "; epoch s: " + "; ".join(
+        f"{n} {m['epoch_seconds']:.2f}" for n, m in models.items()))
+    return {"kernels": recs, "models": models, "launches": launches,
+            "launches_by_shape": by_shape}
+
+
 def resume_check(root: str) -> int:
     """``--resume-check ROOT`` (phase 8 runs it in a child process with
     ``CUBLAS_WORKSPACE_CONFIG`` set): with deterministic algorithms on, the
@@ -1987,6 +2421,7 @@ def main() -> int:
     fast = phase_fast_serving(scans)
     fast_trainer = phase_fast_trainer()
     branches = phase_branches(Bound(limit_w), train["state"].cm)
+    zoo = phase_zoo(Bound(limit_w))
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
     # launches on the main paths: 3 served scans, the train run (2 cm
@@ -2000,7 +2435,7 @@ def main() -> int:
     log(f"launches: serving {serving}, training {trained}, trainer "
         f"{trainer['launches']}, fast serving {fast['launches']}, fast "
         f"trainer {fast_trainer['launches']}, semi-step branches "
-        f"{branches['launches']}")
+        f"{branches['launches']}, supervised zoo {zoo['launches']}")
 
     def entry(name, replaces):
         return {"name": name, "route": "cuda",
@@ -2010,7 +2445,8 @@ def main() -> int:
                              + trainer["launches"][name]
                              + fast["launches"][name]
                              + fast_trainer["launches"][name]
-                             + branches["launches"][name]),
+                             + branches["launches"][name]
+                             + zoo["launches"][name]),
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
                 "launches_trainer_run": trainer["launches"][name],
@@ -2018,6 +2454,7 @@ def main() -> int:
                 "launches_fast_serving": fast["launches"][name],
                 "launches_fast_trainer": fast_trainer["launches"][name],
                 "launches_semi_branches": branches["launches"][name],
+                "launches_supervised_zoo": zoo["launches"][name],
                 "library_ms": None, **recs[name]}
 
     kernels = [
@@ -2033,6 +2470,19 @@ def main() -> int:
          "source": "geot_tpu_torch/csrc/knn_split.cu",
          "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
          **branches["self_search"]},
+        # kernels 1 and 2 at the supervised zoo's shapes (phase 12): the FPS
+        # chain of PointNet++ and PointMLP at B = 4 and the decoders' 3-NN
+        # searches; launches at those shapes in phase 12
+        {"name": "fps_cluster_zoo_chain_4x16000", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/fps_cluster.cu",
+         "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
+         "launches": sum(zoo["launches_by_shape"]["fps_chain"].values()),
+         **zoo["kernels"]["fps_chain"]},
+        {"name": "knn_split_zoo_decoders_4x_k3", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/knn_split.cu",
+         "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
+         "launches": sum(zoo["launches_by_shape"]["knn_decoder"].values()),
+         **zoo["kernels"]["knn_decoder"]},
     ]
     log("done")
     print(smi, flush=True)

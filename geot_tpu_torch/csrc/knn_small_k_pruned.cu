@@ -19,9 +19,9 @@
 // query, its k best as a sorted (d2, original index) list in registers.
 // Query slots past Q repeat the last sorted query (they keep the tile's
 // bound real and write nothing). For each chunk in visit order the block
-// tests d2cb * 0.99999 <= worst, where worst is the block-wide largest
-// k-th best so far (+inf until the list is full): a chunk that fails holds
-// no support nearer than any query's k-th best and is skipped whole. The
+// skips it when d2cb * 0.99999 > worst, where worst is the block-wide
+// largest k-th best so far (+inf until every list is full): such a chunk
+// holds no support nearer than any query's k-th best. The
 // test reads the same values in every thread, so the branch is uniform. A
 // chunk that passes is staged through shared memory (structure of arrays,
 // broadcast reads) and scanned. Supports arrive in Morton order, not index
@@ -31,6 +31,16 @@
 // Arithmetic: d2 = dx*dx + dy*dy + dz*dz with separate roundings (the
 // library is built with --fmad=false), as knn_small_k.cu and the plain
 // version.
+//
+// Non-finite d2 (an inf or NaN coordinate): the plain version orders d2 by
+// its bits, so +inf and then NaN come after every number, equal bits by
+// index. The scan takes +inf in (d2, index) order and never a NaN; a list
+// that it leaves short is completed from the NaN d2 in (bits, index) order
+// by a second pass over the supports (fill_nan), which runs only for such
+// a query. A NaN coordinate makes a box NaN: such a chunk is never
+// skipped (the skip test is d2cb * 0.99999 > worst, false for a NaN), and
+// a tile with a NaN query never fills its bound, so none of its chunks is
+// skipped either. Without this a NaN query returned the index 2^30.
 //
 // What bounds it: 8 fp32 operations per (query, support) pair that is not
 // pruned. The pairs pruned away depend on the data; the block-wide bound
@@ -43,6 +53,36 @@ namespace {
 constexpr int kThreads = 256;               // queries per tile
 constexpr int kChunk = 1024;                // supports per chunk
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kEmpty = 1 << 30;             // index of an empty slot
+
+// After the scan: a slot still empty means fewer than K supports had a
+// d2 that is a number or +inf; take the NaN ones in (bits, original
+// index) order. Reads the sorted supports again from global memory, and
+// only for such a query.
+template <int K>
+__device__ void fill_nan(float (&bd)[K], int (&bi)[K], float qx, float qy,
+                         float qz, const float* sp, const int* sidx, int N) {
+  if (bi[K - 1] != kEmpty) return;
+  for (int j = 0; j < N; ++j) {
+    const float dx = qx - sp[3 * j], dy = qy - sp[3 * j + 1],
+                dz = qz - sp[3 * j + 2];
+    float cd = dx * dx + dy * dy + dz * dz;
+    if (cd == cd) continue;                 // a number or +inf: scanned
+    int ci = sidx[j];
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const unsigned cb = __float_as_uint(cd), sb = __float_as_uint(bd[s]);
+      if (bi[s] == kEmpty || cb < sb || (cb == sb && ci < bi[s])) {
+        const float td = bd[s];
+        const int ti = bi[s];
+        bd[s] = cd;
+        bi[s] = ci;
+        cd = td;
+        ci = ti;
+      }
+    }
+  }
+}
 
 template <int K>
 __global__ void __launch_bounds__(kThreads)
@@ -74,13 +114,13 @@ knn_pruned_kernel(const float* __restrict__ q_all,
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     bd[s] = __int_as_float(0x7f800000);  // +inf
-    bi[s] = 1 << 30;
+    bi[s] = kEmpty;
   }
   float worst = __int_as_float(0x7f800000);
   unsigned long long n_skip = 0;
 
   for (int ci = 0; ci < NC; ++ci) {
-    if (!(d2cb[ci] * 0.99999f <= worst)) {
+    if (d2cb[ci] * 0.99999f > worst) {
       ++n_skip;
       continue;
     }
@@ -129,6 +169,7 @@ knn_pruned_kernel(const float* __restrict__ q_all,
   if (skipped != nullptr && threadIdx.x == 0 && n_skip > 0)
     atomicAdd(skipped, n_skip);
   if (p >= Q) return;
+  fill_nan<K>(bd, bi, qx, qy, qz, sp, sidx, N);
   float* dp = d_all + ((size_t)b * Q + p) * K;
   int* ip = i_all + ((size_t)b * Q + p) * K;
 #pragma unroll

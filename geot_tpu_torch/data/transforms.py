@@ -1,4 +1,4 @@
-"""Host-side augmentations of the flagship recipe
+"""Host-side augmentations of the flagship and supervised tooth recipes
 (``geot_tpu/data/transforms.py``): numpy callables taking ``(data dict,
 np.random.Generator)``, drawing from the dataset's generator in the same
 order as ``geot_tpu``'s, so batches are bit-equal. Every ``*_s`` variant
@@ -122,9 +122,38 @@ class PointCloudRotation_s:
         return data
 
 
+class PointCloudJitter:
+    """Gaussian noise of ``jitter_sigma`` on ``pos``, clipped to
+    ``jitter_clip`` (``geot_tpu/data/transforms.py:180-196``)."""
+
+    def __init__(self, jitter_sigma=0.01, jitter_clip=0.05, **kwargs):
+        self.sigma, self.clip = jitter_sigma, jitter_clip
+
+    def __call__(self, data, rng):
+        noise = (rng.standard_normal(data["pos"].shape)
+                 * self.sigma).astype(np.float32)
+        data["pos"] = data["pos"] + np.clip(noise, -self.clip, self.clip)
+        return data
+
+
+class ChromaticDropGPU:
+    """Zero the first 3 channels of ``x`` with probability ``color_drop``
+    (``:254``)."""
+
+    def __init__(self, color_drop=0.2, **kwargs):
+        self.color_drop = color_drop
+
+    def __call__(self, data, rng):
+        if rng.uniform() < self.color_drop and "x" in data:
+            data["x"] = data["x"].copy()
+            data["x"][:, :3] = 0
+        return data
+
+
 TRANSFORMS = {cls.__name__: cls for cls in (
     PointsToTensor, PointCloudCenterAndNormalize, PointCloudScaling,
-    PointCloudScaling_s, PointCloudTranslation_s, PointCloudRotation_s)}
+    PointCloudScaling_s, PointCloudTranslation_s, PointCloudRotation_s,
+    PointCloudJitter, ChromaticDropGPU)}
 
 
 def build_transforms_from_cfg(split: str, datatransforms_cfg: Optional[

@@ -3,9 +3,9 @@
 
 A checkpoint is one ``torch.save`` file,
 ``<ckpt_dir>/<run_name>_ckpt_<tag>.pth``, holding ``{"state":
-SemiTrainState.state_dict(), "epoch", "extra"}``: ``latest`` after every
-save, ``best`` when the save is the best so far, ``E<epoch>`` every
-``save_freq`` epochs. Each file is written beside itself as ``.tmp`` and
+state.state_dict(), "epoch", "extra"}`` of a ``TrainState`` or a
+``SemiTrainState``: ``latest`` after every save, ``best`` when the save is
+the best so far, ``E<epoch>`` every ``save_freq`` epochs. Each file is written beside itself as ``.tmp`` and
 swapped in with ``os.replace``, so a kill during a save leaves the previous
 file whole. Files are read with ``torch.load(weights_only=True)``.
 """
@@ -18,7 +18,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from .state import SemiTrainState
+from .state import SemiTrainState, TrainState
 
 
 def ckpt_path(ckpt_dir: str, run_name: str, tag: str) -> str:
@@ -38,7 +38,8 @@ def _copy(src: str, dst: str) -> None:
     os.replace(tmp, dst)
 
 
-def save_checkpoint(cfg, state: SemiTrainState, epoch: int,
+def save_checkpoint(cfg, state: "TrainState | SemiTrainState",
+                    epoch: int,
                     additional_dict: Optional[Dict[str, Any]] = None,
                     is_best: bool = False,
                     save_freq: Optional[int] = None) -> str:
@@ -64,7 +65,7 @@ def _read(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_checkpoint(path: str, state: SemiTrainState,
+def load_checkpoint(path: str, state: "TrainState | SemiTrainState",
                     missing_fields: Optional[List[str]] = None
                     ) -> Tuple[int, Dict[str, Any]]:
     """Restore ``state`` in place from a checkpoint written by

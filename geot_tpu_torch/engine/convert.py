@@ -1,15 +1,19 @@
 """Weights and train state from ``geot_tpu`` to the port.
 
 ``params_from_jax`` takes the JAX package's ``{"params", "batch_stats"}``
-tree of a ``WholePartSeg`` (nested dicts of numpy arrays; no JAX needed)
-and returns the port's ``state_dict``, running statistics included.
-``t_params_from_jax`` does the same for the ``Ins_T_mean`` T-predictor, and
-``semi_state_from_jax`` for a ``SemiTrainState``: student, teacher,
-T-predictor, ``ema_t``, ``cm``, the contrast bank and the EMA shadow,
-and, from a full-state checkpoint, both optax AdamW states and ``step``. Dense kernels (in, out) become
-Linear weights (out, in); flax BatchNorm ``scale``/``bias`` + ``mean``/
-``var`` become ``weight``/``bias`` + ``running_mean``/``running_var``;
-LayerNorm and GroupNorm ``scale`` becomes ``weight``.
+tree of a ``WholePartSeg``, ``BaseSeg`` or ``PointMLPPartSegmentor``
+(nested dicts of numpy arrays; no JAX needed) and returns the port's
+``state_dict``, running statistics included. ``t_params_from_jax`` does
+the same for the ``Ins_T_mean`` T-predictor; ``state_from_jax`` for a
+supervised ``TrainState``: the weights, the EMA shadow and, from a
+full-state checkpoint, the optax AdamW state and ``step``; and
+``semi_state_from_jax`` for a ``SemiTrainState``: all of that for the
+student, and the teacher, the T-predictor and its AdamW state, ``ema_t``,
+``cm`` and the contrast bank. Dense kernels (in, out) become Linear
+weights (out, in); flax BatchNorm ``scale``/``bias`` + ``mean``/``var``
+become ``weight``/``bias`` + ``running_mean``/``running_var``; LayerNorm
+and GroupNorm ``scale`` becomes ``weight``; other parameters keep their
+names.
 """
 from __future__ import annotations
 
@@ -43,10 +47,23 @@ _PATTERNS = (
 )
 
 
+# the zoo's shared MLPs (``convs``: flax ``dense_{i}``/``bn_{i}``) are the
+# port's ``SharedMLP`` (``layer{i}.conv``/``layer{i}.bn.bn``)
+_SHARED_MLP = ((r"(^|/)convs/dense_(\d+)$", r"\1convs/layer\2/conv"),
+               (r"(^|/)convs/bn_(\d+)$", r"\1convs/layer\2/bn/bn"))
+
+
 def _module_name(path: str) -> str:
-    if path in _RENAME:
-        return _RENAME[path]
-    for pat, rep in _PATTERNS:
+    """The port's module name of a flax module path: below ``segmentor``
+    the flagship's renames, everywhere else the flax path with dots."""
+    if path.startswith("segmentor/"):
+        sub = path[len("segmentor/"):]
+        if sub in _RENAME:
+            return "segmentor." + _RENAME[sub]
+        for pat, rep in _PATTERNS:
+            sub = re.sub(pat, rep, sub)
+        path = "segmentor/" + sub
+    for pat, rep in _SHARED_MLP:
         path = re.sub(pat, rep, path)
     return path.replace("/", ".")
 
@@ -70,33 +87,37 @@ def _float(a) -> torch.Tensor:
 
 
 def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """``geot_tpu`` WholePartSeg variables -> port ``state_dict``, in
-    float32 (float64 leaves stay float64)."""
-    params = variables["params"]["segmentor"]
-    stats = variables.get("batch_stats", {}).get("segmentor", {})
-    stats_by_path = dict(_walk(stats))
+    """``geot_tpu`` model variables -> port ``state_dict``, in float32
+    (float64 leaves stay float64). The model is a ``WholePartSeg`` (the
+    flagship or ``PointTransformer_seg``), a ``BaseSeg`` or a
+    ``PointMLPPartSegmentor``; their port modules carry the flax names."""
+    stats_by_path = dict(_walk(variables.get("batch_stats", {})))
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, arr):
-        sd["segmentor." + key] = _float(arr)
+        sd[key] = _float(arr)
 
-    for path, leaves in _walk(params):
-        if path == "":            # T_linear / T_revision / sigma
+    for path, leaves in _walk(variables["params"]):
+        if path == "segmentor":   # T_linear / T_revision / sigma
             for name, arr in leaves.items():
-                put(name if name == "sigma" else f"{name}.weight", arr)
+                put(f"segmentor.{name}" if name == "sigma"
+                    else f"segmentor.{name}.weight", arr)
             continue
         mod = _module_name(path)
         if "kernel" in leaves:    # Dense
             put(f"{mod}.weight", np.asarray(leaves["kernel"]).T)
             if "bias" in leaves:
                 put(f"{mod}.bias", leaves["bias"])
-            continue
-        put(f"{mod}.weight", leaves["scale"])
-        put(f"{mod}.bias", leaves["bias"])
-        if path in stats_by_path:  # BatchNorm
-            put(f"{mod}.running_mean", stats_by_path[path]["mean"])
-            put(f"{mod}.running_var", stats_by_path[path]["var"])
-            sd[f"segmentor.{mod}.num_batches_tracked"] = torch.tensor(0)
+        elif "scale" in leaves:   # a normalisation
+            put(f"{mod}.weight", leaves["scale"])
+            put(f"{mod}.bias", leaves["bias"])
+            if path in stats_by_path:  # BatchNorm
+                put(f"{mod}.running_mean", stats_by_path[path]["mean"])
+                put(f"{mod}.running_var", stats_by_path[path]["var"])
+                sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
+        else:                     # raw parameters (affine_alpha, ...)
+            for name, arr in leaves.items():
+                put(f"{mod}.{name}", arr)
     return sd
 
 
@@ -131,42 +152,51 @@ def _moments(opt_state: Dict[str, Any], convert) -> Dict[str, Any]:
             "exp_avg_sq": convert(adam["nu"])}
 
 
+def state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
+    """A ``geot_tpu`` ``TrainState`` as a dict of numpy trees (keys
+    ``params``, ``batch_stats``, and where present ``ema_params`` (empty
+    when the run kept no shadow), ``opt_state`` and ``step``) -> what
+    ``engine.state.TrainState.load`` takes: ``model``, and ``ema_params``,
+    the AdamW moments ``opt`` and ``step`` where the state has them. The
+    optimizer moments are matched to parameters by name, never by
+    position: torch keeps them in param-group order, optax in tree order.
+    Floating leaves come as float32, or float64 where they are float64."""
+    out = {"model": params_from_jax({"params": state["params"],
+                                     "batch_stats": state["batch_stats"]})}
+    if "opt_state" in state:
+        out["opt"] = _moments(state["opt_state"], lambda tree: params_from_jax(
+            {"params": tree, "batch_stats": {}}))
+    if "step" in state:
+        out["step"] = int(np.asarray(state["step"]))
+    if state.get("ema_params"):
+        out["ema_params"] = params_from_jax({"params": state["ema_params"],
+                                             "batch_stats": {}})
+    return out
+
+
 def semi_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
-    """A ``geot_tpu`` ``SemiTrainState`` as a dict of numpy trees (keys
-    ``params``, ``batch_stats``, ``t_params``, ``teacher_params``,
+    """A ``geot_tpu`` ``SemiTrainState`` as a dict of numpy trees:
+    ``state_from_jax``'s keys plus ``t_params``, ``teacher_params``,
     ``teacher_batch_stats``, ``ema_t``, ``cm``, and where present
     ``contrast`` (a ``ContrastState`` or a dict with ``queue`` and
-    ``ptr``) and ``ema_params`` (empty when the run kept no shadow); a
-    full-state checkpoint, as ``geot_tpu.engine.checkpoint._restore``
-    reads it, also has ``opt_state``, ``t_opt_state`` and ``step``) ->
-    what ``engine.state.SemiTrainState.load`` takes. The optimizer moments
-    are matched to parameters by name, never by position: torch keeps them
-    in param-group order, optax in tree order. Floating leaves come as
-    float32, or float64 where they are float64."""
-    out = {
-        "model": params_from_jax({"params": state["params"],
-                                  "batch_stats": state["batch_stats"]}),
+    ``ptr``); a full-state checkpoint, as
+    ``geot_tpu.engine.checkpoint._restore`` reads it, also has
+    ``t_opt_state``) -> what ``engine.state.SemiTrainState.load`` takes."""
+    out = state_from_jax(state)
+    out.update({
         "teacher": params_from_jax({"params": state["teacher_params"],
                                     "batch_stats":
                                     state["teacher_batch_stats"]}),
         "t_predictor": t_params_from_jax(state["t_params"]),
         "ema_t": _float(state["ema_t"]),
         "cm": _float(state["cm"]),
-    }
-    if "opt_state" in state:
-        out["opt"] = _moments(state["opt_state"], lambda tree: params_from_jax(
-            {"params": tree, "batch_stats": {}}))
+    })
     if "t_opt_state" in state:
         out["t_opt"] = _moments(state["t_opt_state"], t_params_from_jax)
-    if "step" in state:
-        out["step"] = int(np.asarray(state["step"]))
     if "contrast" in state:
         c = state["contrast"]
         queue, ptr = ((c["queue"], c["ptr"]) if isinstance(c, dict)
                       else (c.queue, c.ptr))
         out["contrast"] = {"queue": _float(queue),
                            "ptr": torch.tensor(int(np.asarray(ptr)))}
-    if state.get("ema_params"):
-        out["ema_params"] = params_from_jax({"params": state["ema_params"],
-                                             "batch_stats": {}})
     return out

@@ -1,10 +1,17 @@
-"""The semi-supervised train state (``geot_tpu/engine/state.py:63-124``).
+"""The train states: ``TrainState``, the supervised one
+(``geot_tpu/engine/state.py:29-60``), and ``SemiTrainState``, the
+semi-supervised one (``:63-124``).
 
-``geot_tpu`` threads one immutable pytree through a jitted step; here the
-state is a set of modules and tensors that the step updates in place: the
-student, the frozen teacher (built from its own arguments, ``model_t``, and
-given the initial student's weights, as in ``geot_tpu``, where
-``steps.py`` never replaces it), the T-predictor, an
+``TrainState`` holds the model, its AdamW, the step counter, the
+``torch.Generator`` of the dropout and stochastic-depth masks and, under
+``ema_eval``, the EMA shadow ``ema_params`` with its evaluation view
+``eval_model()``; ``state_dict`` / ``load_state_dict`` carry all of it.
+
+``geot_tpu`` threads one immutable pytree through a jitted step; here a
+state is a set of modules and tensors that the step updates in place.
+``SemiTrainState`` holds the student, the frozen teacher (built from its
+own arguments, ``model_t``, and given the initial student's weights, as in
+``geot_tpu``, where ``steps.py`` never replaces it), the T-predictor, an
 AdamW optimizer for each of student and T-predictor, the NTM matrix
 ``ema_t`` and the class-mean matrix ``cm`` (both identity at creation), the
 step counter, the ``torch.Generator`` that draws the dropout and
@@ -35,8 +42,102 @@ from ..optim import build_optimizer_from_cfg
 CONTRAST_QUEUE = 4096   # the bank's rows (geot_tpu/engine/state.py:87)
 
 
+class _Shadowed:
+    """The EMA shadow of ``model``'s parameters (``ema_params``, empty
+    when off) and the evaluation view of it, for both train states."""
+
+    def seed_ema(self) -> None:
+        """Start the EMA shadow from the model's current weights: the
+        shadow's module is a copy of the model, and ``ema_params`` its
+        parameters (``geot_tpu/engine/state.py:19``)."""
+        self._eval_model = copy.deepcopy(self.model).requires_grad_(False)
+        self.ema_params = dict(self._eval_model.named_parameters())
+
+    def eval_model(self) -> torch.nn.Module:
+        """The weights to evaluate: the EMA shadow's with the model's live
+        BatchNorm statistics when the shadow is kept, else the model
+        (``geot_tpu/engine/state.py:46``)."""
+        if not self.ema_params:
+            return self.model
+        with torch.no_grad():
+            for (_, b), (_, live) in zip(self._eval_model.named_buffers(),
+                                         self.model.named_buffers()):
+                b.copy_(live)
+        return self._eval_model
+
+    def _load_shadow(self, saved: Dict[str, torch.Tensor]) -> None:
+        """A saved shadow goes into a state that keeps one; a state that
+        keeps one and is given none keeps its own (the caller seeds it)."""
+        if self.ema_params and saved:
+            _copy_into(self.ema_params, saved)
+
+
 @dataclass
-class SemiTrainState:
+class TrainState(_Shadowed):
+    model: torch.nn.Module
+    opt: torch.optim.Optimizer
+    generator: torch.Generator
+    step: int = 0
+    # name -> the shadow of the model parameter; {} when ema_eval is off
+    ema_params: Dict[str, torch.Tensor] = field(default_factory=dict)
+    _eval_model: Optional[torch.nn.Module] = None
+
+    @classmethod
+    def create(cls, cfg: Dict[str, Any], model_args: Dict[str, Any],
+               seed: int = 0, device: "str | torch.device" = "cuda"
+               ) -> "TrainState":
+        """The model of ``model_args`` with weights drawn from ``seed``,
+        AdamW from ``cfg["optimizer"]`` at ``cfg["lr"]``, the masks'
+        generator seeded with ``seed``, and under ``cfg["ema_eval"]`` the
+        shadow, a copy of the initial weights; all on ``device``."""
+        device = resolve_device(device)
+        model = build_model_from_cfg(model_args)
+        init_weights(model, torch.Generator().manual_seed(seed))
+        model = model.to(device)
+        state = cls(model=model,
+                    opt=build_optimizer_from_cfg(model, float(cfg["lr"]),
+                                                 **dict(cfg["optimizer"])),
+                    generator=torch.Generator(device=device).manual_seed(
+                        seed))
+        if cfg.get("ema_eval"):
+            state.seed_ema()
+        return state
+
+    def load(self, tensors: Dict[str, Any]) -> "TrainState":
+        """Take the weights from a dict with the keys of
+        ``engine.convert.state_from_jax``: ``model``, and where present
+        the AdamW moments by parameter name (``opt``), ``step`` and the
+        EMA shadow (``ema_params``, only into a state that keeps one);
+        each tensor keeps the device and dtype it has in the state."""
+        self.model.load_state_dict(tensors["model"], strict=True)
+        if "opt" in tensors:
+            _load_moments(self.opt, self.model, tensors["opt"])
+        if "step" in tensors:
+            self.step = int(tensors["step"])
+        self._load_shadow(tensors.get("ema_params"))
+        return self
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The model's weights and buffers, AdamW's state, the mask
+        generator's state, ``step`` and the EMA shadow."""
+        return {"model": self.model.state_dict(),
+                "opt": self.opt.state_dict(),
+                "generator": self.generator.get_state(),
+                "step": int(self.step),
+                "ema_params": dict(self.ema_params)}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> "TrainState":
+        """Restore ``state_dict()``'s output onto this state's devices."""
+        self.model.load_state_dict(sd["model"], strict=True)
+        self.opt.load_state_dict(sd["opt"])
+        self.generator.set_state(sd["generator"].cpu())
+        self.step = int(sd["step"])
+        self._load_shadow(sd["ema_params"])
+        return self
+
+
+@dataclass
+class SemiTrainState(_Shadowed):
     model: torch.nn.Module
     teacher: torch.nn.Module
     t_predictor: torch.nn.Module
@@ -98,25 +199,6 @@ class SemiTrainState:
             state.seed_ema()
         return state
 
-    def seed_ema(self) -> None:
-        """Start the EMA shadow from the student's current weights: the
-        shadow's module is a copy of the student, and ``ema_params`` its
-        parameters (``geot_tpu/engine/state.py:19``)."""
-        self._eval_model = copy.deepcopy(self.model).requires_grad_(False)
-        self.ema_params = dict(self._eval_model.named_parameters())
-
-    def eval_model(self) -> torch.nn.Module:
-        """The weights to evaluate: the EMA shadow's with the student's
-        live BatchNorm statistics when the shadow is kept, else the
-        student (``geot_tpu/engine/state.py:115``)."""
-        if not self.ema_params:
-            return self.model
-        with torch.no_grad():
-            for (_, b), (_, live) in zip(self._eval_model.named_buffers(),
-                                         self.model.named_buffers()):
-                b.copy_(live)
-        return self._eval_model
-
     def load(self, tensors: Dict[str, Any]) -> "SemiTrainState":
         """Take weights and matrices from a dict with the keys of
         ``engine.convert.semi_state_from_jax``: ``model``, ``teacher`` and
@@ -143,8 +225,7 @@ class SemiTrainState:
             self.contrast = ContrastState(
                 tensors["contrast"]["queue"].to(self.contrast.queue),
                 tensors["contrast"]["ptr"].to(self.contrast.ptr))
-        if self.ema_params and tensors.get("ema_params"):
-            _copy_into(self.ema_params, tensors["ema_params"])
+        self._load_shadow(tensors.get("ema_params"))
         return self
 
     def state_dict(self) -> Dict[str, Any]:
@@ -180,8 +261,7 @@ class SemiTrainState:
         self.contrast = ContrastState(
             sd["contrast"]["queue"].to(self.contrast.queue),
             sd["contrast"]["ptr"].to(self.contrast.ptr))
-        if self.ema_params and sd["ema_params"]:
-            _copy_into(self.ema_params, sd["ema_params"])
+        self._load_shadow(sd["ema_params"])
         return self
 
 

@@ -1,7 +1,10 @@
 """The train and eval steps (``geot_tpu/engine/steps.py``): the FixMatch +
-NTM semi step with every branch (``:147-423``), the supervised warm-up
-step (``:83``), the eval and confusion steps (``:426, 435``) and the
-class-mean bootstrap step (``:451``).
+NTM semi step with every branch (``:147-423``), the supervised step
+(``:83``: a supervised run's, and a semi run's warm-up), the eval and
+confusion steps (``:426, 435``) and the class-mean bootstrap step
+(``:451``). Each takes the logits through ``_logits_of``: the seg_T
+family returns a tuple, ``BaseSeg`` and ``PointMLPPartSegmentor`` bare
+logits.
 
 One semi step: the frozen teacher's softmax on the weak view gives the
 pseudo labels (or the student's own weak view, after ``switch_ep``),
@@ -37,7 +40,14 @@ from ..losses import (build_criterion_from_cfg, contrast_loss_t,
 from ..optim import set_learning_rate
 from .pseudo_mask import pseudo_label_refine
 from .semi import apply_T, combine_T, ntm_update, pseudo_stats
-from .state import SemiTrainState
+from .state import SemiTrainState, TrainState
+
+
+def _logits_of(out):
+    """A segmentation model's logits: the seg_T family returns ``(logit,
+    correction, sigma, feats)``, ``BaseSeg`` and ``PointMLPPartSegmentor``
+    bare logits (``geot_tpu/engine/steps.py:30``)."""
+    return out[0] if isinstance(out, (tuple, list)) else out
 
 
 def _refuse_unported(cfg: Dict[str, Any]) -> None:
@@ -103,8 +113,10 @@ def _ema_update(state: SemiTrainState, decay: float) -> None:
 
 def make_supervised_step(cfg: Dict[str, Any]) -> Callable:
     """``step(state, batch_l, lr) -> metrics``: one supervised update of
-    the student and its AdamW (``steps.py:83``, the phase
-    ``epoch <= supervised_epochs``). ``batch_l`` holds ``pos, x, cls, y``
+    the model and its AdamW (``steps.py:83``): every step of a supervised
+    run (a ``TrainState``), and the warm-up phase ``epoch <=
+    supervised_epochs`` of a semi one (a ``SemiTrainState``, whose student
+    it trains). ``batch_l`` holds ``pos, x, cls, y``
     (and ``class_weights`` for ``Weight_CELoss``); the loss is the
     supervised criterion on the labelled forward; gradients are clipped to
     a global norm as in the semi step; the EMA shadow follows
@@ -116,13 +128,14 @@ def make_supervised_step(cfg: Dict[str, Any]) -> Callable:
     skip_nonfinite = bool(cfg.get("skip_nonfinite_updates", False))
     ema_decay = float(cfg.get("ema_eval") or 0.0)
 
-    def step(state: SemiTrainState, batch_l: Dict[str, torch.Tensor],
+    def step(state: "TrainState | SemiTrainState",
+             batch_l: Dict[str, torch.Tensor],
              lr: float) -> Dict[str, torch.Tensor]:
         model = state.model
         model.train()
         saved = ([b.clone() for b in _buffers(model)] if skip_nonfinite
                  else None)
-        logits = model(batch_l, generator=state.generator)[0]
+        logits = _logits_of(model(batch_l, generator=state.generator))
         loss = _sup_loss_fn(criterion, criterion_name, logits, batch_l)
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -363,7 +376,7 @@ def make_eval_step() -> Callable:
     @torch.no_grad()
     def step(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
         model.eval()
-        return model(batch)[0]
+        return _logits_of(model(batch))
 
     return step
 
@@ -376,7 +389,7 @@ def make_confusion_step(num_classes: int) -> Callable:
     @torch.no_grad()
     def step(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
         model.eval()
-        pred = model(batch)[0].argmax(dim=-1).reshape(-1)
+        pred = _logits_of(model(batch)).argmax(dim=-1).reshape(-1)
         onehot_t = F.one_hot(batch["y"].reshape(-1).long(), num_classes)
         onehot_p = F.one_hot(pred, num_classes)
         return onehot_t.float().T @ onehot_p.float()
@@ -391,7 +404,7 @@ def make_cm_step() -> Callable:
     @torch.no_grad()
     def step(model: torch.nn.Module, batch: Dict[str, torch.Tensor]):
         model.eval()
-        probs = torch.softmax(model(batch)[0].float(), dim=-1)
+        probs = torch.softmax(_logits_of(model(batch)).float(), dim=-1)
         C = probs.shape[-1]
         onehot = F.one_hot(batch["y"].reshape(-1).long(), C).float()
         return onehot.T @ probs.reshape(-1, C), onehot.sum(dim=0)

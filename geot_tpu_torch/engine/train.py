@@ -1,8 +1,9 @@
 """The training entry point (``geot_tpu/engine/train.py``) for the flagship
-recipe, on one device:
+semi-supervised recipe and the supervised tooth zoo, on one device:
 
     python -m geot_tpu_torch.engine.train \\
         --cfg cfgs/tooth_semi/transformer_finetune_fixmatch_ntm.yaml [k=v ...]
+    python -m geot_tpu_torch.engine.train --cfg cfgs/tooth_sup/pointnet2.yaml
 
 ``parse_and_run`` reads the config (``default.yaml`` files of the parent
 directories first, then the named file, then the ``k=v`` overrides), makes
@@ -11,10 +12,18 @@ with ``checkpoint/``, the log, ``cfg.yaml``, ``scalars.jsonl`` and
 ``step_times.jsonl``) and calls ``main``. ``device=cpu`` on the command
 line runs on the CPU; the default is the card, and without one it raises.
 
+A config with ``dataset_u`` and ``criterion_u_args`` runs semi-supervised
+(``semi_mode``, ``geot_tpu/engine/train.py:177``): a ``SemiTrainState``
+of a ``WholePartSeg`` student. Any other trains supervised: a
+``TrainState`` of ``cfg.model`` (``WholePartSeg``, ``BaseSeg`` or
+``PointMLPPartSegmentor``), no teacher, T-predictor, NTM or ``cm``, and
+every epoch supervised.
+
 ``main`` runs a mode:
-- ``train``: bootstrap the class-mean matrix ``cm``, then per epoch the
-  supervised step (epochs up to ``supervised_epochs``) or the semi step
-  with the teacher's pseudo labels (up to ``switch_ep``) or the student's;
+- ``train``: in semi mode, bootstrap the class-mean matrix ``cm``, then
+  per epoch the supervised step (epochs up to ``supervised_epochs``) or
+  the semi step with the teacher's pseudo labels (up to ``switch_ep``) or
+  the student's; in supervised mode the supervised step every epoch;
   validate every ``val_freq`` epochs and at the last one, checkpoint
   (``latest``, ``best``, ``E<epoch>`` every ``save_freq``), and every
   ``test_freq`` epochs and at the last one score the test split with the
@@ -30,13 +39,13 @@ voting over the config's ``vote`` pipeline to ``val`` / ``test`` and a
 ``test_voting`` pass after each test pass. A compute ``dtype`` other than
 float32 is for serving and the eval modes; the training modes refuse it.
 
-``ema_eval`` keeps an EMA shadow of the student: validation scores it and
-the raw weights (``val_raw``), the better of the two is the candidate for
-``best`` (``extra["ema_selected"]``), and the test pass reloads that tree
-from the best checkpoint; ``use_ema`` picks the tree that ``val`` / ``test``
-/ ``finetune`` load (``auto``: the run's own selection for the eval modes,
-the raw weights for finetune). Steps skipped by ``skip_nonfinite_updates``
-are counted per epoch (``skipped_steps``).
+``ema_eval`` keeps an EMA shadow of the model (the student): validation
+scores it and the raw weights (``val_raw``), the better of the two is the
+candidate for ``best`` (``extra["ema_selected"]``), and the test pass
+reloads that tree from the best checkpoint; ``use_ema`` picks the tree
+that ``val`` / ``test`` / ``finetune`` load (``auto``: the run's own
+selection for the eval modes, the raw weights for finetune). Steps skipped
+by ``skip_nonfinite_updates`` are counted per epoch (``skipped_steps``).
 
 SIGTERM or SIGINT during training means: finish the epoch, checkpoint, stop
 (a second one stops at once). Metrics accumulate on the device and are
@@ -70,12 +79,14 @@ from .checkpoint import (ckpt_path, load_checkpoint, load_variables,
                          save_checkpoint)
 from .eval import validate
 from .profiler import StepTimer
-from .state import SemiTrainState
+from .state import SemiTrainState, TrainState
 from .steps import (make_cm_step, make_confusion_step, make_eval_step,
                     make_semi_step, make_supervised_step)
 from .writer import SummaryWriter
 
 EVAL_MODES = ("val", "test", "eval", "testing", "evaluation")
+# the model NAMEs the trainer builds (cfg.model.NAME)
+TRAINED_MODELS = ("WholePartSeg", "BaseSeg", "PointMLPPartSegmentor")
 
 # epoch scalars under the reference's tags (geot_tpu/engine/train.py:418-433)
 # -> the step's metric
@@ -153,16 +164,38 @@ def refuse_unported(cfg) -> None:
         "mode": mode == "finetune_encoder",
         "task": cfg.get("task") in ("partseg", "cls"),
         "model.generator_args": "generator_args" in model,
-        "model.NAME": model.get("NAME") != "WholePartSeg",
+        "model.NAME": (model.get("NAME") not in TRAINED_MODELS
+                       or (semi_mode(cfg)
+                           and model.get("NAME") != "WholePartSeg")),
         "model_t.NAME": model_t.get("NAME", "WholePartSeg") != "WholePartSeg",
-        "dataset_u": not ("dataset_u" in cfg and "criterion_u_args" in cfg),
+        **{k: True for k in _unported_names(model, "model")},
+        **{k: True for k in _unported_names(model_t, "model_t")},
     }
     on = [k for k, v in refused.items() if v]
     if on:
         raise NotImplementedError(
             f"not ported: {on[0]}={_get(cfg, on[0])!r} (the port trains "
-            f"the semi-supervised WholePartSeg recipe in float32 on one "
-            f"device)")
+            f"{', '.join(TRAINED_MODELS)} in float32 on one device, "
+            f"semi-supervised only WholePartSeg)")
+
+
+def semi_mode(cfg) -> bool:
+    """True when ``cfg`` names an unlabelled set and its criterion
+    (``geot_tpu/engine/train.py:177``)."""
+    return "dataset_u" in cfg and "criterion_u_args" in cfg
+
+
+def _unported_names(tree, prefix: str):
+    """The dotted keys of every ``NAME`` below ``tree`` (a model config)
+    that the port's model registry lacks."""
+    from ..core.config import MODELS
+    from .. import models  # noqa: F401  (registers the model classes)
+
+    for key, value in (tree or {}).items():
+        if key == "NAME" and value not in MODELS:
+            yield f"{prefix}.NAME"
+        elif isinstance(value, dict):
+            yield from _unported_names(value, f"{prefix}.{key}")
 
 
 def _get(cfg, dotted: str):
@@ -210,8 +243,9 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     refuse_unported(cfg)
     mode = str(cfg.get("mode") or "train")
     eval_only = mode in EVAL_MODES
+    semi = semi_mode(cfg)
     # built first: it refuses the step's unported switches
-    semi_step = None if eval_only else make_semi_step(cfg)
+    semi_step = make_semi_step(cfg) if semi and not eval_only else None
     setup_logger_dist(cfg.get("log_path"))
     logger = logging.getLogger()
     seed = int(cfg.get("seed", 0))
@@ -233,12 +267,13 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     test_loader = loader(cfg.get("batch_size_test", 2), cfg.dataset_l, "test")
     train_loader_l = loader(cfg.get("batch_size_l", cfg.get("batch_size", 2)),
                             cfg.dataset_l, "train")
-    train_loader_u = loader(cfg.get("batch_size_u", 2), cfg.dataset_u,
-                            "train")
+    train_loader_u = (loader(cfg.get("batch_size_u", 2), cfg.dataset_u,
+                             "train") if semi else None)
     logger.info(f"datasets: train_l={len(train_loader_l.dataset)} "
                 f"val={len(val_loader.dataset)} "
-                f"test={len(test_loader.dataset)} "
-                f"train_u={len(train_loader_u.dataset)}; device {device}")
+                f"test={len(test_loader.dataset)}"
+                + (f" train_u={len(train_loader_u.dataset)}" if semi
+                   else "") + f"; device {device}")
     eval_step = make_eval_step()
 
     pretrained = cfg.get("pretrained_path")
@@ -280,22 +315,27 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
         return {split: res}
 
     model_t = cfg.get("model_t")
-    state = SemiTrainState.create(
-        cfg, seg_args=dict(cfg.model.segmentor_args), seed=seed,
-        device=device, teacher_args=(dict(model_t.segmentor_args)
-                                     if model_t else None))
+    if semi:
+        state = SemiTrainState.create(
+            cfg, seg_args=dict(cfg.model.segmentor_args), seed=seed,
+            device=device, teacher_args=(dict(model_t.segmentor_args)
+                                         if model_t else None))
+    else:
+        state = TrainState.create(cfg, cfg.model, seed=seed, device=device)
     if weights is not None:
         state.model.load_state_dict(weights, strict=True)
-        state.teacher.load_state_dict(weights, strict=True)
+        if semi:
+            state.teacher.load_state_dict(weights, strict=True)
         if state.ema_params:
             state.seed_ema()
         logger.info(f"loaded weights from {pretrained}")
     logger.info(f"model params: "
                 f"{cal_model_parm_nums(state.model) / 1e6:.3f} M")
-    # the warm-up trains the student without the shadow, as geot_tpu's
-    # semi trainer, whose supervised phase steps a TrainState view that
-    # has none (geot_tpu/engine/train.py:538-541)
-    sup_step = make_supervised_step(dict(cfg, ema_eval=None))
+    # a semi run's warm-up trains the student without the shadow, as
+    # geot_tpu's semi trainer, whose supervised phase steps a TrainState
+    # view that has none (geot_tpu/engine/train.py:538-541)
+    sup_step = make_supervised_step(dict(cfg, ema_eval=None) if semi
+                                    else cfg)
     schedule = build_scheduler_from_cfg(cfg)
     supervised_epochs = int(cfg.get("supervised_epochs", 0))
     switch_ep = int(cfg.get("switch_ep", 0))
@@ -324,7 +364,7 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     # cm from the current weights: fresh for train, loaded for finetune,
     # restored for a resume whose checkpoint lacks it (a whole-state resume
     # keeps its cm, so it continues as the uninterrupted run would)
-    if mode != "resume" or "cm" in resume_missing:
+    if semi and (mode != "resume" or "cm" in resume_missing):
         if cfg.get("cm_bootstrap", "mean_feature") == "confusion":
             state.cm = cal_confusion(make_confusion_step(num_classes),
                                      state.model, train_loader_l,
@@ -365,7 +405,7 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
             sums: Dict[str, torch.Tensor] = {}
             n = 0
             t0 = time.time()
-            if epoch > supervised_epochs:
+            if semi and epoch > supervised_epochs:
                 train_loader_u.set_epoch(epoch)
                 use_teacher = epoch <= switch_ep
                 batches = _Timed(semi_pairs(train_loader_l, train_loader_u))

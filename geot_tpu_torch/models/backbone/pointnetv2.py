@@ -1,0 +1,193 @@
+"""PointNet++ encoder and decoder, channels-last
+(``geot_tpu/models/backbone/pointnetv2.py:23-236``).
+
+Set-abstraction stages (FPS down by ``stride``, then one ball-query local
+aggregation per scale, concatenated) and feature-propagation stages
+(3-NN inverse-distance interpolation, skip concat, shared MLP). The
+config surface is ``geot_tpu``'s: ``mlps`` given, or derived from
+``width``/``layers``/``strides``. flax infers each layer's input width;
+here every width follows from the config (``in_channels`` is the width of
+the data's ``x``), and ``channel_list`` is what the decoder is built
+from. Module names follow the flax tree (``sa_{k}.la_{i}.convs``,
+``fp_{j}.convs``), so ``engine.convert.params_from_jax`` maps them.
+"""
+from __future__ import annotations
+
+from typing import Any, List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from ...core.config import register_model
+from ...ops import fps, gather_points, three_interpolation
+from ..layers import LocalAggregation, SharedMLP
+
+
+def _to_full_list(param, blocks, strides, param_scaling=1,
+                  block_param_scaling=1):
+    """A scalar or partial radius/nsample spec as per-stage, per-block
+    lists (reference ``pointnetv2.py:289-307``)."""
+    param_list = []
+    if isinstance(param, (list, tuple)):
+        for i, value in enumerate(param):
+            value = (list(value) if isinstance(value, (list, tuple))
+                     else [value])
+            if len(value) != blocks[i]:
+                value += [value[-1]] * (blocks[i] - len(value))
+            param_list.append(value)
+    else:
+        for i, stride in enumerate(strides):
+            if stride == 1:
+                param_list.append([param] * blocks[i])
+            else:
+                param_list.append([param] + [param * block_param_scaling]
+                                  * (blocks[i] - 1))
+                param *= param_scaling
+    return param_list
+
+
+class PointNetSAModuleMSG(nn.Module):
+    """One stage: FPS to ``N // stride`` queries (none for stride 1), then
+    a local aggregation ``la_{i}`` per (radius, nsample, channels) scale,
+    concatenated. ``channel_list[i]`` includes the input width."""
+
+    def __init__(self, stride: int, radii: Sequence[float],
+                 nsamples: Sequence[int],
+                 channel_list: Sequence[Sequence[int]],
+                 feature_type: str = "dp_fj", reduction: str = "max"):
+        super().__init__()
+        self.stride = stride
+        self.n = len(channel_list)
+        for i, (radius, nsample, channels) in enumerate(
+                zip(radii, nsamples, channel_list)):
+            self.add_module(f"la_{i}", LocalAggregation(
+                channels[0], list(channels)[1:],
+                {"NAME": "ballquery", "radius": radius, "nsample": nsample},
+                feature_type, reduction))
+
+    def forward(self, support_xyz, support_features):
+        if self.stride > 1:
+            idx = fps(support_xyz.float().contiguous(),
+                      support_xyz.shape[1] // self.stride)
+            query_xyz = gather_points(support_xyz, idx)
+        else:
+            query_xyz = support_xyz
+        outs = [getattr(self, f"la_{i}")(query_xyz, support_xyz,
+                                         support_features)
+                for i in range(self.n)]
+        return query_xyz, torch.cat(outs, dim=-1)
+
+
+class PointNetFPModule(nn.Module):
+    """three_interpolation of the coarse features onto the fine points,
+    concatenated after the fine level's own, then ``convs``; ``mlp`` are
+    the output widths of its layers."""
+
+    def __init__(self, in_channels: int, mlp: Sequence[int]):
+        super().__init__()
+        self.convs = SharedMLP([in_channels] + list(mlp))
+
+    def forward(self, unknown, known, unknown_feats, known_feats):
+        interp = three_interpolation(unknown, known, known_feats)
+        if unknown_feats is not None:
+            interp = torch.cat([unknown_feats, interp], dim=-1)
+        return self.convs(interp)
+
+
+@register_model("PointNet2Encoder")
+class PointNet2Encoder(nn.Module):
+    """Hierarchical encoder; ``forward`` returns the per-level points and
+    features ``([xyz, ...], [x, ...])``. ``geot_tpu``'s fields that its
+    encoder never reads (``group_args``, ``conv_args``, ``sampler``, ...)
+    are not taken."""
+
+    def __init__(self, in_channels: int = 3, radius: Any = 0.1,
+                 num_samples: Any = 32, aggr_args: Any = None,
+                 blocks: Optional[Sequence[int]] = None, mlps: Any = None,
+                 width: Optional[int] = None,
+                 strides: Sequence[int] = (4, 4, 4, 4), layers: int = 3,
+                 width_scaling: int = 2, radius_scaling: int = 2,
+                 block_radius_scaling: int = 1, nsample_scaling: int = 1,
+                 double_last_channel: bool = True):
+        super().__init__()
+        stages = len(strides)
+        blocks = blocks if mlps is None else [len(m) for m in mlps]
+        blocks = blocks or [1] * stages
+        radii = _to_full_list(radius, blocks, strides, radius_scaling,
+                              block_radius_scaling)
+        nsamples = _to_full_list(num_samples, blocks, strides,
+                                 nsample_scaling)
+        if mlps is None:
+            mlps = []
+            for i in range(stages):
+                if not double_last_channel:
+                    mlps.append([[width] * layers] * blocks[i])
+                    width = width * width_scaling if strides[i] > 1 else width
+                else:
+                    tmp = [width] * (layers - 1)
+                    width = width * width_scaling if strides[i] > 1 else width
+                    tmp += [width]
+                    mlps.append([tmp] + [[width] * layers] * (blocks[i] - 1))
+        aggr = dict(aggr_args or {})
+        self.in_channels = in_channels
+        self.channel_list: List[int] = [in_channels]
+        self.n = stages
+        in_ch = in_channels
+        for k, stride in enumerate(strides):
+            self.add_module(f"sa_{k}", PointNetSAModuleMSG(
+                stride, radii[k], nsamples[k],
+                [[in_ch] + list(m) for m in mlps[k]],
+                aggr.get("feature_type", "dp_fj"),
+                aggr.get("reduction", "max")))
+            in_ch = sum(m[-1] for m in mlps[k])
+            self.channel_list.append(in_ch)
+        self.out_channels = in_ch
+
+    def forward(self, xyz, features=None):
+        return self.forward_seg_feat(xyz, features)
+
+    def forward_seg_feat(self, xyz, features=None):
+        if features is None:
+            features = xyz
+        if features.shape[-1] != self.in_channels:
+            raise ValueError(f"PointNet2Encoder: features have "
+                             f"{features.shape[-1]} channels, in_channels "
+                             f"is {self.in_channels}")
+        l_xyz, l_feats = [xyz], [features]
+        for k in range(self.n):
+            new_xyz, new_f = getattr(self, f"sa_{k}")(l_xyz[-1], l_feats[-1])
+            l_xyz.append(new_xyz)
+            l_feats.append(new_f)
+        return l_xyz, l_feats
+
+
+@register_model("PointNet2Decoder")
+class PointNet2Decoder(nn.Module):
+    """Feature propagation back up the pyramid, coarsest first. Returns
+    level 0's features, ``out_channels`` wide."""
+
+    def __init__(self, encoder_channel_list: Sequence[int],
+                 fp_mlps: Any = None, decoder_layers: int = 1):
+        super().__init__()
+        skip = list(encoder_channel_list)
+        if fp_mlps is None:
+            fp_mlps = [[skip[1]] * (decoder_layers + 1)]
+            fp_mlps += [[c] * (decoder_layers + 1) for c in skip[1:-1]]
+        self.n = len(fp_mlps)
+        # fp_{j} writes level L - n + j from the one above it: the
+        # encoder's last level, else what fp_{j+1} wrote
+        L = len(skip) - 1
+        above = skip[L]
+        for j in reversed(range(self.n)):
+            self.add_module(f"fp_{j}", PointNetFPModule(
+                skip[L - self.n + j] + above, fp_mlps[j]))
+            above = fp_mlps[j][-1]
+        self.out_channels = above if self.n == L else skip[0]
+
+    def forward(self, l_xyz, l_features):
+        l_features = list(l_features)
+        n = self.n
+        for i in range(-1, -(n + 1), -1):
+            l_features[i - 1] = getattr(self, f"fp_{n + i}")(
+                l_xyz[i - 1], l_xyz[i], l_features[i - 1], l_features[i])
+        return l_features[0]

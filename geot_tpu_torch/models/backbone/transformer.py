@@ -2,7 +2,7 @@
 transition-matrix predictor ``SigTMean``.
 
 Counterpart of ``geot_tpu/models/backbone/transformer.py:33-469``
-(``_PointTransformerSegBase`` with ``with_T=True``, head mode "plain",
+(``_PointTransformerSegBase`` with ``with_T`` on or off, head mode "plain",
 the exact or the serving topology, float32 or bfloat16 compute) and
 ``:651`` (``SigTMean``). In training mode
 (``module.train()``) BatchNorm uses batch statistics and updates its
@@ -208,7 +208,8 @@ class DGCNNPropagation(nn.Module):
 class PointTransformerSegT(nn.Module):
     """The GeoT flagship segmentor. ``forward`` returns
     ``(logit (B, N, C) float32 or wider, correction, sigma, f_l0 (B, N,
-    D))``. ``head_dropout`` is the seg head's dropout rate (0.5 as in the
+    D))``; ``with_T=False`` is ``PointTransformer_seg``. ``head_dropout``
+    is the seg head's dropout rate (0.5 as in the
     reference; ``geot_tpu``'s argument of the same name).
 
     Serving topology (``geot_tpu``'s arguments of the same names):
@@ -232,7 +233,8 @@ class PointTransformerSegT(nn.Module):
                  extract_layers: Sequence[int] = (4, 8, 12),
                  head_dropout: float = 0.5,
                  fast_pyramid: Union[bool, int] = False,
-                 fast_graph: bool = False, dtype: DtypeArg = None):
+                 fast_graph: bool = False, dtype: DtypeArg = None,
+                 with_T: bool = True):
         super().__init__()
         D = trans_dim
         self.num_group = num_group
@@ -257,12 +259,15 @@ class PointTransformerSegT(nn.Module):
                                       BatchNorm(128, dtype=dtype),
                                       Dropout(head_dropout),
                                       Dense(128, nclasses))
-        # T_revision is in the reference checkpoint but unused in forward
-        self.T_revision = nn.Linear(nclasses, nclasses, bias=False)
-        self.T_linear = nn.Linear(nclasses, nclasses, bias=False)
-        self.sigma = nn.Parameter(torch.full((nclasses,), 0.4))
-        nn.init.zeros_(self.T_revision.weight)
-        nn.init.zeros_(self.T_linear.weight)
+        self.with_T = with_T
+        if with_T:
+            # T_revision is in the reference checkpoint but unused in
+            # forward
+            self.T_revision = nn.Linear(nclasses, nclasses, bias=False)
+            self.T_linear = nn.Linear(nclasses, nclasses, bias=False)
+            self.sigma = nn.Parameter(torch.full((nclasses,), 0.4))
+            nn.init.zeros_(self.T_revision.weight)
+            nn.init.zeros_(self.T_linear.weight)
 
     def forward(self, pts: torch.Tensor, x: Optional[torch.Tensor] = None,
                 cls_label: Optional[torch.Tensor] = None,
@@ -324,8 +329,18 @@ class PointTransformerSegT(nn.Module):
             logit = gather_points(logit, inv)
             f_l0 = gather_points(f_l0, inv)
 
+        if not self.with_T:
+            return logit, None, None, f_l0
         correction = self.T_linear(T) if T is not None else None
         return logit, correction, self.sigma, f_l0
+
+
+@register_model("PointTransformer_seg")
+def PointTransformerSeg(**kwargs) -> PointTransformerSegT:
+    """The same backbone without the NTM head (no ``T_linear``,
+    ``T_revision`` or ``sigma``; ``geot_tpu/models/backbone/transformer.py:
+    489-492``): ``forward`` returns ``(logit, None, None, f_l0)``."""
+    return PointTransformerSegT(with_T=False, **kwargs)
 
 
 @register_model("sig_t_mean")

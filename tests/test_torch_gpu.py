@@ -429,3 +429,163 @@ def test_knn_kernels_take_nonfinite_coordinates_as_the_plain_version(cuda,
         assert torch.equal(d[fin], d_r[fin])
     assert torch.equal(i_r[0, 3].cpu(), torch.arange(k, dtype=torch.int32))
     assert int(i_r.max()) < 3000
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_pruned_knn_kernel_takes_nonfinite_coordinates_as_the_plain_version(
+        cuda, k):
+    """The same clouds through the Morton-pruned kernel: the plain
+    version's indices for the NaN query and for every query of the cloud
+    whose supports are NaN but 2 finite and 1 +inf (whose boxes are NaN),
+    its d2 where finite, NaN where it is NaN."""
+    s = _cloud(6, (2, 3000, 3))
+    q = torch.cat([s[:, :300], _cloud(7, (2, 300, 3))], dim=1).contiguous()
+    q[0, 3, 1] = float("nan")
+    s[1, 2:2999, 2] = float("nan")
+    s[1, 2999, 0] = float("inf")
+    q, s = q.to(cuda), s.to(cuda)
+    d_r, i_r = ops.knn_small_k_pruned_ref(q, s, k)
+    d, i = ops.knn_small_k_pruned(q, s, k)
+    assert torch.equal(i, i_r)
+    assert torch.equal(torch.isnan(d), torch.isnan(d_r))
+    fin = ~torch.isnan(d_r)
+    assert torch.equal(d[fin], d_r[fin])
+
+
+# --- the supervised tooth zoo (cfgs/tooth_sup) ---------------------------------
+
+# the small widths of tests/test_supervised_zoo.py, dropout off
+ZOO_TINY = {
+    "pointnet2": ["model.encoder_args.width=8",
+                  "model.encoder_args.num_samples=8",
+                  "model.encoder_args.strides=[4,4]",
+                  "model.encoder_args.blocks=[1,1]",
+                  "model.cls_args.mlps=[16]",
+                  "model.cls_args.dropout_ratio=0.0"],
+    "dgcnn": ["model.encoder_args.channels=8",
+              "model.encoder_args.embed_dim=32",
+              "model.encoder_args.n_blocks=3", "model.encoder_args.k=8",
+              "model.cls_args.mlps=[16]", "model.cls_args.dropout_ratio=0.0"],
+    "pointmlp": ["model.embed_dim=8", "model.dim_expansion=[2,2]",
+                 "model.pre_blocks=[1,1]", "model.pos_blocks=[1,1]",
+                 "model.k_neighbors=[8,8]", "model.reducers=[4,4]",
+                 "model.de_dims=[16,16]", "model.de_blocks=[1,1]",
+                 "model.gmp_dim=8", "model.cls_dim=8"],
+    "transformer": ["model.segmentor_args.trans_dim=48",
+                    "model.segmentor_args.depth=3",
+                    "model.segmentor_args.group_size=8",
+                    "model.segmentor_args.num_group=32",
+                    "model.segmentor_args.encoder_dims=32",
+                    "model.segmentor_args.downsample_targets=[128,64,32]",
+                    "model.segmentor_args.extract_layers=[1,2,3]",
+                    "model.segmentor_args.drop_path_rate=0.0",
+                    "model.segmentor_args.head_dropout=0.0"],
+}
+
+
+def _chain(cuda, B=4):
+    """The FPS pyramid of PointNet++ and PointMLP, 16000 -> 4000 -> 1000
+    -> 250 -> 62, on B clouds: [(xyz, npoint, idx), ...] and the levels."""
+    levels = [_cloud(8, (B, 16000, 3)).to(cuda)]
+    calls = []
+    for npoint in (4000, 1000, 250, 62):
+        x = levels[-1]
+        idx = ops.fps(x, npoint)
+        calls.append((x, npoint, idx))
+        levels.append(ops.gather_points(x, idx).contiguous())
+    return calls, levels
+
+
+def test_fps_at_the_zoo_chain_and_its_edge_cases(cuda):
+    """Each FPS of the chain at B = 4 is bit-equal to ``fps_ref``; so are
+    a 62-point cloud on a 16-block cluster and a cloud of 40 distinct
+    points sampled to 1000, where index 0 repeats once every min-distance
+    is 0."""
+    calls, levels = _chain(cuda)
+    for x, npoint, idx in calls:
+        assert torch.equal(idx, ops.fps_ref(x, npoint)), (x.shape, npoint)
+    x62 = levels[-1]
+    plan = ops.fps_plan(62, 16)
+    assert plan.route == "fps_cluster" and plan.C == 16
+    assert torch.equal(ops.fps_cluster(x62, 30, plan), ops.fps_ref(x62, 30))
+    sel = torch.from_numpy(np.random.default_rng(4).choice(40, 1000))
+    few = levels[0][:, :40][:, sel.to(cuda)].contiguous()
+    got = ops.fps(few, 250)
+    assert torch.equal(got, ops.fps_ref(few, 250))
+    assert int((got[:, 40:] == 0).sum()) == 4 * 210
+    x4 = _cloud(9, (4, 16000, 3)).to(cuda)
+    assert torch.equal(ops.fps(x4, 8192), ops.fps_ref(x4, 8192))
+
+
+def test_knn_split_at_the_decoder_shapes(cuda):
+    """The decoders' k = 3 searches at B = 4 (supports of 62, 250, 1000
+    and 4000 points; 62 is under the 64-per-split minimum, one split) and
+    a support with duplicates: bit-equal to ``knn_small_k_ref``."""
+    _, lv = _chain(cuda)
+    dup = torch.cat([lv[2], lv[2][:, :500]], dim=1).contiguous()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ops.knn_split_plan(4, 250, 62, sms)[0] == 1
+    for q, s in ((lv[3], lv[4]), (lv[2], lv[3]), (lv[1], lv[2]),
+                 (lv[0], lv[1]), (lv[1], dup)):
+        n0 = ops.LAUNCHES["knn_split"]
+        d, i = ops.knn(q, s, 3, squared=True)
+        assert ops.LAUNCHES["knn_split"] == n0 + 1
+        d_r, i_r = ops.knn_small_k_ref(q, s, 3)
+        assert torch.equal(i, i_r) and torch.equal(d, d_r), (q.shape,
+                                                            s.shape)
+
+
+@pytest.mark.parametrize("radius,nsample,M,N", [(0.1, 32, 4000, 16000),
+                                                 (0.8, 32, 62, 250)])
+def test_ball_query_on_the_card_matches_the_cpu(cuda, radius, nsample, M, N):
+    s = (_cloud(10, (4, N, 3)) * 0.3).contiguous()
+    q = s[:, :M].contiguous()
+    want = ops.ball_query(radius, nsample, s, q)
+    got = ops.ball_query(radius, nsample, s.to(cuda), q.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", sorted(ZOO_TINY))
+def test_zoo_step_on_the_card_matches_the_cpu(cuda, name):
+    """One supervised step of the config at the small widths, 256 points,
+    from the same weights, in float64 around the float32 kernels: the loss
+    within 1e-9 relative, every gradient (the first AdamW moment) within
+    1e-6 of its tensor's largest entry, floored at 1e-6 of the largest
+    gradient (biases before a BatchNorm have none in exact arithmetic)."""
+    import os
+
+    from geot_tpu_torch.core.config import EasyConfig
+    from geot_tpu_torch.data.build import (MODEL_KEYS,
+                                           build_dataloader_from_cfg,
+                                           to_device)
+    from geot_tpu_torch.engine.state import TrainState
+    from geot_tpu_torch.engine.steps import make_supervised_step
+
+    cfg = EasyConfig()
+    cfg.load(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "cfgs", "tooth_sup", f"{name}.yaml"),
+        recursive=True)
+    cfg.update(ZOO_TINY[name] + ["dataset_l.common.num_points=256"])
+    loader = build_dataloader_from_cfg(int(cfg.batch_size_l), cfg.dataset_l,
+                                       cfg.datatransforms, split="train",
+                                       seed=int(cfg.seed))
+    loader.set_epoch(1)
+    batch = next(iter(loader))
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        st = TrainState.create(cfg, cfg.model, seed=1, device=dev)
+        st.model.double()
+        if name == "pointmlp":
+            st.model.dropout.rate = 0.0
+        b = {k: (v.double() if v.is_floating_point() else v)
+             for k, v in to_device(batch, MODEL_KEYS, dev).items()}
+        m = make_supervised_step(cfg)(st, b, 1e-3)
+        res[dev.type] = (float(m["loss"]), {
+            n: st.opt.state[p]["exp_avg"].cpu()
+            for n, p in st.model.named_parameters()})
+    (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
+    assert abs(lg - lc) <= 1e-9 * abs(lc)
+    gmax = max(float(v.abs().max()) for v in gc.values())
+    for k, ref in gc.items():
+        scale = max(float(ref.abs().max()), 1e-6 * gmax)
+        assert float((gg[k] - ref).abs().max()) <= 1e-6 * scale, k

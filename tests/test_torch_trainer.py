@@ -367,11 +367,11 @@ def test_unported_switches_are_refused(opt, key):
 def test_other_configs_and_reference_files_are_refused(tmp_path):
     for path, key in (("cfgs/shapenetpart/pointnet2part.yaml", "task"),
                       ("cfgs/tooth_pretrain/viewgen.yaml", "generator"),
-                      ("cfgs/tooth_sup/transformer.yaml", "dataset_u")):
+                      ("cfgs/scanobjectnn/dgcnncls.yaml", "task")):
         with pytest.raises(NotImplementedError, match=key):
             ttrain.parse_and_run(["--cfg", os.path.join(ROOT, path),
                                   f"root_dir={tmp_path}", "device=cpu"])
-    assert not os.path.exists(tmp_path / "tooth_sup")
+    assert not os.path.exists(tmp_path / "scanobjectnn")
     ref = str(tmp_path / "reference.pth")
     torch.save({"model": {"w": torch.zeros(2)}}, ref)
     for mode in ("finetune", "val"):
