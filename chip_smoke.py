@@ -54,9 +54,10 @@ Phases, each printed with the seconds elapsed when it starts:
    step, 1 + 7 a cm batch, 1 + 9 a val/test batch of 2 scans, 0 for the
    other kernels. Run C: ``mode=val`` on A's best checkpoint gives A's best
    val metrics. Run B: ``mode=resume`` from A's epoch-1 checkpoint; its
-   epoch-2 scalars agree with A's (loss terms within 0.25 relative,
-   metrics within 5e-3 absolute: atomics in the backward pass make the
-   card's steps non-deterministic, and B prints how far). Then, in a child
+   epoch-2 scalars agree with A's (each loss term within the spread
+   measured between uninterrupted runs, ``RESUME_LOSS_RTOL``; metrics
+   within 5e-3 absolute: atomics in the backward pass make the card's
+   steps non-deterministic, and B prints how far). Then, in a child
    process with deterministic algorithms (``--resume-check``), the same 2
    epochs and the same resume: every epoch-2 scalar bit-equal.
    Prints epoch wall and data time, host
@@ -122,6 +123,28 @@ Phases, each printed with the seconds elapsed when it starts:
    ``parse_and_run`` for 1 epoch with validation, the test pass and
    checkpoints, then ``mode=test`` on its best checkpoint (same test
    metrics, launches checked).
+13. file input and the serving CLI: kernels 1 and 2 at this phase's new
+   shapes, bit-equal to their plain versions and timed kernel-only (the
+   FPS chain and the decoders' four searches of a served zoo scan, B = 1;
+   the full-resolution upsample of a 150,000-point scan, (1, 155,648) x
+   (1, 16,000), k = 3). A Teeth3DS tree in a temporary directory (6 OBJ
+   scans of 40,000 points and one of 150,000, JSON labels in FDI codes,
+   ``data.json`` and the split lists): the OBJ parse time of the large
+   scan; the test items equal the arrays written; ``parse_and_run`` on
+   the flagship YAML with both ``data_root`` on the tree for 1 epoch with
+   validation and the test pass (finite losses, launches as the code
+   implies). The predict CLI on the card: the tree's OBJ scans as a
+   directory (per-scan JSON, FDI codes of the jaw, ``n_points`` the
+   vertex count, scans/s), one scan with ``--votes 2`` and one with
+   ``--fast --ply`` (the PLY read back within its 5 decimals). A
+   reference ``.pth`` (``{"model": {"module." + k: v}, "epoch": 3}``)
+   predicts labels and logits bit-equal to the same weights as a
+   state_dict file. Each ``cfgs/tooth_sup`` model at its published width
+   serves a 40,000-point scan (median ms of 5 after a warm scan, launches
+   a scan) and agrees with the same model on the CPU (phase 4's float32
+   bound; DGCNN ``_SERVE_ZOO_*``). ``serve`` of PointNet++ answers an OBJ
+   text body as ``predict_scan`` does, a failing prediction with 400, and
+   ``/metrics`` counts both.
 Phase 3 also holds ``fps_cluster`` at the serving topology's prefix,
 (1|6, 16000) -> 1024 and a duplicate-heavy cloud, and ``knn_split`` at a
 fast scan's 6 searches, against their plain versions, with times and
@@ -132,9 +155,16 @@ line; without a CUDA device it exits 1 at once.
 
     python3 chip_smoke.py --profile
 
-adds, after phase 10, a ``torch.profiler`` trace of 3 served scans, 2
+adds, after phase 13, a ``torch.profiler`` trace of 3 served scans, 2
 train steps and 2 ``_fast.yaml`` train steps: device time by kernel and
 the device's busy share of the wall time.
+
+    python3 chip_smoke.py --resume-spread PAIRS
+
+measures what phase 8's run B is held to: PAIRS pairs of uninterrupted
+2-epoch runs of phase 8's config with the card's default backward, and a
+resume of each pair's first run from its epoch-1 checkpoint; prints the
+relative spread of each loss term between them (``RESUME_SPREAD`` line).
 """
 from __future__ import annotations
 
@@ -146,6 +176,7 @@ import os
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 
 T0 = time.perf_counter()
@@ -983,12 +1014,15 @@ _PER_CM_BATCH = {"fps_cluster": 1, "knn_split": 7}
 _PER_EVAL_BATCH = {"fps_cluster": 1, "knn_split": 9}
 # epoch-2 scalars of a resume (run B) against the uninterrupted run A, with
 # the card's default, non-deterministic backward (atomics): loss terms
-# relative, val/test metrics absolute. Three card runs measured at most
-# 3.1e-3 for the three loss terms and 1.1e-3, 4.7e-3 and 3.8e-2 for
-# insT_threed_loss (the T-predictor's term), the metrics bit-equal; these
-# bounds catch a resume that loses state, not rounding. The exact check is
-# the deterministic pair (``resume_check``): bit-equal.
-RESUME_LOSS_RTOL = 0.25
+# relative, val/test metrics absolute. Each loss term's bound is the spread
+# of that term between uninterrupted runs of the same seed: the largest
+# |y - x| / |x| over every pair of the 16 runs of ``--resume-spread 8``
+# (PERF.md section 6; an H100 at 700 W). insT_threed_loss (the
+# T-predictor's term) takes one of two values, ~0.005 or ~0.0095, run to
+# run, so its spread (1.20) says nothing of the resume; the resume's own
+# test is the deterministic pair (``resume_check``): bit-equal.
+RESUME_LOSS_RTOL = {"train_loss": 0.0421, "train_loss_l": 0.0373,
+                    "train_loss_u": 0.0247, "insT_threed_loss": 1.21}
 RESUME_METRIC_ATOL = 5e-3
 
 
@@ -1156,6 +1190,8 @@ def phase_trainer():
                         if t.startswith(("val_", "best_val_", "test_"))))
 
         diffs, worst_loss, worst_metric = compare(a2, b2)
+        over = {t: diffs[t] for t in losses
+                if diffs[t] > RESUME_LOSS_RTOL[t]}
         log(f"run B (resume from E1): epoch-2 loss terms within "
             f"{worst_loss:.3e} relative of run A ("
             + ", ".join(f"{t} {diffs[t]:.2e}" for t in losses)
@@ -1186,8 +1222,8 @@ def phase_trainer():
               f"differs: {unequal}")
         check(launches_b == _expected(12, 0, 2 * 12), f"run B launches "
               f"{launches_b}")
-        check(worst_loss <= RESUME_LOSS_RTOL, f"run B's losses differ "
-              f"from run A's: {worst_loss}")
+        check(not over, f"run B's losses differ from run A's by more "
+              f"than uninterrupted runs do ({RESUME_LOSS_RTOL}): {over}")
         check(worst_metric <= RESUME_METRIC_ATOL, f"run B's metrics differ "
               f"from run A's: {worst_metric}")
     finally:
@@ -1994,27 +2030,20 @@ def _zoo_path(name):
                         "tooth_sup", f"{name}.yaml")
 
 
-def _kernels_zoo(bound: Bound):
-    """Kernels 1 and 2 at the zoo's shapes on 4 sampled scans: the FPS chain
-    of PointNet++ and PointMLP (16000 -> 4000 -> 1000 -> 250 -> 62), the
-    supervised transformer's 16000 -> 8192, the decoders' four k = 3
-    searches (supports of 62 to 4000 points); each bit-equal to its plain
-    version and timed kernel-only (a CUDA graph of the calls); and the
-    named edge cases: a 62-point cloud on a 16-block cluster, a cloud with
-    fewer distinct points than npoint, duplicated supports."""
+def _zoo_chain(bound: Bound, xyz):
+    """The FPS chain of PointNet++ and PointMLP, 16000 -> 4000 -> 1000 ->
+    250 -> 62, on the clouds ``xyz`` (B, 16000, 3): each call bit-equal to
+    ``fps_ref`` and timed kernel-only (a CUDA graph) beside its plain
+    version and bound. Returns the chain's record and its levels."""
     import importlib
 
-    import numpy as np
     import torch
 
     from geot_tpu_torch import ops
 
     fps_mod = importlib.import_module("geot_tpu_torch.ops.fps")
-    dev = torch.device("cuda")
-    xyz = torch.cat([torch.from_numpy(_scan_sample(s)[1])[None]
-                     for s in (21, 22, 23, 24)]).to(dev).contiguous()
     B = xyz.shape[0]
-    C = fps_mod.card_cluster_size(dev, B)
+    C = fps_mod.card_cluster_size(xyz.device, B)
     levels = [xyz]
     chain = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "calls": {}}
     ops_, bytes_ = 0.0, 0.0
@@ -2045,6 +2074,78 @@ def _kernels_zoo(bound: Bound):
         levels.append(ops.gather_points(x, got).contiguous())
     chain["bound_by"] = bound(ops_, bytes_)[1]
     chain["max_abs_err"] = 0.0
+
+    return chain, levels
+
+
+def _zoo_decoders(bound: Bound, levels, dup=None):
+    """The decoders' four k = 3 searches between the chain's ``levels``
+    (and, with ``dup``, one against a support with duplicated points):
+    bit-equal to ``knn_small_k_ref``, timed kernel-only and as wrapper
+    calls beside the plain version and the bound."""
+    import torch
+
+    from geot_tpu_torch import ops
+
+    B = levels[0].shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    knn = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "calls": {}}
+    ops_ = bytes_ = 0.0
+    pairs = [(levels[3], levels[4]), (levels[2], levels[3]),
+             (levels[1], levels[2]), (levels[0], levels[1])]
+    for i, (q, s_) in enumerate(pairs + ([(levels[1], dup)] if dup
+                                         is not None else [])):
+        Q, N = q.shape[1], s_.shape[1]
+        S, split_len = ops.knn_split_plan(B, Q, N, sms)
+        d, idx = ops.knn_small_k(q, s_, 3)
+        d_r, i_r = ops.knn_small_k_ref(q, s_, 3)
+        torch.cuda.synchronize()
+        label = f"({B},{Q})x({B},{N}) k=3"
+        check(torch.equal(idx, i_r) and torch.equal(d, d_r),
+              f"knn_split {label}: differs from knn_small_k_ref")
+        if i == 4:
+            log(f"knn_split duplicated supports {label}: {S} splits; "
+                f"bit-equal")
+            continue
+        ms = graph_ms(lambda: ops.knn_small_k(q, s_, 3), 20)
+        wrap = cuda_ms(lambda: ops.knn_small_k(q, s_, 3), 20)
+        plain = cuda_ms(lambda: ops.knn_small_k_ref(q, s_, 3), 2)
+        flops, nbytes = 8.0 * B * Q * N, B * ((Q + N) * 12 + Q * 3 * 8)
+        b_ms, b_by = bound(flops, nbytes)
+        ops_ += flops
+        bytes_ += nbytes
+        for k, v in (("ms", ms), ("wrapper_ms", wrap), ("plain_ms", plain),
+                     ("bound_ms", b_ms)):
+            knn[k] += v
+        knn["calls"][label] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                               "splits": S}
+        log(f"knn_split {label}: {S} splits of {split_len}; bit-equal; "
+            f"kernel {ms:.4f} ms (wrapper {wrap:.4f}), plain {plain:.2f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by})")
+    knn["bound_by"] = bound(ops_, bytes_)[1]
+    knn["max_abs_err"] = 0.0
+    return knn
+
+
+def _kernels_zoo(bound: Bound):
+    """Kernels 1 and 2 at the zoo's shapes on 4 sampled scans: the FPS chain
+    of PointNet++ and PointMLP (16000 -> 4000 -> 1000 -> 250 -> 62), the
+    supervised transformer's 16000 -> 8192, the decoders' four k = 3
+    searches (supports of 62 to 4000 points); each bit-equal to its plain
+    version and timed kernel-only (a CUDA graph of the calls); and the
+    named edge cases: a 62-point cloud on a 16-block cluster, a cloud with
+    fewer distinct points than npoint, duplicated supports."""
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+
+    dev = torch.device("cuda")
+    xyz = torch.cat([torch.from_numpy(_scan_sample(s)[1])[None]
+                     for s in (21, 22, 23, 24)]).to(dev).contiguous()
+    B = xyz.shape[0]
+    chain, levels = _zoo_chain(bound, xyz)
 
     got = ops.fps(xyz, 8192)
     ref = ops.fps_ref(xyz, 8192)
@@ -2080,45 +2181,8 @@ def _kernels_zoo(bound: Bound):
         f"and 40 distinct points sampled to 1000 -> 250 ({zeros} repeats "
         f"of index 0): bit-equal to fps_ref")
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    knn = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-           "calls": {}}
-    ops_ = bytes_ = 0.0
-    dup = torch.cat([levels[2], levels[2][:, :500]], dim=1).contiguous()
-    for i, (q, s_) in enumerate([(levels[3], levels[4]),
-                                 (levels[2], levels[3]),
-                                 (levels[1], levels[2]),
-                                 (levels[0], levels[1]),
-                                 (levels[1], dup)]):
-        Q, N = q.shape[1], s_.shape[1]
-        S, split_len = ops.knn_split_plan(B, Q, N, sms)
-        d, idx = ops.knn_small_k(q, s_, 3)
-        d_r, i_r = ops.knn_small_k_ref(q, s_, 3)
-        torch.cuda.synchronize()
-        label = f"({B},{Q})x({B},{N}) k=3"
-        check(torch.equal(idx, i_r) and torch.equal(d, d_r),
-              f"knn_split {label}: differs from knn_small_k_ref")
-        if i == 4:
-            log(f"knn_split duplicated supports {label}: {S} splits; "
-                f"bit-equal")
-            continue
-        ms = graph_ms(lambda: ops.knn_small_k(q, s_, 3), 20)
-        wrap = cuda_ms(lambda: ops.knn_small_k(q, s_, 3), 20)
-        plain = cuda_ms(lambda: ops.knn_small_k_ref(q, s_, 3), 2)
-        flops, nbytes = 8.0 * B * Q * N, B * ((Q + N) * 12 + Q * 3 * 8)
-        b_ms, b_by = bound(flops, nbytes)
-        ops_ += flops
-        bytes_ += nbytes
-        for k, v in (("ms", ms), ("wrapper_ms", wrap), ("plain_ms", plain),
-                     ("bound_ms", b_ms)):
-            knn[k] += v
-        knn["calls"][label] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                               "splits": S}
-        log(f"knn_split {label}: {S} splits of {split_len}; bit-equal; "
-            f"kernel {ms:.4f} ms (wrapper {wrap:.4f}), plain {plain:.2f} ms, "
-            f"bound {b_ms:.5f} ms ({b_by})")
-    knn["bound_by"] = bound(ops_, bytes_)[1]
-    knn["max_abs_err"] = 0.0
+    knn = _zoo_decoders(bound, levels, dup=torch.cat(
+        [levels[2], levels[2][:, :500]], dim=1).contiguous())
     log(f"the decoders' 4 searches: kernel {knn['ms']:.4f} ms (wrapper "
         f"{knn['wrapper_ms']:.4f}), bound {knn['bound_ms']:.5f} ms; the FPS "
         f"chain: kernel {chain['ms']:.3f} ms, bound {chain['bound_ms']:.5f} "
@@ -2372,6 +2436,452 @@ def phase_zoo(bound: Bound):
             "launches_by_shape": by_shape}
 
 
+# phase 13: file input and the serving CLI. A Teeth3DS tree of 6 scans of
+# 40,000 points and one of 150,000 (an intraoral mesh larger than the
+# synthetic scan): the first 4 are the labelled train split, the next 2 the
+# unlabelled one, and scans 0, 5 and 6 the test list (val and test)
+_FILES_SCANS = [(f"P{i:03d}", i % 2, 300 + i, 40000) for i in range(6)] + \
+    [("P006", 0, 306, 150000)]
+_FILES_SPLITS = {"semi_l_train_0.2.txt": (0, 1, 2, 3),
+                 "semi_u_train_0.2.txt": (4, 5), "testing.txt": (0, 5, 6)}
+# card against CPU for a served zoo scan, the sampled logits: phase 4's
+# float32 bound, and for DGCNN, whose k = 20 searches on 64-channel
+# features swap near-tied neighbours between cuBLAS and the CPU's BLAS,
+# argmax agreement >= 0.99 with at most 1 % of the sampled points past
+# phase 4's bound (stated in PERF.md section 6 before the first card run)
+_SERVE_ZOO_AGREE = {"pointnet2": 0.999, "dgcnn": 0.99, "pointmlp": 0.999,
+                    "transformer": 0.999}
+_SERVE_ZOO_OVER = {"pointnet2": 0.0, "dgcnn": 0.01, "pointmlp": 0.0,
+                   "transformer": 0.0}
+# (fps_cluster, knn_split) launches of one served zoo scan: the forward's
+# (phase 12's table) and the full-resolution upsample
+_SERVE_ZOO_PER_SCAN = {"pointnet2": (4, 5), "dgcnn": (0, 1),
+                       "pointmlp": (4, 5), "transformer": (1, 8)}
+
+
+def _write_obj(path, pts):
+    """OBJ text of ``pts``: one ``v`` line each (shortest repr, exact in
+    float32), a normal after each vertex and one face."""
+    with open(path, "w") as f:
+        f.write("# synthetic tooth scan\n")
+        f.writelines(f"v {x!r} {y!r} {z!r}\nvn 0 0 1\n"
+                     for x, y, z in pts.astype("float64").tolist())
+        f.write("f 1 2 3\n")
+
+
+def _write_teeth3ds(root, scans, splits):
+    """A Teeth3DS tree: ``<id>_<lower|upper>.obj``, JSON labels in FDI
+    codes of the jaw, ``data.json`` (absolute paths) and the split lists.
+    ``scans``: (mesh_id, jaw, points, class ids)."""
+    from geot_tpu_torch.engine.predict import map_pred_to_fdi
+
+    index = {"scans": {}, "gt": {}}
+    lines = []
+    for mesh_id, jaw, pts, labels in scans:
+        line = f"{mesh_id}_{'lower' if jaw == 0 else 'upper'}"
+        index["scans"][line] = os.path.join(root, line + ".obj")
+        index["gt"][line] = os.path.join(root, line + ".json")
+        _write_obj(index["scans"][line], pts)
+        with open(index["gt"][line], "w") as f:
+            json.dump({"id_patient": mesh_id,
+                       "labels": map_pred_to_fdi(labels, jaw)}, f)
+        lines.append(line)
+    with open(os.path.join(root, "data.json"), "w") as f:
+        json.dump(index, f)
+    for name, which in splits.items():
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines[i] for i in which) + "\n")
+    return [os.path.join(root, line + ".obj") for line in lines]
+
+
+def _kernels_upsample(bound: Bound, pts):
+    """Kernel 2 at the full-resolution upsample of a 150,000-point scan:
+    its points padded to 19 x 8,192 rows against the 16,000 sampled, k = 3,
+    bit-equal to the plain version, timed kernel-only, as wrapper calls and
+    plain."""
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.data.tooth_semi import pc_norm
+    from geot_tpu_torch.engine.eval import BUCKET, pad_to_bucket
+
+    norm, _, _ = pc_norm(pts)
+    sel = np.random.default_rng(0).choice(len(norm), 16000, replace=False)
+    q = torch.from_numpy(pad_to_bucket(norm, BUCKET))[None].cuda()
+    s_ = torch.from_numpy(np.ascontiguousarray(norm[sel]))[None].cuda()
+    Q, N = q.shape[1], s_.shape[1]
+    d, idx = ops.knn_small_k(q, s_, 3)
+    d_r, i_r = ops.knn_small_k_ref(q, s_, 3)
+    torch.cuda.synchronize()
+    label = f"(1,{Q})x(1,{N}) k=3"
+    check(torch.equal(idx, i_r) and torch.equal(d, d_r),
+          f"knn_split {label}: differs from knn_small_k_ref")
+    b_ms, b_by = bound(8.0 * Q * N, (Q + N) * 12 + Q * 3 * 8)
+    rec = {"ms": graph_ms(lambda: ops.knn_small_k(q, s_, 3), 5),
+           "wrapper_ms": cuda_ms(lambda: ops.knn_small_k(q, s_, 3), 5),
+           "plain_ms": cuda_ms(lambda: ops.knn_small_k_ref(q, s_, 3), 1),
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+           "splits": ops.knn_split_plan(1, Q, N, torch.cuda
+                                        .get_device_properties(0)
+                                        .multi_processor_count)[0]}
+    log(f"knn_split upsample {label}: {rec['splits']} splits; bit-equal; "
+        f"kernel {rec['ms']:.4f} ms (wrapper {rec['wrapper_ms']:.4f}), "
+        f"plain {rec['plain_ms']:.2f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return rec
+
+
+def _serve_zoo(name, pts):
+    """A ``cfgs/tooth_sup`` model at its published width with seeded
+    weights serving a 40,000-point scan on the card: a warm scan, 5 timed
+    ones with their launches, and the sampled logits against the same
+    model's CPU forward on the same sample (phase 4's comparison)."""
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.data.tooth_semi import pc_norm
+    from geot_tpu_torch.engine.predict import load_model, predict_scan
+    from geot_tpu_torch.engine.steps import _logits_of
+
+    model_cfg = dict(_zoo_cfg(name).model)
+    card = load_model(model_cfg=model_cfg, seed=0, device="cuda")
+    predict_scan(card, pts, jaw=1)
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        _, logits = predict_scan(card, pts, jaw=1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    per_scan = {k: (ops.LAUNCHES[k] - before[k]) / 5 for k in before}
+    want = dict.fromkeys(per_scan, 0)
+    want["fps_cluster"], want["knn_split"] = _SERVE_ZOO_PER_SCAN[name]
+    check(per_scan == want, f"{name}: launches a scan {per_scan}, "
+          f"expected {want}")
+    # the same model's CPU forward on the sample predict_scan drew (seed 0)
+    cpu = load_model(model_cfg=model_cfg, seed=0, device="cpu")
+    norm, _, _ = pc_norm(pts)
+    sel = np.random.default_rng(0).choice(len(norm), 16000,
+                                          replace=len(norm) < 16000)
+    pos = torch.from_numpy(np.ascontiguousarray(norm[sel]))[None]
+    t = time.perf_counter()
+    with torch.no_grad():
+        b = _logits_of(cpu({"pos": pos, "x": pos, "cls": torch.ones(
+            (1, 1), dtype=torch.long)}))[0]
+    cpu_s = time.perf_counter() - t
+    a = logits.cpu()
+    scale = max(1.0, float(b.abs().max()))
+    over = float(((a - b).abs().amax(-1) > 1e-3 * scale).float().mean())
+    diff = float((a - b).abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    log(f"serving {name} (B = 1, 40000 points): scan ms median "
+        f"{sorted(ms)[2]:.2f} ({', '.join(f'{x:.1f}' for x in ms)}); "
+        f"launches a scan {per_scan['fps_cluster']:g} fps_cluster + "
+        f"{per_scan['knn_split']:g} knn_split; card vs CPU: max |dlogit| "
+        f"{diff:.3e} (logit scale {scale:.2f}), sampled points past "
+        f"1e-3 x scale {over * 16000:.0f} of 16000, argmax agreement "
+        f"{agree:.6f} (CPU forward {cpu_s:.1f} s)")
+    check(logits.shape == (16000, 17) and bool(torch.isfinite(a).all()),
+          f"{name}: logits {tuple(logits.shape)} not finite")
+    check(agree >= _SERVE_ZOO_AGREE[name] and over <= _SERVE_ZOO_OVER[name],
+          f"{name}: card disagrees with the CPU (agreement {agree}, points "
+          f"past the bound {over})")
+    return {"scan_ms": ms, "launches_per_scan": per_scan, "max_dlogit": diff,
+            "logit_scale": scale, "points_past_bound": over * 16000,
+            "argmax_agreement": agree}
+
+
+def _http_zoo(pts):
+    """``serve`` of ``cfgs/tooth_sup/pointnet2.yaml`` on the card: an OBJ
+    text body, a request whose prediction raises (400), and ``/metrics``
+    counting both."""
+    import numpy as np
+
+    from geot_tpu_torch.engine.predict import map_pred_to_fdi, predict_scan
+    from geot_tpu_torch.engine.serve import serve
+
+    httpd = serve(model_cfg=dict(_zoo_cfg("pointnet2").model), port=0,
+                  device="cuda", seed=0, warmup=True)
+    service = httpd.service
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    body = "".join(f"v {x!r} {y!r} {z!r}\n" for x, y, z in
+                   pts.astype("float64").tolist()).encode()
+    try:
+        t = time.perf_counter()
+        req = urllib.request.Request(f"{base}/predict?jaw=upper", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            d = json.load(r)
+        dt = (time.perf_counter() - t) * 1e3
+        want, _ = predict_scan(service.model, pts, jaw=1)
+        same = float(np.mean(np.asarray(d["labels"]) ==
+                             np.asarray(map_pred_to_fdi(want, 1))))
+        check(d["n_points"] == len(pts) and _fdi_ok(d["labels"], 1)
+              and same >= 0.999, f"OBJ body: bad answer (agreement with "
+              f"predict_scan {same})")
+
+        def boom(points, jaw):
+            raise RuntimeError("prediction failed")
+
+        service.predict = boom
+        req = urllib.request.Request(f"{base}/predict", data=body,
+                                     method="POST")
+        try:
+            urllib.request.urlopen(req, timeout=120)
+            code = 200
+        except urllib.error.HTTPError as e:
+            code = e.code
+        check(code == 400, f"a failing prediction answered {code}")
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+            metrics = r.read().decode().splitlines()
+        for line in ('geot_requests_total{outcome="ok"} 1',
+                     'geot_requests_total{outcome="error"} 1',
+                     "geot_request_seconds_count 1",
+                     "geot_scans_served_total 1"):
+            check(line in metrics, f"/metrics lacks {line!r}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    log(f"http (pointnet2): OBJ body of {len(pts)} points {dt:.1f} ms round "
+        f"trip, labels agree with predict_scan {same:.6f}; a failing "
+        f"prediction 400; /metrics counts 1 ok, 1 error, 1 scan served")
+    return {"obj_round_trip_ms": dt, "agreement": same}
+
+
+def phase_files(bound: Bound):
+    """Phase 13: Teeth3DS on disk through the trainer, the predict CLI on
+    OBJ scans (a directory, votes, the fast topology, a PLY), a reference
+    ``.pth``, the supervised zoo served at B = 1 and over HTTP, and kernels
+    1 and 2 at this phase's new shapes."""
+    import collections
+    import importlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import FLAGSHIP_SEG_ARGS, FLAGSHIP_SEMI_CFG, ops
+    from geot_tpu_torch.data.io import _read_ply_xyz, load_obj_vertices
+    from geot_tpu_torch.data.tooth_semi import (TeethSegSemiLDataset,
+                                                TeethSegSemiUDataset,
+                                                _synthetic_scan)
+    from geot_tpu_torch.data.transforms import build_transforms_from_cfg
+    from geot_tpu_torch.engine import predict
+    from geot_tpu_torch.engine import train as train_mod
+
+    log("phase 13: file input and the serving CLI")
+    t_phase = time.perf_counter()
+    flagship = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "cfgs", "tooth_semi",
+                            "transformer_finetune_fixmatch_ntm.yaml")
+    scans = [(m, jaw, *_synthetic_scan(seed, n))
+             for m, jaw, seed, n in _FILES_SCANS]
+    # kernels 1 and 2 at the new shapes: a served zoo scan's FPS chain and
+    # decoder searches (B = 1), the upsample of the 150,000-point scan
+    xyz = torch.from_numpy(_scan_sample(25)[1])[None].cuda().contiguous()
+    chain, levels = _zoo_chain(bound, xyz)
+    recs = {"fps_chain": chain, "knn_decoder": _zoo_decoders(bound, levels),
+            "knn_upsample": _kernels_upsample(bound, scans[6][2])}
+    log(f"B = 1: the FPS chain kernel {chain['ms']:.3f} ms (bound "
+        f"{chain['bound_ms']:.5f}), the decoders' 4 searches "
+        f"{recs['knn_decoder']['ms']:.4f} ms (bound "
+        f"{recs['knn_decoder']['bound_ms']:.5f})")
+
+    # the main paths of this phase, launches counted by shape
+    fps_mod = importlib.import_module("geot_tpu_torch.ops.fps")
+    knn_mod = importlib.import_module("geot_tpu_torch.ops.knn")
+    real_fps, real_knn = fps_mod.fps_cluster, knn_mod.knn_small_k
+    shapes = collections.Counter()
+
+    def fps_counted(x, npoint, plan):
+        shapes[("fps", x.shape[0], x.shape[1], npoint)] += 1
+        return real_fps(x, npoint, plan)
+
+    def knn_counted(q, s_, k):
+        shapes[("knn", q.shape[0], q.shape[1], s_.shape[1], k)] += 1
+        return real_knn(q, s_, k)
+
+    root = tempfile.mkdtemp(prefix="geot_files_")
+    out = {}
+    fps_mod.fps_cluster, knn_mod.knn_small_k = fps_counted, knn_counted
+    ops.reset_launches()
+    try:
+        tree = os.path.join(root, "teeth3ds")
+        os.makedirs(tree)
+        t = time.perf_counter()
+        objs = _write_teeth3ds(tree, scans, _FILES_SPLITS)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        big = load_obj_vertices(objs[6])
+        parse_ms = (time.perf_counter() - t) * 1e3
+        check(np.array_equal(big, scans[6][2]), "the 150,000-vertex OBJ "
+              "does not parse to the points written")
+        log(f"Teeth3DS tree of {len(objs)} scans written in {write_s:.2f} "
+            f"s; OBJ parse of the 150,000-vertex scan {parse_ms:.1f} ms "
+            f"({os.path.getsize(objs[6])} bytes)")
+        # the on-disk items against the arrays they were written from
+        tf = FLAGSHIP_SEMI_CFG["datatransforms"]
+        test = TeethSegSemiLDataset(tree, 16000, "test",
+                                    transform=build_transforms_from_cfg(
+                                        "test", tf))
+        check(not test.synthetic and len(test) == 3, "test split")
+        for i, j in enumerate(_FILES_SPLITS["testing.txt"]):
+            item, (m, jaw, pts, labels) = test[i], scans[j]
+            check(item["patient"] == m and int(item["cls"][0]) == jaw
+                  and np.array_equal(item["points"], pts)
+                  and np.array_equal(item["labels"], labels)
+                  and item["pos"].shape == (16000, 3),
+                  f"test item {i} differs from scan {m}")
+        u = TeethSegSemiUDataset(tree, 16000, "train",
+                                 transform_w=build_transforms_from_cfg(
+                                     "train_w", tf),
+                                 transform_s=build_transforms_from_cfg(
+                                     "train_s", tf))[0]
+        check(u["pos_s"].shape == (16000, 3)
+              and bool(np.isfinite(u["pos_s"]).all()), "unlabelled item")
+
+        # the trainer for 1 epoch on the tree: 2 steps, the cm bootstrap
+        # over 2 batches, val and test over 3 scans each (2 batches)
+        ops.reset_launches()
+        t = time.perf_counter()
+        res = train_mod.parse_and_run([
+            "--cfg", flagship, f"root_dir={os.path.join(root, 'runs')}",
+            f"dataset_l.common.data_root={tree}",
+            f"dataset_u.common.data_root={tree}", "epochs=1", "val_freq=1",
+            "test_freq=1", "save_freq=100"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        launches = dict(ops.LAUNCHES)
+        want = dict.fromkeys(launches, 0)
+        want["fps_cluster"] = 2 * 2 + 2 + 4
+        want["knn_split"] = 2 * 14 + 2 * 7 + 4 * 7 + 6
+        check(launches == want, f"trainer launches {launches}, expected "
+              f"{want}")
+        run_dir = os.path.join(root, "runs", "tooth_semi",
+                               os.listdir(os.path.join(root, "runs",
+                                                       "tooth_semi"))[0])
+        sc = {}
+        with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+            for line in f:
+                d = json.loads(line)
+                sc[d["tag"]] = d["value"]
+        losses = {k: sc[k] for k in ("train_loss", "train_loss_l",
+                                     "train_loss_u", "insT_threed_loss")}
+        check(all(math.isfinite(v) for v in losses.values()),
+              f"trainer losses not finite: {losses}")
+        for split in ("val", "test"):
+            check(all(math.isfinite(v) and 0 <= v <= 1
+                      for v in res[split].values()), f"{split} metrics")
+        log(f"trainer on the tree (1 epoch, 2 steps, val and test over 3 "
+            f"scans): {train_s:.1f} s; losses {losses}; val whole miou "
+            f"{res['val']['whole_miou']:.4f}; launches {launches}")
+        out["trainer"] = {"seconds": train_s, "losses": losses,
+                          "launches": launches}
+
+        # the predict CLI on the card: the tree's OBJ scans as a directory
+        ops.reset_launches()
+        t = time.perf_counter()
+        n = predict.main(["--cfg", flagship, "--input", tree, "--output",
+                          os.path.join(root, "labels")])
+        dir_s = time.perf_counter() - t
+        check(n == len(objs) and dict(ops.LAUNCHES) == dict(
+            dict.fromkeys(ops.LAUNCHES, 0), fps_cluster=n, knn_split=8 * n),
+            f"directory: {n} scans, launches {dict(ops.LAUNCHES)}")
+        for m, jaw, pts, _ in scans:
+            stem = f"{m}_{'lower' if jaw == 0 else 'upper'}"
+            with open(os.path.join(root, "labels", stem + ".json")) as f:
+                d = json.load(f)
+            check(d["n_points"] == len(pts) and d["jaw"] == ("lower" if jaw
+                                                             == 0 else
+                                                             "upper")
+                  and _fdi_ok(d["labels"], jaw), f"directory: {stem}")
+        log(f"predict CLI, a directory of {n} OBJ scans: {dir_s:.2f} s, "
+            f"{n / dir_s:.2f} scans/s end-to-end (model build and OBJ "
+            f"parsing included)")
+        # one scan with 2 votes, one in the fast topology with a PLY
+        single = {}
+        for tag, extra, per in (
+                ("votes", ["--votes", "2"], (3, 3 * 7 + 1)),
+                ("fast", ["--fast", "--ply", os.path.join(root, "p.ply")],
+                 (_PER_FAST_SCAN["fps_cluster"],
+                  _PER_FAST_SCAN["knn_split"]))):
+            ops.reset_launches()
+            path = os.path.join(root, f"{tag}.json")
+            labels = predict.main(["--cfg", flagship, "--input", objs[0],
+                                   "--output", path, *extra])
+            grew = dict(ops.LAUNCHES)
+            check(grew == dict(dict.fromkeys(grew, 0), fps_cluster=per[0],
+                               knn_split=per[1]),
+                  f"--{tag}: launches {grew}")
+            with open(path) as f:
+                d = json.load(f)
+            check(d["labels"] == labels and len(labels) == 40000
+                  and _fdi_ok(labels, 0) and d["jaw"] == "lower",
+                  f"--{tag}: labels")
+            single[tag] = d["seconds"]
+        back = _read_ply_xyz(os.path.join(root, "p.ply"))
+        err = float(np.abs(back - scans[0][2]).max())
+        # 5 decimals in the text: half a unit of the 5th, plus float32
+        # rounding of coordinates below 2
+        check(back.shape == (40000, 3) and err <= 5e-6 + 2.4e-7,
+              f"--ply reads back {back.shape}, max |d| {err}")
+        log(f"predict CLI, one scan: --votes 2 {single['votes']:.2f} s, "
+            f"--fast {single['fast']:.2f} s; --ply read back within "
+            f"{err:.2e}")
+        out["cli"] = {"dir_seconds": dir_s, "scans": n,
+                      "scans_per_s": n / dir_s, "single_s": single,
+                      "obj_parse_ms_150000": parse_ms, "ply_err": err}
+
+        # a reference .pth against the same weights as a state_dict file
+        sd = {k: v.cpu() for k, v in predict.load_model(
+            FLAGSHIP_SEG_ARGS, seed=0, device="cuda").state_dict().items()}
+        pth = os.path.join(root, "reference.pth")
+        torch.save({"model": {"module." + k: v for k, v in sd.items()},
+                    "epoch": 3}, pth)
+        plain = os.path.join(root, "weights.pt")
+        torch.save(sd, plain)
+        got = [predict.predict_scan(predict.load_model(ckpt=p,
+                                                       device="cuda"),
+                                    scans[1][2], jaw=1) for p in (pth, plain)]
+        check(np.array_equal(got[0][0], got[1][0])
+              and torch.equal(got[0][1], got[1][1]),
+              "a reference .pth predicts other labels than its state_dict")
+        log("reference .pth {'model': {'module.' + k: v}, 'epoch': 3}: "
+            "labels and logits bit-equal to the same weights as a "
+            "state_dict file")
+
+        # the supervised zoo served at B = 1, then over HTTP
+        zoo_scan = _synthetic_scan(31, 40000)[0]
+        out["zoo"] = {name: _serve_zoo(name, zoo_scan) for name in ZOO}
+        out["http"] = _http_zoo(zoo_scan)
+    finally:
+        fps_mod.fps_cluster, knn_mod.knn_small_k = real_fps, real_knn
+        shutil.rmtree(root, ignore_errors=True)
+    chain_shapes = [(1, 16000, 4000), (1, 4000, 1000), (1, 1000, 250),
+                    (1, 250, 62)]
+    dec_shapes = [(1, 250, 62), (1, 1000, 250), (1, 4000, 1000),
+                  (1, 16000, 4000)]
+    by_shape = {
+        "fps_chain": {f"{n}->{m}": shapes[("fps", b, n, m)]
+                      for b, n, m in chain_shapes},
+        "knn_decoder": {f"{q}x{n}": shapes[("knn", b, q, n, 3)]
+                        for b, q, n in dec_shapes},
+        "knn_upsample": shapes[("knn", 1, 155648, 16000, 3)]}
+    launches = {"fps_cluster": sum(v for k, v in shapes.items()
+                                   if k[0] == "fps"),
+                "knn_split": sum(v for k, v in shapes.items()
+                                 if k[0] == "knn")}
+    check(by_shape["knn_upsample"] == 3, f"the 150,000-point upsample ran "
+          f"{by_shape['knn_upsample']} times, expected 3 (val, test, CLI)")
+    log(f"phase 13 launches by shape: {by_shape}; in all {launches}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"kernels": recs, "launches": launches,
+            "launches_by_shape": by_shape, **out}
+
+
 def resume_check(root: str) -> int:
     """``--resume-check ROOT`` (phase 8 runs it in a child process with
     ``CUBLAS_WORKSPACE_CONFIG`` set): with deterministic algorithms on, the
@@ -2404,9 +2914,88 @@ def resume_check(root: str) -> int:
     return 0
 
 
+_SPREAD_LOSSES = ("train_loss", "train_loss_l", "train_loss_u",
+                  "insT_threed_loss")
+
+
+def resume_spread(pairs: int) -> int:
+    """``--resume-spread PAIRS``: phase 8's run A twice per pair, with the
+    card's default (non-deterministic) backward, and phase 8's run B (a
+    resume from the first run's epoch-1 checkpoint). Prints, per loss term,
+    the relative difference of the epoch-2 values between the two
+    uninterrupted runs and between the first run and its resume, then one
+    ``RESUME_SPREAD`` JSON line with every pair and the worst of each."""
+    import shutil
+    import tempfile
+
+    from geot_tpu_torch.engine import train as train_mod
+    from geot_tpu_torch.engine.checkpoint import ckpt_path
+
+    phase_device()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    phase_build()
+    cfg_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "cfgs", "tooth_semi",
+                            "transformer_finetune_fixmatch_ntm.yaml")
+
+    def rel(x, y):
+        return {t: abs(y[t] - x[t]) / max(abs(x[t]), 1e-30)
+                for t in _SPREAD_LOSSES}
+
+    def run(root, *extra):
+        common = [f"root_dir={root}", "val_freq=1", "test_freq=2",
+                  "save_freq=1"]
+        train_mod.parse_and_run(["--cfg", cfg_path, "epochs=2", *common,
+                                 *extra])
+        run_dir = os.path.join(root, "tooth_semi",
+                               os.listdir(os.path.join(root, "tooth_semi"))[0])
+        return run_dir, os.path.join(run_dir, "scalars.jsonl")
+
+    out = []
+    for i in range(pairs):
+        roots = [tempfile.mkdtemp(prefix=f"geot_spread{i}{x}_")
+                 for x in "ab"]
+        try:
+            run_dir, sc_a = run(roots[0])
+            a2, n_lines = _epoch_scalars(sc_a)
+            _, sc_a2 = run(roots[1])
+            a2b, _ = _epoch_scalars(sc_a2)
+            e1 = ckpt_path(os.path.join(run_dir, "checkpoint"),
+                           os.path.basename(run_dir), "E1")
+            run(roots[0], "mode=resume", f"pretrained_path={e1}")
+            b2, _ = _epoch_scalars(sc_a, skip=n_lines)
+        finally:
+            for r in roots:
+                shutil.rmtree(r, ignore_errors=True)
+        rec = {"a": {t: a2[t] for t in _SPREAD_LOSSES},
+               "a_again": {t: a2b[t] for t in _SPREAD_LOSSES},
+               "resume": {t: b2[t] for t in _SPREAD_LOSSES},
+               "uninterrupted_rel": rel(a2, a2b), "resume_rel": rel(a2, b2)}
+        out.append(rec)
+        log(f"pair {i}: uninterrupted A vs A' " + ", ".join(
+            f"{t} {v:.3e}" for t, v in rec["uninterrupted_rel"].items())
+            + "; A vs resume B " + ", ".join(
+            f"{t} {v:.3e}" for t, v in rec["resume_rel"].items()))
+    worst = {kind: {t: max(r[kind][t] for r in out) for t in _SPREAD_LOSSES}
+             for kind in ("uninterrupted_rel", "resume_rel")}
+    # every two of the 2 x PAIRS uninterrupted runs are a pair of
+    # uninterrupted runs: the largest |y - x| / |x| among them
+    worst["uninterrupted_all_pairs_rel"] = {
+        t: (max(v) - min(v)) / min(abs(x) for x in v) for t, v in (
+            (t, [r[k][t] for r in out for k in ("a", "a_again")])
+            for t in _SPREAD_LOSSES)}
+    log(f"worst over {pairs} pairs: {worst}")
+    print("RESUME_SPREAD " + json.dumps({"pairs": out, "worst": worst}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     if "--resume-check" in sys.argv[1:]:
         return resume_check(sys.argv[sys.argv.index("--resume-check") + 1])
+    if "--resume-spread" in sys.argv[1:]:
+        return resume_spread(int(
+            sys.argv[sys.argv.index("--resume-spread") + 1]))
     faulthandler.dump_traceback_later(1100, exit=True)
     name, smi, limit_w = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2422,6 +3011,7 @@ def main() -> int:
     fast_trainer = phase_fast_trainer()
     branches = phase_branches(Bound(limit_w), train["state"].cm)
     zoo = phase_zoo(Bound(limit_w))
+    files = phase_files(Bound(limit_w))
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
     # launches on the main paths: 3 served scans, the train run (2 cm
@@ -2435,7 +3025,8 @@ def main() -> int:
     log(f"launches: serving {serving}, training {trained}, trainer "
         f"{trainer['launches']}, fast serving {fast['launches']}, fast "
         f"trainer {fast_trainer['launches']}, semi-step branches "
-        f"{branches['launches']}, supervised zoo {zoo['launches']}")
+        f"{branches['launches']}, supervised zoo {zoo['launches']}, files "
+        f"and the serving CLI {files['launches']}")
 
     def entry(name, replaces):
         return {"name": name, "route": "cuda",
@@ -2446,7 +3037,8 @@ def main() -> int:
                              + fast["launches"][name]
                              + fast_trainer["launches"][name]
                              + branches["launches"][name]
-                             + zoo["launches"][name]),
+                             + zoo["launches"][name]
+                             + files["launches"].get(name, 0)),
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
                 "launches_trainer_run": trainer["launches"][name],
@@ -2455,6 +3047,7 @@ def main() -> int:
                 "launches_fast_trainer": fast_trainer["launches"][name],
                 "launches_semi_branches": branches["launches"][name],
                 "launches_supervised_zoo": zoo["launches"][name],
+                "launches_files_and_cli": files["launches"].get(name, 0),
                 "library_ms": None, **recs[name]}
 
     kernels = [
@@ -2483,6 +3076,25 @@ def main() -> int:
          "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
          "launches": sum(zoo["launches_by_shape"]["knn_decoder"].values()),
          **zoo["kernels"]["knn_decoder"]},
+        # kernels 1 and 2 at phase 13's shapes: a served zoo scan (B = 1)
+        # and the upsample of a 150,000-point scan; launches at those
+        # shapes in phase 13
+        {"name": "fps_cluster_zoo_chain_1x16000", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/fps_cluster.cu",
+         "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
+         "launches": sum(files["launches_by_shape"]["fps_chain"].values()),
+         **files["kernels"]["fps_chain"]},
+        {"name": "knn_split_zoo_decoders_1x_k3", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/knn_split.cu",
+         "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
+         "launches": sum(files["launches_by_shape"]["knn_decoder"]
+                         .values()),
+         **files["kernels"]["knn_decoder"]},
+        {"name": "knn_split_upsample_155648x16000_k3", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/knn_split.cu",
+         "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
+         "launches": files["launches_by_shape"]["knn_upsample"],
+         **files["kernels"]["knn_upsample"]},
     ]
     log("done")
     print(smi, flush=True)

@@ -2,16 +2,27 @@
 deterministic synthetic scan, and the semi-supervised datasets.
 
 Copies of ``geot_tpu/data/tooth_semi.py`` and ``data/data_util.py:7``
-(numpy only), kept here so the port does not import the JAX package. The
-datasets produce the synthetic scans that ``geot_tpu`` falls back to when
-``data_root`` does not exist; reading a Teeth3DS directory (OBJ meshes and
-JSON labels) is not ported, and a ``data_root`` that exists raises.
+(numpy only), kept here so the port does not import the JAX package.
+
+When ``data_root`` is a directory, the datasets read Teeth3DS from it as
+``geot_tpu/data/tooth_semi.py:75-108`` does: ``data.json`` maps each split
+line to its scan (``scans``) and its label file (``gt``), paths opened as
+given (a relative one resolves against the working directory, not
+``data_root``); the split lists are ``semi_l_<split>_<fraction>.txt``,
+``semi_u_<split>_<fraction>.txt`` and, for ``val`` and ``test``,
+``testing.txt``; a line ``<mesh_id>_<lower|upper>...`` gives the patient
+and the jaw; labels go through ``FDI_LABEL_MAP`` (a code outside it
+raises ``KeyError``). Otherwise they produce the deterministic synthetic
+scans, and ``.synthetic`` is set.
 """
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
+
+from .io import IO
 
 # FDI two-digit tooth codes -> 17 contiguous classes (gum = 0)
 FDI_LABEL_MAP = {0: 0}
@@ -66,27 +77,47 @@ class EpochSeededRNG:
 
 class _TeethBase(EpochSeededRNG):
     def __init__(self, data_root: str, num_points: int, split: str,
-                 synthetic_len: int = 24, seed: int = 0, **kwargs):
-        if data_root and os.path.isdir(data_root):
-            raise NotImplementedError(
-                f"reading Teeth3DS from {data_root!r} is not ported; the "
-                f"port's datasets produce synthetic scans only")
+                 list_name: str, synthetic_len: int = 24, seed: int = 0,
+                 **kwargs):
         self.data_root = data_root
         self.num_points = num_points
         self.split = split
         self.num_classes = 17
         self.seed = seed
         self.epoch = 0
-        self.synthetic = True
-        self.file_list = [{"location": i % 2, "mesh_id": f"synthetic{i:04d}",
-                           "file_path": f"synthetic{i:04d}", "seed": 1000 + i}
-                          for i in range(synthetic_len)]
+        self.synthetic = not (data_root and os.path.isdir(data_root))
+        if self.synthetic:
+            self.file_list = [{"location": i % 2,
+                               "mesh_id": f"synthetic{i:04d}",
+                               "file_path": f"synthetic{i:04d}",
+                               "seed": 1000 + i}
+                              for i in range(synthetic_len)]
+            return
+        with open(os.path.join(data_root, "data.json")) as f:
+            index = json.load(f)
+        self.pc_path = index["scans"]
+        self.gt_path = index["gt"]
+        with open(os.path.join(data_root, list_name)) as f:
+            lines = [ln.strip() for ln in f if ln.strip()]
+        self.file_list = []
+        for line in lines:
+            location = line.split("_")[1].split(".")[0]
+            self.file_list.append({
+                "location": 0 if location == "lower" else 1,
+                "mesh_id": line.split("_")[0],
+                "file_path": line,
+            })
 
     def __len__(self):
         return len(self.file_list)
 
     def _load(self, sample):
-        return _synthetic_scan(sample["seed"])
+        if self.synthetic:
+            return _synthetic_scan(sample["seed"])
+        points = IO.get(self.pc_path[sample["file_path"]]).astype(np.float32)
+        raw = IO.get(self.gt_path[sample["file_path"]])["labels"]
+        labels = np.asarray([FDI_LABEL_MAP[l] for l in raw], dtype=np.int32)
+        return points, labels
 
     def _sample(self, points_norm, labels, rng):
         n = len(points_norm)
@@ -103,15 +134,18 @@ class _TeethBase(EpochSeededRNG):
 
 
 class TeethSegSemiLDataset(_TeethBase):
-    """Labelled split (``geot_tpu/data/tooth_semi.py:126``): 24 synthetic
-    scans. A ``val`` or ``test`` item also carries the full-resolution scan
+    """Labelled split (``geot_tpu/data/tooth_semi.py:126``): the lines of
+    ``semi_l_<split>_<label_fraction>.txt`` (``testing.txt`` for ``val``
+    and ``test``), or 24 synthetic scans. A ``val`` or ``test`` item also carries the full-resolution scan
     (``points``, ``labels``), its normalisation (``center``, ``scale``) and
     its ``patient`` id, as ``geot_tpu/data/tooth_semi.py:148-155`` adds them
     for the three_nn evaluation."""
 
     def __init__(self, data_root="", num_points=16000, split="train",
-                 transform=None, **kwargs):
-        super().__init__(data_root, num_points, split, **kwargs)
+                 transform=None, label_fraction: str = "0.2", **kwargs):
+        list_name = (f"semi_l_{split}_{label_fraction}.txt"
+                     if split == "train" else "testing.txt")
+        super().__init__(data_root, num_points, split, list_name, **kwargs)
         self.transform = transform
 
     def __getitem__(self, idx):
@@ -137,14 +171,18 @@ class TeethSegSemiLDataset(_TeethBase):
 
 
 class TeethSegSemiUDataset(_TeethBase):
-    """Unlabelled split (``geot_tpu/data/tooth_semi.py:163``): 48 synthetic
-    scans, each as a weak (``*_w``) and a strong (``*_s``) view of one
+    """Unlabelled split (``geot_tpu/data/tooth_semi.py:163``): the lines of
+    ``semi_u_<split>_<label_fraction>.txt`` (``testing.txt`` for ``val``
+    and ``test``), or 48 synthetic scans; each as a weak (``*_w``) and a strong (``*_s``) view of one
     sample, plus the untransformed ``raw_pos``."""
 
     def __init__(self, data_root="", num_points=16000, split="train",
-                 transform_w=None, transform_s=None, **kwargs):
-        super().__init__(data_root, num_points, split, synthetic_len=48,
-                         **kwargs)
+                 transform_w=None, transform_s=None,
+                 label_fraction: str = "0.2", **kwargs):
+        list_name = (f"semi_u_{split}_{label_fraction}.txt"
+                     if split == "train" else "testing.txt")
+        super().__init__(data_root, num_points, split, list_name,
+                         synthetic_len=48, **kwargs)
         self.transform_w = transform_w
         self.transform_s = transform_s
 

@@ -28,10 +28,15 @@ every epoch supervised.
   (``latest``, ``best``, ``E<epoch>`` every ``save_freq``), and every
   ``test_freq`` epochs and at the last one score the test split with the
   best checkpoint's weights;
-- ``finetune``: the same from the weights of a port checkpoint
-  (``pretrained_path``), teacher included;
+- ``finetune``: the same from the weights of ``pretrained_path``, teacher
+  included; ``finetune_encoder`` takes the encoder's weights only;
 - ``resume``: continue a run from its checkpoint, whole state restored;
 - ``val`` / ``test``: score a checkpoint's weights on that split.
+
+``pretrained_path`` is a checkpoint of the port's trainer or a reference
+GeoT ``.pth`` (told apart by content; ``_pretrained_weights``). A reference
+file is read in every mode, ``train`` too, as ``geot_tpu`` reads one; its
+weights are grafted by name (``engine.checkpoint.graft_state_dict``).
 
 ``model_t`` builds the teacher (the ``_fast.yaml`` recipe: a student in the
 serving topology, an exact teacher); ``num_votes > 0`` adds test-time
@@ -75,8 +80,10 @@ from ..data.build import (MODEL_KEYS, build_dataloader_from_cfg,
                           semi_keys, semi_pairs, to_device)
 from ..data.transforms import build_transforms_from_cfg
 from ..optim import build_scheduler_from_cfg
-from .checkpoint import (ckpt_path, load_checkpoint, load_variables,
-                         save_checkpoint)
+from .checkpoint import (ckpt_path, graft_state_dict, is_port_checkpoint,
+                         load_checkpoint, load_variables, read_weights_file,
+                         save_checkpoint, seg_t_depth, seg_t_weights,
+                         variables_of)
 from .eval import validate
 from .profiler import StepTimer
 from .state import SemiTrainState, TrainState
@@ -161,7 +168,6 @@ def refuse_unported(cfg) -> None:
         "step_per_update": int(cfg.get("step_per_update", 1) or 1) > 1,
         "eval_device_cache": cfg.get("eval_device_cache", True) is False,
         "pretrain_encoder_path": bool(cfg.get("pretrain_encoder_path")),
-        "mode": mode == "finetune_encoder",
         "task": cfg.get("task") in ("partseg", "cls"),
         "model.generator_args": "generator_args" in model,
         "model.NAME": (model.get("NAME") not in TRAINED_MODELS
@@ -204,17 +210,62 @@ def _get(cfg, dotted: str):
     return cfg
 
 
-def _port_weights(path: str, prefer_ema) -> Dict[str, torch.Tensor]:
-    """The student weights of a port checkpoint (the EMA shadow's as
-    ``load_variables`` picks them); any other file (a reference torch
-    ``.pth``) is refused."""
+def _pretrained_weights(cfg, path: str, mode: str, eval_only: bool,
+                        logger) -> "Dict[str, torch.Tensor] | None":
+    """The weights that ``pretrained_path`` gives this mode
+    (``geot_tpu/engine/train.py:248-300``), or None:
+    - a checkpoint of the port's trainer (it holds ``state.model``; the
+      counterpart of ``geot_tpu``'s checkpoint directories) gives the
+      student (its EMA shadow as ``use_ema`` picks it) to the eval modes,
+      ``finetune`` and ``finetune_encoder``; ``mode=train`` does not read
+      it;
+    - any other file is a reference GeoT ``.pth``, read in every mode and
+      converted to the seg_T family's state_dict; a file that does not
+      convert (another model, a missing entry) is logged and the run
+      trains from scratch, as in ``geot_tpu``."""
+    payload = read_weights_file(path)
+    if is_port_checkpoint(payload):
+        if not (eval_only or mode in ("finetune", "finetune_encoder")):
+            return None
+        # use_ema (geot_tpu/engine/train.py:267-272): auto loads the tree
+        # the source run selected for the eval modes, the raw weights for
+        # finetune; true / false force it
+        use_ema = cfg.get("use_ema", "auto")
+        return variables_of(payload, ("auto" if eval_only else False)
+                            if use_ema == "auto" else bool(use_ema))
     try:
-        return load_variables(path, prefer_ema)
-    except (KeyError, TypeError) as e:
-        raise NotImplementedError(
-            f"not ported: pretrained_path={path!r} is not a checkpoint of "
-            f"this package (importing a reference torch .pth is not "
-            f"ported)") from e
+        depth = seg_t_depth(cfg.model)
+        if depth is None:
+            raise ValueError(f"model.NAME={cfg.model.get('NAME')!r} is not "
+                             f"of the PointTransformer_seg_T family")
+        weights = seg_t_weights(path, depth, payload)
+    except Exception as e:  # noqa: BLE001 - as geot_tpu: report, go on
+        logger.warning(f"pretrain load failed ({e}); training from "
+                       f"scratch")
+        return None
+    logger.info(f"loaded torch pretrain from {path}")
+    return weights
+
+
+def _load_pretrained(model: torch.nn.Module, weights, pretrained: str,
+                     mode: str, eval_only: bool, logger) -> None:
+    """Graft ``weights`` into ``model`` by name: the whole model, or the
+    encoder only for ``mode=finetune_encoder``. An entry that keeps its
+    fresh value (missing from the file, or of another shape) is fatal in
+    an eval mode and logged otherwise; entries the model lacks are
+    logged."""
+    subtree = "encoder" if mode == "finetune_encoder" else None
+    merged, skipped = graft_state_dict(model.state_dict(), weights, subtree)
+    if skipped:
+        bad = [k for k in skipped if not k.endswith("(unexpected)")]
+        if bad and eval_only:
+            raise ValueError(
+                f"checkpoint {pretrained} does not cover the model: "
+                f"{len(bad)} entries kept their fresh values "
+                f"({bad[:5]}{'...' if len(bad) > 5 else ''})")
+        logger.warning(f"checkpoint graft skipped {len(skipped)} entries: "
+                       f"{skipped[:5]}{'...' if len(skipped) > 5 else ''}")
+    model.load_state_dict(merged, strict=True)
 
 
 class _Timed:
@@ -278,32 +329,28 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
 
     pretrained = cfg.get("pretrained_path")
     weights = None
-    if pretrained and mode != "resume":
-        if not os.path.isfile(str(pretrained)):
-            msg = f"pretrained_path={pretrained} is not a file"
-            if eval_only or mode == "finetune":
-                raise FileNotFoundError(msg)
-            logger.warning(msg + " (and mode=train does not read it)")
-        else:
-            # use_ema (geot_tpu/engine/train.py:267-272): auto loads the
-            # tree the source run selected for the eval modes, the raw
-            # weights for finetune; true / false force it
-            use_ema = cfg.get("use_ema", "auto")
-            weights = _port_weights(str(pretrained), (
-                ("auto" if eval_only else False) if use_ema == "auto"
-                else bool(use_ema)))
-            if mode == "train":
-                logger.warning(f"pretrained_path={pretrained} was NOT "
-                               f"loaded: mode=train ignores it; use "
-                               f"mode=finetune or mode=resume")
-                weights = None
+    if pretrained and os.path.isfile(str(pretrained)) and mode != "resume":
+        weights = _pretrained_weights(cfg, str(pretrained), mode, eval_only,
+                                      logger)
+    if weights is None and pretrained and mode != "resume":
+        # nothing was loaded: the path is missing, does not convert, or is
+        # a port checkpoint that mode=train does not read
+        msg = (f"pretrained_path={pretrained} was NOT loaded (exists="
+               f"{os.path.exists(str(pretrained))}, mode={mode}; mode=train "
+               f"reads only a reference .pth; use mode=finetune, "
+               f"finetune_encoder or resume)")
+        if eval_only or (mode == "finetune"
+                         and not os.path.isfile(str(pretrained))):
+            raise FileNotFoundError(msg)
+        logger.warning(msg)
     elif eval_only and not pretrained:
         raise ValueError(f"mode={mode} (eval-only) requires pretrained_path")
 
     if eval_only:
         split = "test" if mode in ("test", "testing") else "val"
         model = build_model_from_cfg(cfg.model)
-        model.load_state_dict(weights, strict=True)
+        _load_pretrained(model, weights, str(pretrained), mode, eval_only,
+                         logger)
         model.to(device)
         res = validate(eval_step, model, test_loader if split == "test"
                        else val_loader, cfg, logger, num_votes=num_votes,
@@ -323,9 +370,11 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     else:
         state = TrainState.create(cfg, cfg.model, seed=seed, device=device)
     if weights is not None:
-        state.model.load_state_dict(weights, strict=True)
+        _load_pretrained(state.model, weights, str(pretrained), mode,
+                         eval_only, logger)
         if semi:
-            state.teacher.load_state_dict(weights, strict=True)
+            state.teacher.load_state_dict(state.model.state_dict(),
+                                          strict=True)
         if state.ema_params:
             state.seed_ema()
         logger.info(f"loaded weights from {pretrained}")

@@ -334,14 +334,17 @@ def test_load_model_reads_an_ensemble(ensemble, tmp_path):
 def test_serve_cli_takes_a_config_and_fast_and_refuses_an_artifact():
     from geot_tpu_torch.engine import serve as tserve
 
-    args, n = tserve.serving_args(None, [], fast=True)
+    model, n = tserve.serving_args(None, [], fast=True)
+    args = model["segmentor_args"]
+    assert model["NAME"] == "WholePartSeg"
     assert (args["fast_pyramid"], args["fast_graph"], n) == (1024, True,
                                                              16000)
     assert args["trans_dim"] == 384 and "dtype" not in args
     cfg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                        "cfgs", "tooth_semi", "smoke.yaml")
-    args, n = tserve.serving_args(cfg, ["model.segmentor_args.dtype="
-                                        "bfloat16"], fast=False)
+    model, n = tserve.serving_args(cfg, ["model.segmentor_args.dtype="
+                                         "bfloat16"], fast=False)
+    args = model["segmentor_args"]
     assert (args["trans_dim"], args["dtype"], n) == (48, "bfloat16", 16000)
     assert "fast_pyramid" not in args
     with pytest.raises(NotImplementedError, match="--artifact"):

@@ -485,7 +485,8 @@ ZOO_TINY = {
 
 def _chain(cuda, B=4):
     """The FPS pyramid of PointNet++ and PointMLP, 16000 -> 4000 -> 1000
-    -> 250 -> 62, on B clouds: [(xyz, npoint, idx), ...] and the levels."""
+    -> 250 -> 62, on B clouds (4 in training, 1 when serving): [(xyz,
+    npoint, idx), ...] and the levels."""
     levels = [_cloud(8, (B, 16000, 3)).to(cuda)]
     calls = []
     for npoint in (4000, 1000, 250, 62):
@@ -533,6 +534,92 @@ def test_knn_split_at_the_decoder_shapes(cuda):
         d_r, i_r = ops.knn_small_k_ref(q, s, 3)
         assert torch.equal(i, i_r) and torch.equal(d, d_r), (q.shape,
                                                             s.shape)
+
+
+def test_fps_and_knn_at_the_zoo_shapes_when_serving(cuda):
+    """A served zoo scan (B = 1): each FPS of the chain runs on the card's
+    cluster size for one cloud and is bit-equal to ``fps_ref``; the four
+    decoder searches are bit-equal to ``knn_small_k_ref``."""
+    calls, lv = _chain(cuda, B=1)
+    for x, npoint, idx in calls:
+        assert torch.equal(idx, ops.fps_ref(x, npoint)), (x.shape, npoint)
+    for q, s in ((lv[3], lv[4]), (lv[2], lv[3]), (lv[1], lv[2]),
+                 (lv[0], lv[1])):
+        n0 = ops.LAUNCHES["knn_split"]
+        d, i = ops.knn(q, s, 3, squared=True)
+        assert ops.LAUNCHES["knn_split"] == n0 + 1
+        d_r, i_r = ops.knn_small_k_ref(q, s, 3)
+        assert torch.equal(i, i_r) and torch.equal(d, d_r), (q.shape,
+                                                            s.shape)
+
+
+def test_upsample_search_of_a_150000_point_scan(cuda):
+    """The full-resolution upsample of a 150,000-vertex scan: its points
+    padded to 19 x 8,192 = 155,648 rows (``engine.eval.pad_to_bucket``)
+    against 16,000 sampled points, k = 3, bit-equal to the plain
+    version."""
+    from geot_tpu_torch.data.tooth_semi import _synthetic_scan, pc_norm
+    from geot_tpu_torch.engine.eval import pad_to_bucket
+
+    pts, _ = _synthetic_scan(3, 150000)
+    norm, _, _ = pc_norm(pts)
+    full = torch.from_numpy(pad_to_bucket(norm, 8192))[None].to(cuda)
+    sel = np.random.default_rng(0).choice(150000, 16000, replace=False)
+    sup = torch.from_numpy(np.ascontiguousarray(norm[sel]))[None].to(cuda)
+    assert full.shape == (1, 155648, 3)
+    n0 = ops.LAUNCHES["knn_split"]
+    d, i = ops.knn(full.contiguous(), sup, 3, squared=True)
+    assert ops.LAUNCHES["knn_split"] == n0 + 1
+    d_r, i_r = ops.knn_small_k_ref(full.contiguous(), sup, 3)
+    assert torch.equal(i, i_r) and torch.equal(d, d_r)
+
+
+def _write_obj(path, pts):
+    with open(path, "w") as f:
+        f.writelines(f"v {x!r} {y!r} {z!r}\n"
+                     for x, y, z in pts.astype(np.float64).tolist())
+
+
+def test_predict_cli_on_an_obj_directory_on_the_card(cuda, tmp_path):
+    """``engine.predict`` on a directory of OBJ scans on the card, the
+    flagship YAML at the small width: one JSON per scan with FDI codes of
+    its jaw and ``n_points`` equal to its vertex count, and the labels of
+    the same CLI on the CPU at argmax agreement >= 0.999 (float32
+    near-ties)."""
+    import json
+    import os
+
+    from geot_tpu_torch.data.tooth_semi import _synthetic_scan
+    from geot_tpu_torch.engine import predict
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    scans = tmp_path / "scans"
+    scans.mkdir()
+    sizes = {"p0_lower": 3000, "p1_upper": 5000}
+    for stem, n in sizes.items():
+        _write_obj(scans / f"{stem}.obj", _synthetic_scan(len(stem) + n, n)[0])
+    small = [f"model.segmentor_args.{k}={v}".replace(" ", "")
+             for k, v in SMALL_ARGS.items() if k != "NAME"] + \
+        ["num_points=256"]
+    cfg = os.path.join(root, "cfgs", "tooth_semi",
+                       "transformer_finetune_fixmatch_ntm.yaml")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        n = predict.main(["--cfg", cfg, "--input", str(scans), "--output",
+                          str(tmp_path / dev), "--seed", "1", *small,
+                          f"device={dev}"])
+        assert n == 2
+        out[dev] = {stem: json.loads((tmp_path / dev / f"{stem}.json")
+                                     .read_text()) for stem in sizes}
+    for stem, n in sizes.items():
+        got, want = out["cuda"][stem], out["cpu"][stem]
+        jaw = 0 if "lower" in stem else 1
+        assert got["n_points"] == n and got["jaw"] == want["jaw"]
+        assert all(lab == 0 or (30 < lab < 50 if jaw == 0 else 10 < lab < 30)
+                   for lab in got["labels"])
+        agree = np.mean(np.asarray(got["labels"]) ==
+                        np.asarray(want["labels"]))
+        assert agree >= 0.999, (stem, agree)
 
 
 @pytest.mark.parametrize("radius,nsample,M,N", [(0.1, 32, 4000, 16000),

@@ -329,7 +329,7 @@ def _ported(opt, key):
     ("fsdp=True", "fsdp"), ("step_per_update=2", "step_per_update"),
     ("eval_device_cache=False", "eval_device_cache"),
     ("pretrain_encoder_path=/x", "pretrain_encoder_path"),
-    ("mode=finetune_encoder", "mode"), ("task=partseg", "task"),
+    _ported("mode=finetune_encoder", "mode"), ("task=partseg", "task"),
     ("task=cls", "task"), ("model.generator_args={}",
                            "model.generator_args"),
     ("model.segmentor_args.depth=2", None),
@@ -372,11 +372,32 @@ def test_other_configs_and_reference_files_are_refused(tmp_path):
             ttrain.parse_and_run(["--cfg", os.path.join(ROOT, path),
                                   f"root_dir={tmp_path}", "device=cpu"])
     assert not os.path.exists(tmp_path / "scanobjectnn")
+    # a reference-style .pth that does not convert to the model: as in
+    # geot_tpu (engine/train.py:248-310), finetune logs the failed load
+    # and goes on from the fresh weights (the run is stopped once its
+    # train state is built), an eval mode raises
     ref = str(tmp_path / "reference.pth")
     torch.save({"model": {"w": torch.zeros(2)}}, ref)
-    for mode in ("finetune", "val"):
-        with pytest.raises(NotImplementedError, match="reference torch"):
-            _run(tmp_path, f"mode={mode}", f"pretrained_path={ref}")
+    with pytest.raises(FileNotFoundError, match="was NOT loaded"):
+        _run(tmp_path / "val", "mode=val", f"pretrained_path={ref}")
+
+    class Built(Exception):
+        pass
+
+    def stop(cfg):
+        raise Built
+
+    real = ttrain.make_supervised_step
+    ttrain.make_supervised_step = stop
+    try:
+        with pytest.raises(Built):
+            _run(tmp_path / "ft", "mode=finetune", f"pretrained_path={ref}")
+    finally:
+        ttrain.make_supervised_step = real
+    log = open(glob.glob(os.path.join(_run_dir(tmp_path / "ft"),
+                                      "*.log"))[0]).read()
+    assert "pretrain load failed ('segmentor.encoder" in log
+    assert "was NOT loaded" in log
 
 
 def test_missing_paths_and_a_missing_card_raise(tmp_path, monkeypatch):
