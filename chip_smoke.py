@@ -145,6 +145,34 @@ Phases, each printed with the seconds elapsed when it starts:
    bound; DGCNN ``_SERVE_ZOO_*``). ``serve`` of PointNet++ answers an OBJ
    text body as ``predict_scan`` does, a failing prediction with 400, and
    ``/metrics`` counts both.
+14. native parse, export, and data parallel: the 150,000-vertex OBJ
+   through the C++ parser (``csrc/obj_loader.cpp``, built with ``g++``)
+   bit-equal to the numpy parser, both timed; kernels 1 and 2 called
+   through the custom ops ``geot::fps`` and ``geot::knn_small_k``
+   bit-equal to their plain versions, the op's time beside the direct
+   wrapper's. ``engine.export``'s CLI exports the flagship (seeded
+   weights, B = 1, 16,000 points) exact and fast; a fresh process that
+   imports torch and ``geot_tpu_torch.ops`` only loads both (no model
+   module imported), and their logits are held to the eager forward's
+   (``ARTIFACT_LOGIT_TOL`` of the logit scale, argmax equal) with the
+   eager forward's launches. A 40,000-point scan through each artifact and
+   eagerly, in turns (ms, launches a scan), and a profile of the fast
+   scan both ways (the card's idle share, the host's operator calls).
+   ``serve --artifact`` answers an OBJ body with ``predict_scan``'s eager
+   labels. ``predict_stream`` over every card (``cuda:0`` twice on a
+   one-card machine) gives one device's labels in input order. Two ranks
+   train the flagship at full width through ``engine.launch`` (NCCL with a
+   card each, else gloo with both on ``cuda:0``) on a Teeth3DS tree: 2
+   epochs of one step of 2 + 2 + 2, dropout off, the trainer checking
+   after each step that the ranks hold the same state and logging each
+   rank's launches; against one process on the same batches: each rank's
+   launches a step equal to the process's, the first step's loss terms
+   within ``DP_FIRST_LOSS_RTOL``, AdamW's first moments after step 1
+   tensor by tensor within ``DP_MOMENT_TOL``, the second step's loss
+   terms within ``DP_SECOND_LOSS_RTOL``, the weights after step 2 within
+   ``DP_WEIGHT_RMS_LR`` learning rates (root mean square); step ms of
+   both. A control run whose ranks take rank 0's gradient in place of
+   the sum must land past the last three bounds.
 Phase 3 also holds ``fps_cluster`` at the serving topology's prefix,
 (1|6, 16000) -> 1024 and a duplicate-heavy cloud, and ``knn_split`` at a
 fast scan's 6 searches, against their plain versions, with times and
@@ -165,6 +193,7 @@ measures what phase 8's run B is held to: PAIRS pairs of uninterrupted
 2-epoch runs of phase 8's config with the card's default backward, and a
 resume of each pair's first run from its epoch-1 checkpoint; prints the
 relative spread of each loss term between them (``RESUME_SPREAD`` line).
+
 """
 from __future__ import annotations
 
@@ -527,6 +556,33 @@ def _kernels_fast(bound: Bound, pos, pos6, full, world):
     return fps_rec, knn_new, knn_old
 
 
+def _scan_searches(pts, pos, center, scale):
+    """The exact serving path's 8 small-k searches on the points it gives
+    them: ``((label, query, support, k), ...)``, the padded full scan and
+    the sample in world coordinates."""
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.engine.eval import BUCKET, pad_to_bucket
+
+    dev = pos.device
+    fps_pts = ops.gather_points(pos, ops.fps(pos, 8192))
+    c8192, c4096, c512 = (fps_pts[:, :n].contiguous()
+                          for n in (8192, 4096, 512))
+    full = torch.from_numpy(pad_to_bucket(pts, BUCKET))[None].to(dev)
+    world = (pos * torch.tensor(np.float32(scale), device=dev)
+             + torch.from_numpy(center).to(dev)).contiguous()
+    return ((("propagation_2 three_nn", c4096, c512, 3),
+             ("propagation_1 three_nn", c8192, c512, 3),
+             ("dgcnn_pro_2 cross", c4096, c512, 4),
+             ("dgcnn_pro_2 self", c4096, c4096, 4),
+             ("dgcnn_pro_1 cross", c8192, c4096, 4),
+             ("dgcnn_pro_1 self", c8192, c8192, 4),
+             ("propagation_0 three_nn", pos, c8192, 3),
+             ("upsample three_nn", full, world, 3)), full, world)
+
+
 def phase_kernels(bound: Bound):
     import numpy as np
     import torch
@@ -548,21 +604,8 @@ def phase_kernels(bound: Bound):
 
     fps_rec, fpsblock_rec = _kernels_fps(bound, pos, pos2, pos6, dup)
 
-    # the serving path's small-k searches, on the points it gives them
-    fps_pts = ops.gather_points(pos, ops.fps(pos, 8192))
-    c8192, c4096, c512 = (fps_pts[:, :n].contiguous()
-                          for n in (8192, 4096, 512))
-    full = torch.from_numpy(pad_to_bucket(pts, BUCKET))[None].to(dev)
-    world = (pos * torch.tensor(np.float32(scale), device=dev)
-             + torch.from_numpy(center).to(dev)).contiguous()
-    path_shapes = (("propagation_2 three_nn", c4096, c512, 3),
-                   ("propagation_1 three_nn", c8192, c512, 3),
-                   ("dgcnn_pro_2 cross", c4096, c512, 4),
-                   ("dgcnn_pro_2 self", c4096, c4096, 4),
-                   ("dgcnn_pro_1 cross", c8192, c4096, 4),
-                   ("dgcnn_pro_1 self", c8192, c8192, 4),
-                   ("propagation_0 three_nn", pos, c8192, 3),
-                   ("upsample three_nn", full, world, 3))
+    path_shapes, full, world = _scan_searches(pts, pos, center, scale)
+    c4096 = path_shapes[0][1]
     ties = torch.cat([c4096, c4096[:, :1000]], dim=1).contiguous()
     knn_rec, knnu_rec = _kernels_knn(bound, path_shapes,
                                      ("ties", c4096, ties, 4))
@@ -748,9 +791,15 @@ def _profile(label: str, fn, reps: int, top: int = 15):
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in rows)
+    # the host's operator calls, nested ones included
+    n_ops = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and e.key.startswith("aten::")) / reps
     log(f"{label} x {reps}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %), idle "
-        f"{100 * (1 - busy_us / wall_us):.1f} %")
+        f"{100 * (1 - busy_us / wall_us):.1f} %; {n_ops:.0f} aten calls a "
+        f"call on the host, {wall_us / reps / max(n_ops, 1):.2f} us of wall "
+        f"each")
     for e in rows[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  "
             f"{e.key[:90]}")
@@ -2882,6 +2931,623 @@ def phase_files(bound: Bound):
             "launches_by_shape": by_shape, **out}
 
 
+# phase 14: the native OBJ parser, the exported forward and data
+# parallelism. Bounds stated in PERF.md section 6 before the first card run:
+# the artifact's logits against the eager forward's, of the logit scale
+ARTIFACT_LOGIT_TOL = 1e-5
+# two ranks against one process on the same global batches (2 + 2 + 2, one
+# step an epoch, 2 epochs). The first step's loss terms, relative (the
+# forward alone):
+DP_FIRST_LOSS_RTOL = 1e-4
+# AdamW's first moments after step 1 (0.1 x the summed gradient), tensor by
+# tensor, of the tensor's largest entry floored at DP_ZERO_GRAD_FLOOR of the
+# largest entry of all (a bias followed by BatchNorm has a gradient that is
+# rounding), as tests/test_torch_dist.py holds them on the CPU:
+DP_MOMENT_TOL = 0.5
+DP_ZERO_GRAD_FLOOR = 1e-3
+# the second step's loss terms, relative, and the root mean square of the
+# weights' difference after step 2, in learning rates:
+DP_SECOND_LOSS_RTOL = 1e-3
+DP_WEIGHT_RMS_LR = 0.3
+# Each of these three bounds lies between the sound run's reading and that
+# of a control run (_DP_CONTROL) whose ranks send rank 0's gradient to every
+# rank in place of the sum: the ranks stay equal, so only the comparison
+# with one process can see it. On an H100 80GB HBM3 at 700 W (PERF.md
+# section 6, PR 12) the sound run read 6.783e-2, 7.155e-5 and 0.0357 lr,
+# the control 1.353e4, 7.247e-2 and 1.7398 lr. An error of scale alone (the
+# average in place of the sum) changes no update here: the gradient is
+# clipped to a global norm of 1 (grad_norm_clip) and AdamW drops its scale.
+# the Teeth3DS tree of phase 14: 2 labelled scans (a step of 2 + 2 + 2 an
+# epoch), 2 unlabelled, and one test scan (val and test)
+_DP_SPLITS = {"semi_l_train_0.2.txt": (0, 1),
+              "semi_u_train_0.2.txt": (4, 5), "testing.txt": (0,)}
+# dropout and stochastic depth off, as tests/dist_worker.py runs geot_tpu's
+# multi-process check
+_DP_NO_DROPOUT = ("model.segmentor_args.drop_path_rate=0.0",
+                  "model_t.segmentor_args.drop_path_rate=0.0",
+                  "model.segmentor_args.head_dropout=0.0",
+                  "model_t.segmentor_args.head_dropout=0.0")
+# one rank of the control run: the trainer with rank 0's model gradient
+# in place of the ranks' sum; the T-predictor's keep their sound average
+_DP_CONTROL = r"""
+import sys
+from geot_tpu_torch.engine import train
+from geot_tpu_torch.parallel import dist
+
+real_sum = dist.sum_gradients
+
+
+def average(params):
+    params = list(params)
+    real_sum(params)
+    for p in params:
+        p.grad.div_(dist.world())
+
+
+def rank0_only(params):
+    for p in params:
+        dist.broadcast_(p.grad)
+
+
+dist.average_gradients = average
+dist.sum_gradients = rank0_only
+train.parse_and_run(sys.argv[1:])
+dist.shutdown()
+"""
+
+# loads the artifacts in a fresh process that imports torch and the ops
+_ARTIFACT_CHILD = r"""
+import json, sys, time
+import torch
+import geot_tpu_torch.ops as ops
+paths, inputs, out = sys.argv[1].split(","), sys.argv[2], sys.argv[3]
+x = torch.load(inputs)
+res = {}
+for name, path in zip(("exact", "fast"), paths):
+    t = time.perf_counter()
+    fwd = torch.export.load(path).module()
+    load_s = time.perf_counter() - t
+    with torch.no_grad():
+        fwd(x["pos"], x["cls"])
+        ops.reset_launches()
+        logits = fwd(x["pos"], x["cls"])
+        torch.cuda.synchronize()
+    res[name] = {"launches": dict(ops.LAUNCHES), "load_s": load_s}
+    torch.save(logits.cpu(), f"{out}.{name}.pt")
+res["models_imported"] = sorted(
+    m for m in sys.modules if m.startswith("geot_tpu_torch.models")
+    or m.split(".")[0] in ("jax", "flax", "geot_tpu", "yaml"))
+print(json.dumps(res))
+"""
+
+
+def _steplosses(text):
+    """The ``steploss`` lines of a trainer's log: [(loss, sup, unsup)] and
+    the steps' milliseconds."""
+    losses, ms = [], []
+    for line in text.splitlines():
+        if " steploss " in line:
+            f = line.split(" steploss ")[1].split()
+            losses.append((float(f[1]), float(f[3]), float(f[5])))
+            ms.append(float(f[7]))
+    return losses, ms
+
+
+def _step_launches(text):
+    """The ``launches step`` lines of a trainer's log: each step's kernel
+    launches on every rank, [[{kernel: n} per rank] per step]."""
+    return [json.loads(line.split(" launches step ")[1].split(" ", 1)[1])
+            for line in text.splitlines() if " launches step " in line]
+
+
+def _rank_env(here):
+    """The rendezvous of two ranks on this node, as ``engine.launch`` sets
+    it."""
+    from geot_tpu_torch.engine.launch import find_free_port
+
+    return dict(os.environ, MASTER_ADDR="localhost",
+                MASTER_PORT=str(find_free_port()), WORLD_SIZE="2",
+                LOCAL_WORLD_SIZE="2", GEOT_LOG_STEP_LOSS="1",
+                PYTHONPATH=here)
+
+
+def _start_control(common, here, root):
+    """Start the two-rank trainer with ``_DP_CONTROL``'s reduction; returns
+    its run directory and its ranks (process, output file)."""
+    env, run = _rank_env(here), os.path.join(root, "rank0_only")
+    os.makedirs(run)
+    procs = []
+    for r in range(2):
+        out = open(os.path.join(run, f"rank{r}.out"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", _DP_CONTROL, *common, f"run_dir={run}",
+             "run_name=rank0_only"], cwd=here,
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=out,
+            stderr=subprocess.STDOUT), out))
+    return run, procs
+
+
+def _wait_control(run, procs, timeout=600):
+    """Wait for the control's ranks (all killed once one fails or the time
+    is up); returns its run directory and rank 0's output."""
+    deadline = time.perf_counter() + timeout
+    try:
+        while (any(p.poll() is None for p, _ in procs)
+               and not any(p.poll() for p, _ in procs)
+               and time.perf_counter() < deadline):
+            time.sleep(0.5)
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    failed = [out.name for p, out in procs if p.returncode != 0]
+    check(not failed, "the control run failed or timed out: " + "; ".join(
+        f"{name}:\n{open(name).read()[-2000:]}" for name in failed))
+    return run, open(procs[0][1].name).read()
+
+
+def _dp_state(run, tag):
+    """The state a run's checkpoint ``tag`` (``E1`` after step 1,
+    ``latest`` after step 2) holds."""
+    ck = os.path.join(run, "checkpoint")
+    name = [f for f in os.listdir(ck) if f.endswith(f"_ckpt_{tag}.pth")][0]
+    import torch
+
+    return torch.load(os.path.join(ck, name), map_location="cpu",
+                      weights_only=True)["state"]
+
+
+def _moment_err(got, ref):
+    """AdamW's first moments of ``got`` against ``ref`` (optimizer
+    state_dicts): the worst tensor's max |difference| over its scale
+    (its largest entry, floored at ``DP_ZERO_GRAD_FLOOR`` of the largest
+    entry of all), and that tensor's index."""
+    ref, got = ref["state"], got["state"]
+    gmax = max(float(v["exp_avg"].abs().max()) for v in ref.values())
+    worst = (-1.0, -1)
+    for i, v in ref.items():
+        scale = max(float(v["exp_avg"].abs().max()), DP_ZERO_GRAD_FLOOR * gmax)
+        err = float((got[i]["exp_avg"] - v["exp_avg"]).abs().max()) / scale
+        worst = max(worst, (err, i))
+    return worst
+
+
+def _weight_rms_lr(got, ref, lr):
+    """The root mean square and the largest |difference| of the weights of
+    two model state_dicts (BatchNorm statistics left out), in ``lr``."""
+    keys = [k for k, v in ref.items()
+            if v.is_floating_point() and "running" not in k]
+    sq = sum(float((got[k] - ref[k]).double().square().sum()) for k in keys)
+    n = sum(ref[k].numel() for k in keys)
+    top = max(float((got[k] - ref[k]).abs().max()) for k in keys)
+    return math.sqrt(sq / n) / lr, top / lr
+
+
+def _rel_terms(a, b):
+    """The largest relative difference of two steps' loss terms."""
+    return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+
+
+def _ops_rows(bound: Bound):
+    """Kernels 1 and 2 through the custom ops ``geot::fps`` and
+    ``geot::knn_small_k``: bit-equal to their plain versions, and the op's
+    time beside the direct wrapper's, at the exact scan's shapes."""
+    import importlib
+
+    import torch
+
+    from geot_tpu_torch import ops
+
+    fps_mod = importlib.import_module("geot_tpu_torch.ops.fps")
+    knn_mod = importlib.import_module("geot_tpu_torch.ops.knn")
+    pts, pos0, center, scale = _scan_sample(11)
+    pos = torch.from_numpy(pos0)[None].cuda()
+    got = torch.ops.geot.fps(pos, 8192)
+    ref = ops.fps_ref(pos, 8192)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "geot::fps differs from fps_ref")
+    t_op = cuda_ms(lambda: torch.ops.geot.fps(pos, 8192), 5)
+    t_direct = cuda_ms(lambda: fps_mod.fps_direct(pos, 8192), 5)
+    t_plain = cuda_ms(lambda: ops.fps_ref(pos, 8192), 1)
+    b_ms, b_by = _fps_bound(bound, 1, 16000, 8192)
+    fps_row = {"ms": t_op, "direct_ms": t_direct, "plain_ms": t_plain,
+               "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
+    searches, _, _ = _scan_searches(pts, pos, center, scale)
+    knn_row = {"ms": 0.0, "direct_ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "max_abs_err": 0.0}
+    flops = nbytes = 0.0
+    for label, q, s_, k in searches:
+        d, i = torch.ops.geot.knn_small_k(q, s_, k)
+        d_r, i_r = ops.knn_small_k_ref(q, s_, k)
+        torch.cuda.synchronize()
+        check(torch.equal(i, i_r) and torch.equal(d, d_r),
+              f"geot::knn_small_k {label}: not bit-equal to the plain "
+              f"version")
+        knn_row["ms"] += cuda_ms(
+            lambda: torch.ops.geot.knn_small_k(q, s_, k), 20)
+        knn_row["direct_ms"] += cuda_ms(
+            lambda: knn_mod.knn_small_k_direct(q, s_, k), 20)
+        knn_row["plain_ms"] += cuda_ms(
+            lambda: ops.knn_small_k_ref(q, s_, k), 2)
+        B, Q, N = q.shape[0], q.shape[1], s_.shape[1]
+        f, nb = 8.0 * B * Q * N, B * ((Q + N) * 12 + Q * k * 8)
+        knn_row["bound_ms"] += bound(f, nb)[0]
+        flops += f
+        nbytes += nb
+    knn_row["bound_by"] = bound(flops, nbytes)[1]
+    log(f"through the custom ops: geot::fps (1,16000)->8192 {t_op:.3f} ms "
+        f"(direct wrapper {t_direct:.3f}, plain {t_plain:.1f}, bound "
+        f"{b_ms:.4f}); geot::knn_small_k, the scan's 8 searches "
+        f"{knn_row['ms']:.4f} ms (direct wrapper {knn_row['direct_ms']:.4f}, "
+        f"plain {knn_row['plain_ms']:.2f}, bound {knn_row['bound_ms']:.4f}); "
+        f"both bit-equal to their plain versions")
+    return fps_row, knn_row
+
+
+def phase_export_dp(bound: Bound):
+    """Phase 14: the native OBJ parser, the flagship exported and served
+    as an artifact, ``predict_stream`` over several devices, and two ranks
+    training the flagship through ``engine.launch``."""
+    import contextlib
+    import io as iolib
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import FLAGSHIP_SEG_ARGS, FLAGSHIP_SEMI_CFG, ops
+    from geot_tpu_torch.data import io as tio
+    from geot_tpu_torch.data.tooth_semi import _synthetic_scan
+    from geot_tpu_torch.engine import export as texport
+    from geot_tpu_torch.engine import predict
+    from geot_tpu_torch.engine import serve as tserve
+    from geot_tpu_torch.engine import train as train_mod
+    from geot_tpu_torch.ops import _build
+
+    log("phase 14: native parse, export, and data parallel")
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    flagship = os.path.join(here, "cfgs", "tooth_semi",
+                            "transformer_finetune_fixmatch_ntm.yaml")
+    root = tempfile.mkdtemp(prefix="geot_dp_")
+    out = {}
+    control_procs = []
+    # launches on this phase's main paths: the scans through the artifacts
+    # and eagerly, the artifact served over HTTP, the streams and the
+    # one-process trainer (the ranks' launches are in their processes)
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def counted():
+        for k, v in ops.LAUNCHES.items():
+            total[k] += v
+        ops.reset_launches()
+
+    try:
+        # the native parser against the numpy parser, 150,000 vertices
+        pts150 = _synthetic_scan(306, 150000)[0]
+        big = os.path.join(root, "big.obj")
+        _write_obj(big, pts150)
+        t = time.perf_counter()
+        built = _build.build_native()
+        build_s = time.perf_counter() - t
+        native_ms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            got = tio.load_obj_vertices(big)
+            native_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        plain = tio.load_obj_vertices_numpy(big)
+        numpy_ms = (time.perf_counter() - t) * 1e3
+        check(np.array_equal(got, plain) and np.array_equal(got, pts150),
+              "the native parse differs from the numpy parse")
+        log(f"OBJ of 150,000 vertices ({os.path.getsize(big)} bytes): "
+            f"native {', '.join(f'{x:.1f}' for x in native_ms)} ms, numpy "
+            f"{numpy_ms:.1f} ms, bit-equal (g++ build {build_s:.2f} s, "
+            f"{built['seconds']:.2f} s compiling)")
+        out["parse"] = {"native_ms": native_ms, "numpy_ms": numpy_ms,
+                        "build_s": build_s}
+
+        ops_rows = _ops_rows(bound)
+
+        # the Teeth3DS tree and the trainer's arguments of the two-rank
+        # runs below (the control starts beside the artifact's process)
+        tree = os.path.join(root, "teeth3ds")
+        os.makedirs(tree)
+        _write_teeth3ds(tree, [(f"P{i:03d}", i % 2,
+                                *_synthetic_scan(500 + i, 40000))
+                               for i in range(6)], _DP_SPLITS)
+        common = ["--cfg", flagship, f"dataset_l.common.data_root={tree}",
+                  f"dataset_u.common.data_root={tree}", "epochs=2",
+                  "seed=3", "val_freq=1", "test_freq=2", "save_freq=1",
+                  *_DP_NO_DROPOUT]
+
+        # the flagship exported by the CLI, exact and fast, from a
+        # state_dict file of seeded weights
+        model = predict.load_model(FLAGSHIP_SEG_ARGS, seed=0, device="cuda")
+        weights = os.path.join(root, "w.pt")
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                   weights)
+        fast_over = ["model.segmentor_args.fast_pyramid=1024",
+                     "model.segmentor_args.fast_graph=True"]
+        arts, export_s = {}, {}
+        for name, over in (("exact", []), ("fast", fast_over)):
+            arts[name] = os.path.join(root, f"{name}.pt2")
+            t = time.perf_counter()
+            texport.export_cli(["--cfg", flagship, "--ckpt", weights,
+                                "--out", arts[name], *over])
+            export_s[name] = time.perf_counter() - t
+        fast_model = predict.load_model(
+            dict(FLAGSHIP_SEG_ARGS, fast_pyramid=1024, fast_graph=True),
+            ckpt=weights, device="cuda")
+        pos = torch.from_numpy(_scan_sample(21)[1])[None].cuda()
+        cls = torch.ones((1, 1), dtype=torch.long, device="cuda")
+        eager, eager_launch = {}, {}
+        for name, m in (("exact", model), ("fast", fast_model)):
+            with torch.no_grad():
+                ops.reset_launches()
+                eager[name] = m({"pos": pos, "x": pos, "cls": cls})[0].cpu()
+                eager_launch[name] = dict(ops.LAUNCHES)
+        torch.save({"pos": pos, "cls": cls}, os.path.join(root, "in.pt"))
+        # the wrong-reduction control of the two-rank check, beside the
+        # artifact's process (whose load times it shares the host with)
+        t_control = time.perf_counter()
+        control = _start_control(common, here, root)
+        control_procs = control[1]
+        t = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", _ARTIFACT_CHILD,
+             ",".join((arts["exact"], arts["fast"])),
+             os.path.join(root, "in.pt"), os.path.join(root, "logits")],
+            capture_output=True, text=True, timeout=300, cwd=root,
+            env=dict(os.environ, PYTHONPATH=here))
+        child_s = time.perf_counter() - t
+        control = _wait_control(*control)
+        control_s = time.perf_counter() - t_control
+        check(child.returncode == 0, f"artifact child failed:\n"
+              f"{child.stderr[-3000:]}")
+        res = json.loads(child.stdout.strip().splitlines()[-1])
+        check(res["models_imported"] == [], f"the artifact's process "
+              f"imported {res['models_imported']}")
+        art = {}
+        for name in ("exact", "fast"):
+            a = torch.load(os.path.join(root, f"logits.{name}.pt"))
+            e = eager[name]
+            scale = float(e.abs().max())
+            diff = float((a - e).abs().max())
+            check(diff <= ARTIFACT_LOGIT_TOL * scale
+                  and torch.equal(a.argmax(-1), e.argmax(-1)),
+                  f"{name} artifact: max |dlogit| {diff} of {scale}")
+            check(res[name]["launches"] == eager_launch[name],
+                  f"{name} artifact launches {res[name]['launches']}, the "
+                  f"eager forward's {eager_launch[name]}")
+            art[name] = {"export_s": export_s[name], "max_abs_dlogit": diff,
+                         "logit_scale": scale,
+                         "launches_per_forward": res[name]["launches"],
+                         "load_s": res[name]["load_s"],
+                         "bytes": os.path.getsize(arts[name])}
+            log(f"{name} artifact: exported in {export_s[name]:.1f} s "
+                f"({art[name]['bytes']} bytes); loaded in a fresh process "
+                f"(no model module imported) in {res[name]['load_s']:.2f} "
+                f"s; max |dlogit| {diff:.3e} of {scale:.2f}, argmax equal; "
+                f"launches a forward {res[name]['launches']} (eager's "
+                f"too)")
+        log(f"artifact child process: {child_s:.1f} s; the control run "
+            f"beside it {control_s:.1f} s")
+
+        # a served scan through the artifact against the eager one, in
+        # turns; launches a scan
+        scan = _synthetic_scan(21, 40000)[0]
+        scan_ms = {}
+        for name, m in (("exact", model), ("fast", fast_model)):
+            am = tserve._artifact_model(arts[name])[0]
+            per = {"eager": [], "artifact": []}
+            for rep in range(4):
+                for kind, mm in (("eager", m), ("artifact", am)):
+                    ops.reset_launches()
+                    t = time.perf_counter()
+                    pred, _ = predict.predict_scan(mm, scan, jaw=1)
+                    torch.cuda.synchronize()
+                    per[kind].append((time.perf_counter() - t) * 1e3)
+                    want = ({"fps_cluster": 1, "knn_split": 8}
+                            if name == "exact" else
+                            {"fps_cluster": _PER_FAST_SCAN["fps_cluster"],
+                             "knn_split": _PER_FAST_SCAN["knn_split"]})
+                    grew = {k: v for k, v in ops.LAUNCHES.items() if v}
+                    check(grew == want, f"{name} {kind} scan launches "
+                          f"{grew}, expected {want}")
+                    counted()
+            scan_ms[name] = {k: v[1:] for k, v in per.items()}
+            log(f"{name} scan of 40,000 points (1 fps_cluster + "
+                f"{want['knn_split']} knn_split each way): eager "
+                f"{', '.join(f'{x:.1f}' for x in per['eager'][1:])} ms; "
+                f"through the artifact "
+                f"{', '.join(f'{x:.1f}' for x in per['artifact'][1:])} ms")
+        out["artifact"] = art
+        out["scan_ms"] = scan_ms
+        # where a fast scan's time goes, eagerly and through the artifact:
+        # the card's busy share and the host's operator calls
+        prof = {}
+        for kind, mm in (("eager", fast_model), ("artifact", am)):
+            wall, busy = _profile(f"fast {kind} scan", lambda: (
+                predict.predict_scan(mm, scan, jaw=1)), 3, top=5)
+            prof[kind] = {"wall_ms_per_scan": wall / 3,
+                          "device_busy_ms_per_scan": busy / 3,
+                          "idle_share": 1 - busy / wall}
+        # and unprofiled, 4 scans back to back each way (the turns above
+        # alternate the two)
+        for kind, mm in (("eager", fast_model), ("artifact", am)):
+            ms = []
+            for _ in range(4):
+                t = time.perf_counter()
+                predict.predict_scan(mm, scan, jaw=1)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            prof[kind]["back_to_back_ms"] = ms[1:]
+        b2b = {k: ", ".join(f"{x:.1f}" for x in v["back_to_back_ms"])
+               for k, v in prof.items()}
+        log(f"fast scan back to back: eager {b2b['eager']} ms; through the "
+            f"artifact {b2b['artifact']} ms")
+        out["fast_profile"] = prof
+
+        # serve --artifact over HTTP: an OBJ body's labels
+        want_pred, _ = predict.predict_scan(model, scan, jaw=1)
+        ops.reset_launches()
+        httpd = tserve.serve(port=0, artifact=arts["exact"])
+        try:
+            body = "".join(f"v {x!r} {y!r} {z!r}\n" for x, y, z in
+                           scan.astype("float64").tolist()).encode()
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            req = urllib.request.Request(f"{url}/predict?jaw=upper",
+                                         data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                got = json.loads(r.read())
+            check(got["labels"] == predict.map_pred_to_fdi(want_pred, 1),
+                  "serve --artifact: labels differ from predict_scan's")
+            log(f"serve --artifact: an OBJ body of 40,000 points answered "
+                f"in {got['seconds']:.4f} s, labels equal to predict_scan's "
+                f"eager labels")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        counted()
+
+        # predict_stream over every card (cuda:0 twice on a one-card
+        # machine) against one device
+        n_cards = torch.cuda.device_count()
+        devs = ([f"cuda:{i}" for i in range(n_cards)] if n_cards > 1
+                else ["cuda:0", "cuda:0"])
+        items = [(f"s{i}", _synthetic_scan(400 + i, 40000)[0], i % 2)
+                 for i in range(4)]
+        ops.reset_launches()
+        one = list(predict.predict_stream(model, items))
+        t = time.perf_counter()
+        many = list(predict.predict_stream(model, items, devices=devs))
+        stream_s = time.perf_counter() - t
+        counted()
+        check([x[0] for x in many] == [x[0] for x in items]
+              and all(np.array_equal(a[2], b[2]) for a, b in zip(one, many)),
+              f"predict_stream over {devs}: labels differ from one "
+              f"device's")
+        log(f"predict_stream over {devs}: 4 scans in {stream_s:.2f} s, "
+            f"labels equal to one device's, in input order")
+
+        # two ranks through engine.launch against one process, the
+        # flagship at full width on the Teeth3DS tree: 2 epochs of one step
+        # (checkpoints E1 after step 1, latest after step 2); the control
+        # ran beside the artifact's process
+        del model, fast_model, am
+        torch.cuda.empty_cache()
+        backend = "nccl" if n_cards >= 2 else "gloo"
+        run2 = os.path.join(root, "two")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "geot_tpu_torch.engine.launch",
+             "--nprocs", "2", "--run-dir", run2, "--", *common],
+            cwd=here, env=_rank_env(here), timeout=600, capture_output=True,
+            text=True)
+        two_s = time.perf_counter() - t
+        check(proc.returncode == 0, f"two-rank launch failed:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}")
+        log0 = open(os.path.join(run2, "rank0.log")).read()
+        check(f"rank 0 of 2 ({backend})" in log0,
+              f"the ranks did not run over {backend}")
+        check([line.split()[-1] for line in log0.splitlines()
+               if "ranks equal after step" in line] == ["1", "2"],
+              "the trainer did not find the ranks equal after steps 1, 2")
+        run1 = os.path.join(root, "one")
+        os.environ["GEOT_LOG_STEP_LOSS"] = "1"
+        buf = iolib.StringIO()
+        ops.reset_launches()
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                train_mod.parse_and_run([*common, f"run_dir={run1}"])
+        finally:
+            del os.environ["GEOT_LOG_STEP_LOSS"]
+        one_s = time.perf_counter() - t
+        counted()
+
+        # each rank's kernel launches in each step against one process's
+        per2, per1 = _step_launches(log0), _step_launches(buf.getvalue())
+        check(len(per2) == len(per1) == 2 and all(
+            len(r) == 2 and r[0] == r[1] == o[0] and o[0]["fps_cluster"] > 0
+            and o[0]["knn_split"] > 0 for r, o in zip(per2, per1)),
+            f"launches a step: two ranks {per2}, one process {per1}")
+        for step in per2:
+            for rank_counts in step:
+                for k, v in rank_counts.items():
+                    total[k] += v
+
+        lr = float(FLAGSHIP_SEMI_CFG["lr"])
+        (l2, ms2), (l1, ms1) = _steplosses(log0), _steplosses(buf.getvalue())
+        one = {tag: _dp_state(run1, tag) for tag in ("E1", "latest")}
+        check(len(l2) == len(l1) == 2 and one["latest"]["step"] == 2,
+              f"step losses {l2} / {l1}")
+
+        def readings(run, text):
+            """The run against one process: the first and second steps'
+            loss terms, the first moments after step 1, the weights after
+            step 2."""
+            losses, _ = _steplosses(text)
+            e1, last = _dp_state(run, "E1"), _dp_state(run, "latest")
+            check(len(losses) == 2 and last["step"] == 2,
+                  f"{run}: step losses {losses}, step {last['step']}")
+            m_err, m_at = _moment_err(e1["opt"], one["E1"]["opt"])
+            rms, top = _weight_rms_lr(last["model"], one["latest"]["model"],
+                                      lr)
+            return {"first_loss": _rel_terms(losses[0], l1[0]),
+                    "moments": m_err, "moments_worst_tensor": m_at,
+                    "second_loss": _rel_terms(losses[1], l1[1]),
+                    "weights": rms, "weights_max_lr": top,
+                    "losses": losses}
+
+        sound, ctl = readings(run2, log0), readings(*control)
+        log(f"two ranks ({backend}, "
+            f"{'one card each' if n_cards >= 2 else 'both on cuda:0'}) vs "
+            f"one process, global batch 2 + 2 + 2 at 16,000 points, 2 "
+            f"steps: " + "; ".join(
+                f"{name}: first-step losses {r['first_loss']:.3e} apart, "
+                f"first moments after step 1 {r['moments']:.3e} of their "
+                f"scale (worst tensor {r['moments_worst_tensor']}), "
+                f"second-step losses {r['second_loss']:.3e} apart, weights "
+                f"after step 2 {r['weights']:.4f} lr rms "
+                f"({r['weights_max_lr']:.3f} lr at most)"
+                for name, r in (("sound", sound), ("rank-0-only control",
+                                                    ctl))))
+        log(f"step ms (to the losses on the host): two ranks {ms2}, one "
+            f"process {ms1}; launches a step on each rank {per2[0][0]} (the "
+            f"one process's too); runs {two_s:.1f} s and {one_s:.1f} s")
+        check(sound["first_loss"] <= DP_FIRST_LOSS_RTOL,
+              f"first step: two ranks {l2[0]}, one process {l1[0]}")
+        for key, bound_ in (("moments", DP_MOMENT_TOL),
+                            ("second_loss", DP_SECOND_LOSS_RTOL),
+                            ("weights", DP_WEIGHT_RMS_LR)):
+            check(sound[key] <= bound_, f"two ranks: {key} {sound[key]:.3e} "
+                  f"past the bound {bound_:.3e}")
+            check(ctl[key] > bound_, f"the control's {key} {ctl[key]:.3e} "
+                  f"is within the bound {bound_:.3e}: the check cannot see "
+                  f"a wrong reduction")
+        out["dp"] = {"backend": backend, "sound": sound, "control": ctl,
+                     "losses_one": l1, "step_ms_two": ms2, "step_ms_one": ms1,
+                     "launches_a_step": per1[0][0], "seconds_two": two_s,
+                     "seconds_one": one_s, "seconds_control": control_s}
+    finally:
+        for p, _ in control_procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    check(total["fps_cluster"] > 0 and total["knn_split"] > 0,
+          f"phase 14's paths launched {total}")
+    log(f"phase 14 launches {total}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"kernels": {"fps_cluster": ops_rows[0],
+                        "knn_split": ops_rows[1]}, "launches": total, **out}
+
+
 def resume_check(root: str) -> int:
     """``--resume-check ROOT`` (phase 8 runs it in a child process with
     ``CUBLAS_WORKSPACE_CONFIG`` set): with deterministic algorithms on, the
@@ -3012,6 +3678,7 @@ def main() -> int:
     branches = phase_branches(Bound(limit_w), train["state"].cm)
     zoo = phase_zoo(Bound(limit_w))
     files = phase_files(Bound(limit_w))
+    export_dp = phase_export_dp(Bound(limit_w))
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
     # launches on the main paths: 3 served scans, the train run (2 cm
@@ -3026,7 +3693,8 @@ def main() -> int:
         f"{trainer['launches']}, fast serving {fast['launches']}, fast "
         f"trainer {fast_trainer['launches']}, semi-step branches "
         f"{branches['launches']}, supervised zoo {zoo['launches']}, files "
-        f"and the serving CLI {files['launches']}")
+        f"and the serving CLI {files['launches']}, export and data "
+        f"parallel {export_dp['launches']}")
 
     def entry(name, replaces):
         return {"name": name, "route": "cuda",
@@ -3038,7 +3706,8 @@ def main() -> int:
                              + fast_trainer["launches"][name]
                              + branches["launches"][name]
                              + zoo["launches"][name]
-                             + files["launches"].get(name, 0)),
+                             + files["launches"].get(name, 0)
+                             + export_dp["launches"][name]),
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
                 "launches_trainer_run": trainer["launches"][name],
@@ -3048,6 +3717,7 @@ def main() -> int:
                 "launches_semi_branches": branches["launches"][name],
                 "launches_supervised_zoo": zoo["launches"][name],
                 "launches_files_and_cli": files["launches"].get(name, 0),
+                "launches_export_and_dp": export_dp["launches"][name],
                 "library_ms": None, **recs[name]}
 
     kernels = [
@@ -3095,6 +3765,20 @@ def main() -> int:
          "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
          "launches": files["launches_by_shape"]["knn_upsample"],
          **files["kernels"]["knn_upsample"]},
+        # kernels 1 and 2 called through the custom ops geot::fps and
+        # geot::knn_small_k (ms: the op; direct_ms: the wrapper without the
+        # op's dispatch); launches: phase 14's main paths in this process
+        # and the two ranks' steps
+        {"name": "fps_cluster_via_geot_op_1x16000", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/fps_cluster.cu",
+         "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
+         "launches": export_dp["launches"]["fps_cluster"],
+         **export_dp["kernels"]["fps_cluster"]},
+        {"name": "knn_split_via_geot_op_scan_8_searches", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/knn_split.cu",
+         "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
+         "launches": export_dp["launches"]["knn_split"],
+         **export_dp["kernels"]["knn_split"]},
     ]
     log("done")
     print(smi, flush=True)

@@ -1,14 +1,18 @@
-"""Point-cloud file IO (``geot_tpu/data/io.py``), numpy only.
+"""Point-cloud file IO (``geot_tpu/data/io.py``).
 
-``load_obj_vertices`` reads the ``v`` lines of an OBJ mesh,
-``load_labels_json`` a Teeth3DS label file, ``_read_ply_xyz`` the vertex
-coordinates of an ascii or binary PLY, and ``IO.get`` dispatches on the
-extension. ``geot_tpu``'s C++ OBJ parser is not ported: the numpy parser
-below is its fallback and follows the same rules (malformed vertex lines
-are skipped, never emitted as zeros).
+``load_obj_vertices`` reads the ``v`` lines of an OBJ mesh with the C++
+parser ``csrc/obj_loader.cpp`` (built with ``g++`` at first use,
+``ops/_build.native_library``); ``load_obj_vertices_numpy`` is its plain
+version, a per-line Python loop, and the two are bit-equal (malformed
+vertex lines are skipped, never emitted as zeros). Unlike ``geot_tpu``,
+which quietly parses with numpy when its library does not build, a failed
+build raises. ``load_labels_json`` reads a Teeth3DS label file,
+``_read_ply_xyz`` the vertex coordinates of an ascii or binary PLY, and
+``IO.get`` dispatches on the extension.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 
@@ -16,7 +20,25 @@ import numpy as np
 
 
 def load_obj_vertices(path: str) -> np.ndarray:
-    """The ``v x y z`` lines of an OBJ file -> (N, 3) float32.
+    """The ``v x y z`` lines of an OBJ file -> (N, 3) float32, by the C++
+    parser; the rules are ``load_obj_vertices_numpy``'s."""
+    from ..ops._build import native_library
+
+    lib = native_library()
+    raw = os.fsencode(path)
+    n = lib.obj_count_vertices(raw)
+    out = np.empty((max(n, 0), 3), dtype=np.float32)
+    got = n if n < 0 else lib.obj_load_vertices(
+        raw, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n)
+    if got < 0:
+        open(path, "rb").close()         # the OSError of a missing file
+        raise OSError(f"obj_loader: cannot read {path}")
+    return out[:got]
+
+
+def load_obj_vertices_numpy(path: str) -> np.ndarray:
+    """The ``v x y z`` lines of an OBJ file -> (N, 3) float32, the plain
+    version of ``load_obj_vertices``.
 
     A line starts a vertex when it begins with ``v`` and a space or a tab;
     its first three fields are the coordinates and any further ones (w,

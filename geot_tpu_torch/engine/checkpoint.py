@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import dist
 from .state import SemiTrainState, TrainState
 
 
@@ -57,19 +58,24 @@ def save_checkpoint(cfg, state: "TrainState | SemiTrainState",
                     save_freq: Optional[int] = None) -> str:
     """Write ``latest`` (and ``best``, and the ``E<epoch>`` milestone when
     ``epoch % save_freq == 0``) under ``cfg["ckpt_dir"]``; returns the
-    path of ``latest``."""
+    path of ``latest``. Under data parallelism every rank calls it, rank 0
+    writes (the ranks' states are equal), and no rank returns before the
+    files are in place, so any rank may read them next
+    (``geot_tpu/engine/checkpoint.py`` ``_sync_processes``)."""
     ckpt_dir = cfg["ckpt_dir"]
     run_name = cfg.get("run_name", "run")
-    os.makedirs(ckpt_dir, exist_ok=True)
     latest = ckpt_path(ckpt_dir, run_name, "latest")
-    _write({"state": state.state_dict(), "epoch": int(epoch),
-            "extra": dict(additional_dict or {})}, latest)
-    if is_best:
-        _copy(latest, ckpt_path(ckpt_dir, run_name, "best"))
-    if save_freq and epoch % save_freq == 0:
-        mile = ckpt_path(ckpt_dir, run_name, f"E{epoch}")
-        if not os.path.exists(mile):
-            _copy(latest, mile)
+    if dist.is_primary():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        _write({"state": state.state_dict(), "epoch": int(epoch),
+                "extra": dict(additional_dict or {})}, latest)
+        if is_best:
+            _copy(latest, ckpt_path(ckpt_dir, run_name, "best"))
+        if save_freq and epoch % save_freq == 0:
+            mile = ckpt_path(ckpt_dir, run_name, f"E{epoch}")
+            if not os.path.exists(mile):
+                _copy(latest, mile)
+    dist.barrier()
     return latest
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import json
 import os
 import time
@@ -186,7 +187,8 @@ def _pinned(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 @torch.no_grad()
 def predict_stream(model: Models, items: Iterable, num_points: int = 16000,
-                   seed: int = 0, inflight: int = 8, bucket: int = 8192):
+                   seed: int = 0, inflight: int = 8, bucket: int = 8192,
+                   devices: Optional[Sequence] = None):
     """Pipelined multi-scan inference (``geot_tpu/engine/predict.py:204``):
     ``items`` yields ``(name, points (P, 3), jaw)``; yields ``(name,
     points, preds (P,) np.uint8, jaw)`` in input order.
@@ -196,9 +198,23 @@ def predict_stream(model: Models, items: Iterable, num_points: int = 16000,
     card still works on up to ``inflight`` earlier scans: inputs go up from
     pinned host buffers and the uint8 labels come back into pinned buffers,
     both with non-blocking copies, and a scan's labels are read only once
-    its copy's event has completed."""
+    its copy's event has completed.
+
+    ``devices``: scans round-robin over these devices, each with a replica
+    of the model (the model itself where it already lies there), and
+    ``inflight`` grows to at least two scans a device
+    (``geot_tpu/engine/predict.py:255-275``). The draws stay in input
+    order, so the labels do not depend on the placement."""
     members = _members(model)
-    device = next(members[0].parameters()).device
+    home = next(members[0].parameters()).device
+    if devices:
+        devices = [torch.device(d) for d in devices]
+        replicas = [members if _same_device(d, home) else
+                    tuple(copy.deepcopy(m).to(d) for m in members)
+                    for d in devices]
+        inflight = max(inflight, 2 * len(devices))
+    else:
+        devices, replicas = [home], [members]
     rng = np.random.default_rng(seed)
     pending: collections.deque = collections.deque()
 
@@ -209,7 +225,9 @@ def predict_stream(model: Models, items: Iterable, num_points: int = 16000,
                 done.synchronize()
             yield name, points, host.numpy()[:len(points)], jaw
 
-    for name, points, jaw in items:
+    for i, (name, points, jaw) in enumerate(items):
+        reps = replicas[i % len(devices)]
+        device = next(reps[0].parameters()).device
         points = np.asarray(points, dtype=np.float32)
         points_norm, center, scale = pc_norm(points)
         sel = rng.choice(len(points_norm), num_points,
@@ -219,18 +237,40 @@ def predict_stream(model: Models, items: Iterable, num_points: int = 16000,
             np.asarray(center, np.float32), np.float32(scale))]
         pos, full, c, s = (t.to(device, non_blocking=True) for t in up)
         cls = torch.full((1, 1), jaw, dtype=torch.long, device=device)
-        probs = _mean_probs(members, {"pos": pos, "x": pos, "cls": cls})[0]
+        probs = _mean_probs(reps, {"pos": pos, "x": pos, "cls": cls})[0]
         pred = _upsample_pred(probs, pos[0], full, c, s).to(torch.uint8)
         host = _pinned(np.empty(pred.shape, np.uint8), device)
         host.copy_(pred, non_blocking=True)
         done = None
         if device.type == "cuda":
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(device))
         # the pinned inputs stay referenced until the scan is drained
         pending.append((name, points, jaw, host, done, up))
         yield from drain(inflight)
     yield from drain(0)
+
+
+def local_devices(device: "str | torch.device") -> list:
+    """The devices to put one replica each on: every local card when
+    ``device`` is ``"cuda"`` without an index and there is more than one,
+    else ``[device]``."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None \
+            and torch.cuda.device_count() > 1:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``a`` names the device ``b`` is (``cuda`` is the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    index = a.index if a.index is not None else torch.cuda.current_device()
+    return index == b.index
 
 
 def _iter_scan_files(root: str, jaw: Optional[int] = None):
@@ -301,9 +341,13 @@ def main(argv=None):
         models = model()
         os.makedirs(args.output, exist_ok=True)
         t0, n_done = time.time(), 0
+        # every local card when there is more than one
+        # (geot_tpu/engine/predict.py:346-350)
+        devs = local_devices(device)
         for name, points, pred, jaw in predict_stream(
                 models, _iter_scan_files(args.input, jaw=args.jaw),
-                num_points=num_points):
+                num_points=num_points,
+                devices=devs if len(devs) > 1 else None):
             labels = map_pred_to_fdi(pred, jaw)
             stem = os.path.splitext(name)[0]
             with open(os.path.join(args.output, stem + ".json"), "w") as f:

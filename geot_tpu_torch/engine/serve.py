@@ -13,6 +13,15 @@ of the port's trainer, a state_dict file or a reference GeoT ``.pth``
 (``predict.read_weights``); a comma-separated list serves the ensemble of
 its members.
 
+    python -m geot_tpu_torch.engine.serve --artifact model.pt2 [--port P]
+
+``--artifact`` serves a forward exported by ``engine.export`` (weights,
+point count and serving topology baked in): no model code and no config,
+so it conflicts with ``--cfg``, ``--ckpt``, ``--fast`` and overrides, as in
+``geot_tpu``. With more than one local card (and no ``--artifact``),
+requests round-robin over one replica per card, each behind its own lock
+(``geot_tpu/engine/serve.py:134-145``).
+
 API:
   GET  /healthz                    -> {"status": "ok", "scans_served": N}
   GET  /metrics                    -> Prometheus text: requests by outcome,
@@ -40,7 +49,8 @@ import numpy as np
 import torch
 
 from ..core.config import FLAGSHIP_SEG_ARGS, EasyConfig
-from .predict import load_model, map_pred_to_fdi, predict_scan
+from .predict import load_model, local_devices, map_pred_to_fdi, \
+    predict_scan
 
 # a single oversized POST must not exhaust host memory (a 1M-point f32 .npy
 # is 12 MB), and a stalled upload must not pin a worker thread forever
@@ -103,30 +113,83 @@ class _Metrics:
             return "\n".join(lines) + "\n"
 
 
+class _ArtifactModel(torch.nn.Module):
+    """An exported forward (``engine.export``) in the shape ``predict_scan``
+    calls: ``model(batch)`` gives the logits of ``batch["pos"]`` and
+    ``batch["cls"]``; its parameters are the artifact's, on its device."""
+
+    def __init__(self, exported):
+        super().__init__()
+        self.fn = exported.module()
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.fn(batch["pos"], batch["cls"])
+
+
+def _artifact_model(artifact: str):
+    """``(model, num_points)`` of an artifact that serves one scan a
+    request: its inputs must be ``(pos (1, N, 3), cls (1, 1))``."""
+    from .export import input_specs, load_exported
+
+    exported = load_exported(artifact)
+    specs = [shape for shape, _ in input_specs(exported)]
+    if (len(specs) != 2 or len(specs[0]) != 3 or specs[0][-1] != 3
+            or specs[0][0] != 1 or specs[1] != (1, 1)):
+        raise ValueError(
+            f"artifact {artifact} must be an embed_params export with "
+            f"(pos (1,N,3), cls (1,1)) inputs (the endpoint serves one scan "
+            f"per request); got input specs {specs} - re-export with "
+            f"export_forward(..., embed_params=True, batch=1)")
+    return _ArtifactModel(exported), int(specs[0][1])
+
+
 class _Service:
-    """The model (or the ensemble's members) on its device, a lock
-    serialising scans across HTTP threads, and the request metrics."""
+    """The model (or the ensemble's members) on each device, one lock per
+    replica serialising its scans across HTTP threads, and the request
+    metrics. Requests round-robin over the replicas."""
 
     def __init__(self, seg_args: Optional[Dict[str, Any]] = None,
                  ckpt: "str | Sequence[str] | None" = None, seed: int = 0,
                  num_points: int = 16000,
                  device: "str | torch.device" = "cuda", warmup: bool = True,
-                 model_cfg: Optional[Dict[str, Any]] = None):
-        self.model = load_model(seg_args, ckpt, seed=seed, device=device,
-                                model_cfg=model_cfg)
-        self.num_points = num_points
-        self._lock = threading.Lock()
+                 model_cfg: Optional[Dict[str, Any]] = None,
+                 artifact: Optional[str] = None,
+                 devices: Optional[Sequence] = None):
+        if artifact is not None:
+            # the artifact holds the weights and the point count; it stays
+            # on the device it was exported for, as one replica
+            model, self.num_points = _artifact_model(artifact)
+            self.replicas = [(model, threading.Lock())]
+        else:
+            self.num_points = num_points
+            self.replicas = [
+                (load_model(seg_args, ckpt, seed=seed, device=d,
+                            model_cfg=model_cfg), threading.Lock())
+                for d in (devices or local_devices(device))]
+        self._rr = 0
+        self._rr_lock = threading.Lock()
         self.metrics = _Metrics()
         self.scans_served = 0
-        if warmup:   # build the kernels and touch every shape once
+        if warmup:   # build the kernels and touch every shape, each replica
             pts = np.random.default_rng(0).standard_normal((8192, 3))
-            self.predict(pts.astype(np.float32), jaw=0)
+            for _ in self.replicas:
+                self.predict(pts.astype(np.float32), jaw=0)
             self.scans_served = 0
 
+    @property
+    def model(self):
+        """The first replica's model."""
+        return self.replicas[0][0]
+
     def predict(self, points: np.ndarray, jaw: int):
-        with self._lock:
-            pred, _ = predict_scan(self.model, points, jaw=jaw,
+        with self._rr_lock:
+            i = self._rr
+            self._rr += 1
+        model, lock = self.replicas[i % len(self.replicas)]
+        with lock:
+            pred, _ = predict_scan(model, points, jaw=jaw,
                                    num_points=self.num_points)
+        with self._rr_lock:
             self.scans_served += 1
         return map_pred_to_fdi(pred, jaw)
 
@@ -229,14 +292,18 @@ def serve(seg_args: Optional[Dict[str, Any]] = None,
           ckpt: "str | Sequence[str] | None" = None, port: int = 8756,
           host: str = "127.0.0.1", seed: int = 0, num_points: int = 16000,
           device: "str | torch.device" = "cuda", warmup: bool = True,
-          model_cfg: Optional[Dict[str, Any]] = None
-          ) -> ThreadingHTTPServer:
+          model_cfg: Optional[Dict[str, Any]] = None,
+          artifact: Optional[str] = None,
+          devices: Optional[Sequence] = None) -> ThreadingHTTPServer:
     """Build the service of ``model_cfg`` (a config's ``model``; without
-    it a ``WholePartSeg`` of ``seg_args``, by default the flagship) and
-    return a started ``ThreadingHTTPServer`` (the caller owns
-    ``shutdown()``/``server_close()``; port 0 picks a free port)."""
+    it a ``WholePartSeg`` of ``seg_args``, by default the flagship), or of
+    an exported ``artifact``, and return a started ``ThreadingHTTPServer``
+    (the caller owns ``shutdown()``/``server_close()``; port 0 picks a
+    free port). ``devices`` lists the devices of the replicas (default:
+    ``local_devices(device)``)."""
     service = _Service(seg_args, ckpt, seed=seed, num_points=num_points,
-                       device=device, warmup=warmup, model_cfg=model_cfg)
+                       device=device, warmup=warmup, model_cfg=model_cfg,
+                       artifact=artifact, devices=devices)
     httpd = ThreadingHTTPServer((host, port), make_handler(service))
     httpd.service = service
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
@@ -273,7 +340,8 @@ def main(argv=None):
                              "comma-separate several for a mean-softmax "
                              "ensemble; seeded random weights without one")
     parser.add_argument("--artifact", default=None,
-                        help="an exported forward (not ported)")
+                        help="serve a forward exported by engine.export; "
+                             "no model code or config")
     parser.add_argument("--fast", action="store_true",
                         help="stratified-FPS pyramid (fast_pyramid=1024) + "
                              "fast_graph")
@@ -281,15 +349,19 @@ def main(argv=None):
     parser.add_argument("--port", type=int, default=8756)
     parser.add_argument("--host", default="127.0.0.1")
     args, opts = parser.parse_known_args(argv)
+    if args.artifact and (args.ckpt or args.fast or args.cfg or opts):
+        # the artifact bakes weights, shapes and serving mode at export
+        parser.error("--artifact conflicts with --cfg/--ckpt/--fast/"
+                     "overrides: those choices were baked in at export; "
+                     "re-export to change them")
     if args.artifact:
-        raise NotImplementedError(
-            "not ported: --artifact (serving an exported forward, "
-            "geot_tpu's engine/export.py; it needs the kernels registered "
-            "as torch.library custom ops so that torch.export can reach "
-            "them)")
-    model_cfg, num_points = serving_args(args.cfg, opts, args.fast)
-    httpd = serve(model_cfg=model_cfg, ckpt=args.ckpt, port=args.port,
-                  host=args.host, seed=args.seed, num_points=num_points)
+        httpd = serve(port=args.port, host=args.host,
+                      artifact=args.artifact)
+    else:
+        model_cfg, num_points = serving_args(args.cfg, opts, args.fast)
+        httpd = serve(model_cfg=model_cfg, ckpt=args.ckpt, port=args.port,
+                      host=args.host, seed=args.seed,
+                      num_points=num_points)
     print(f"serving on http://{args.host}:{httpd.server_address[1]} "
           f"(POST /predict, GET /healthz, GET /metrics)", flush=True)
     try:

@@ -24,6 +24,17 @@ statistics, ``ema_t``, the bank and the EMA shadow as they were; ``step``
 advances and the reported loss is 0. Its decision is the step's one host
 synchronisation, and there is none without the switch.
 
+Data parallelism (``parallel.dist``, world size > 1): each rank holds
+``batch_size / world`` rows of every global batch and runs the forward on
+them (BatchNorm takes the global batch's statistics); the logits and the
+batch are then gathered into the global batch on every rank, and each rank
+computes the whole loss, the NTM update, the pseudo-label statistics and
+the random draws on it, as ``geot_tpu``'s step does over its dp-sharded
+batch. A rank's backward gives the gradient through its own rows;
+``sum_gradients`` adds them up to the global batch's gradient, and the
+T-predictor's (computed whole by every rank) is averaged. ``ema_t`` and the
+bank are broadcast from rank 0, so the ranks stay bit-equal.
+
 The eval, confusion and bootstrap steps run the model in eval mode (running
 BatchNorm statistics, no dropout) under ``no_grad``; the two train steps
 put the student back in train mode.
@@ -38,6 +49,7 @@ import torch.nn.functional as F
 from ..losses import (build_criterion_from_cfg, contrast_loss_t,
                       feature_space_loss, identity_loss, threed_space_loss)
 from ..optim import set_learning_rate
+from ..parallel import dist
 from .pseudo_mask import pseudo_label_refine
 from .semi import apply_T, combine_T, ntm_update, pseudo_stats
 from .state import SemiTrainState, TrainState
@@ -85,6 +97,11 @@ def _finite(loss: torch.Tensor, modules) -> torch.Tensor:
         ok = ok & torch.isfinite(torch.nn.utils.get_total_norm(
             [p.grad for p in m.parameters()]))
     return ok
+
+
+def _gathered(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Every entry of a rank's batch gathered into the global batch."""
+    return {k: dist.gather(v) for k, v in batch.items()}
 
 
 def _buffers(module: torch.nn.Module) -> List[torch.Tensor]:
@@ -135,11 +152,14 @@ def make_supervised_step(cfg: Dict[str, Any]) -> Callable:
         model.train()
         saved = ([b.clone() for b in _buffers(model)] if skip_nonfinite
                  else None)
-        logits = _logits_of(model(batch_l, generator=state.generator))
-        loss = _sup_loss_fn(criterion, criterion_name, logits, batch_l)
+        logits = dist.gather(_logits_of(model(batch_l,
+                                              generator=state.generator)))
+        loss = _sup_loss_fn(criterion, criterion_name, logits,
+                            _gathered(batch_l))
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
         _zero_missing_grads([model])
+        dist.sum_gradients(model.parameters())
         loss = loss.detach()
         metrics = {"loss": loss, "sup_loss": loss,
                    "unsup_loss": torch.zeros_like(loss)}
@@ -266,8 +286,9 @@ def make_semi_step(cfg: Dict[str, Any]) -> Callable:
         if use_teacher:
             with torch.no_grad():
                 t_out = state.teacher(batch_u, if_teacher=True)
-                teacher_probs = torch.softmax(t_out[0], dim=-1)
-                teacher_feats = t_out[-1]
+                teacher_probs = dist.gather(torch.softmax(t_out[0], dim=-1))
+                if use_contrast:
+                    teacher_feats = dist.gather(t_out[-1])
 
         model.train()
         t_pred.train()
@@ -275,9 +296,13 @@ def make_semi_step(cfg: Dict[str, Any]) -> Callable:
         u0["T"] = state.ema_t
         logits, corr, sigma, feats = model(batch_l, u0=u0, fixmatch=True,
                                            generator=state.generator)
-        pred_l = logits[:b_l]
-        pred_u_strong = logits[b_l:b_l + b_u]
-        pred_u_weak = logits[b_l + b_u:]
+        # this rank's rows of the stacked batch, then the global batch
+        bl, bu = b_l // dist.world(), b_u // dist.world()
+        pred_l = dist.gather(logits[:bl])
+        pred_u_strong = dist.gather(logits[bl:bl + bu])
+        pred_u_weak = dist.gather(logits[bl + bu:])
+        corr, sigma = dist.replicated(corr), dist.replicated(sigma)
+        batch_l, batch_u = _gathered(batch_l), _gathered(batch_u)
         probs_w = (teacher_probs if use_teacher else
                    torch.softmax(pred_u_weak, dim=-1).detach())
         conf = probs_w.amax(dim=-1)
@@ -322,7 +347,8 @@ def make_semi_step(cfg: Dict[str, Any]) -> Callable:
         new_contrast = state.contrast
         if use_contrast and use_teacher:
             lc, new_contrast = contrast_loss_t(
-                state.contrast, feats[b_l:b_l + b_u], conf, teacher_feats,
+                state.contrast, dist.gather(feats[bl:bl + bu]), conf,
+                teacher_feats,
                 threshold=contrast_th, generator=state.generator,
                 draws=draws.get("contrast"))
             aux["contrast_loss"] = lc * contrast_w
@@ -333,6 +359,8 @@ def make_semi_step(cfg: Dict[str, Any]) -> Callable:
         state.t_opt.zero_grad(set_to_none=True)
         loss.backward()
         _zero_missing_grads([model, t_pred])
+        dist.sum_gradients(model.parameters())
+        dist.average_gradients(t_pred.parameters())
         loss = loss.detach()
 
         with torch.no_grad():
@@ -361,7 +389,11 @@ def make_semi_step(cfg: Dict[str, Any]) -> Callable:
         state.opt.step()
         state.t_opt.step()
         _ema_update(state, ema_decay)
-        state.ema_t = ntm.ema_t
+        # every rank computed them from the same global tensors; rank 0's
+        # bits make them equal whatever the kernels' summation order
+        state.ema_t = dist.broadcast_(ntm.ema_t)
+        dist.broadcast_(new_contrast.queue)
+        dist.broadcast_(new_contrast.ptr)
         state.contrast = new_contrast
         state.step += 1
         return metrics

@@ -19,6 +19,16 @@ of a ``WholePartSeg`` student. Any other trains supervised: a
 ``PointMLPPartSegmentor``), no teacher, T-predictor, NTM or ``cm``, and
 every epoch supervised.
 
+Data parallelism: ``python -m geot_tpu_torch.engine.launch --nprocs N --
+--cfg ...`` starts N ranks (``engine.launch``), or a config's
+``jax_distributed`` dict names the rendezvous (``parallel/dist.py``). Each
+rank loads ``batch_size / N`` rows of every global train batch and runs the
+step of ``engine.steps`` over the global batch; validation and test score
+the whole split on every rank; only rank 0 writes scalars, logs, step
+times and checkpoints, and every rank waits for a checkpoint before it can
+read it. ``distributed: False`` keeps one process. One process never uses
+more than its one device (``launch`` is the way to use several cards).
+
 ``main`` runs a mode:
 - ``train``: in semi mode, bootstrap the class-mean matrix ``cm``, then
   per epoch the supervised step (epochs up to ``supervised_epochs``) or
@@ -61,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import json
 import logging
 import os
 import signal
@@ -79,7 +90,9 @@ from ..core.random import set_random_seed
 from ..data.build import (MODEL_KEYS, build_dataloader_from_cfg,
                           semi_keys, semi_pairs, to_device)
 from ..data.transforms import build_transforms_from_cfg
+from ..ops import LAUNCHES
 from ..optim import build_scheduler_from_cfg
+from ..parallel import dist
 from .checkpoint import (ckpt_path, graft_state_dict, is_port_checkpoint,
                          load_checkpoint, load_variables, read_weights_file,
                          save_checkpoint, seg_t_depth, seg_t_weights,
@@ -123,6 +136,8 @@ def cal_mean_feature(cm_step: Callable, model: torch.nn.Module,
         sums, cnts = cm_step(model, to_device(batch, MODEL_KEYS, device))
         total += sums.double().cpu().numpy()
         counts += cnts.double().cpu().numpy()
+    total, counts = _summed_over_ranks(total, device), \
+        _summed_over_ranks(counts, device)
     cm = total / np.maximum(counts[:, None], 1.0)
     return torch.from_numpy(cm.astype(np.float32)).to(device)
 
@@ -138,8 +153,62 @@ def cal_confusion(confusion_step: Callable, model: torch.nn.Module,
     for batch in loader:
         total += confusion_step(model, to_device(batch, MODEL_KEYS, device)
                                 ).double().cpu().numpy()
+    total = _summed_over_ranks(total, device)
     cm = total / (total.sum(1, keepdims=True) + 0.001)
     return torch.from_numpy(cm.astype(np.float32)).to(device)
+
+
+def _summed_over_ranks(a: np.ndarray, device) -> np.ndarray:
+    """A host array summed over the ranks (each rank's loader holds its
+    shard of the split)."""
+    if dist.world() == 1:
+        return a
+    t = dist.all_reduce_sum_(torch.from_numpy(a).to(device))
+    return t.cpu().numpy()
+
+
+def _rank0_metrics(res: Dict[str, float], device) -> Dict[str, float]:
+    """Rank 0's values of a metrics dict on every rank, so that every rank
+    makes rank 0's best-checkpoint choices."""
+    if dist.world() == 1:
+        return res
+    keys = sorted(res)
+    t = torch.tensor([float(res[k]) for k in keys], dtype=torch.float64,
+                     device=device)
+    dist.broadcast_(t)
+    return dict(zip(keys, t.tolist()))
+
+
+def _state_tensors(state) -> list:
+    """The tensors a step updates: the model's weights and buffers and, in
+    a semi state, the T-predictor's, ``ema_t`` and ``cm``."""
+    out = list(state.model.state_dict().values())
+    if isinstance(state, SemiTrainState):
+        out += list(state.t_predictor.state_dict().values())
+        out += [state.ema_t, state.cm]
+    return out
+
+
+def _launches_by_rank(before: Dict[str, int], device) -> list:
+    """Each rank's kernel launches since ``before`` (a copy of
+    ``ops.LAUNCHES``), in rank order: every rank fills its own row of a
+    zero table and one all-reduce sums them."""
+    names = list(before)
+    rows = torch.zeros(dist.world(), len(names), dtype=torch.float64,
+                       device=device)
+    rows[dist.rank()] = torch.tensor(
+        [LAUNCHES[k] - before[k] for k in names], dtype=torch.float64)
+    dist.all_reduce_sum_(rows)
+    return [{k: int(v) for k, v in zip(names, row)} for row in rows.tolist()]
+
+
+def _draw_seed(device) -> int:
+    """A run seed for a config without one, drawn on rank 0 once the
+    process group has started and sent to every rank, so that every rank
+    builds the same weights and draws (``geot_tpu/engine/train.py:706``
+    draws it before the runtime joins)."""
+    return dist.broadcast_object(int(np.random.randint(1, 10000)),
+                                 dist.rank_device(device))
 
 
 def refuse_unported(cfg) -> None:
@@ -160,8 +229,6 @@ def refuse_unported(cfg) -> None:
         "model_t.segmentor_args.dtype": training and reduced(model_t),
         "profile_epoch": int(cfg.get("profile_epoch", 0) or 0) > 0,
         "wandb.use_wandb": bool((cfg.get("wandb") or {}).get("use_wandb")),
-        "jax_distributed": bool(cfg.get("jax_distributed")),
-        "distributed": cfg.get("distributed") is True,
         "tp": int(cfg.get("tp", 1) or 1) > 1,
         "sp": int(cfg.get("sp", 1) or 1) > 1,
         "fsdp": bool(cfg.get("fsdp")),
@@ -181,8 +248,8 @@ def refuse_unported(cfg) -> None:
     if on:
         raise NotImplementedError(
             f"not ported: {on[0]}={_get(cfg, on[0])!r} (the port trains "
-            f"{', '.join(TRAINED_MODELS)} in float32 on one device, "
-            f"semi-supervised only WholePartSeg)")
+            f"{', '.join(TRAINED_MODELS)} in float32, data parallel "
+            f"only, semi-supervised only WholePartSeg)")
 
 
 def semi_mode(cfg) -> bool:
@@ -292,16 +359,23 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     ``test`` metrics, ``best`` and, after a signal, ``preempted_at``."""
     device = resolve_device(device)
     refuse_unported(cfg)
+    if cfg.get("distributed", "auto") is not False:
+        dist.init(cfg, device)
+    device = dist.rank_device(device)
+    primary = dist.is_primary()
+    world, rank = dist.world(), dist.rank()
     mode = str(cfg.get("mode") or "train")
     eval_only = mode in EVAL_MODES
     semi = semi_mode(cfg)
     # built first: it refuses the step's unported switches
     semi_step = make_semi_step(cfg) if semi and not eval_only else None
-    setup_logger_dist(cfg.get("log_path"))
+    setup_logger_dist(cfg.get("log_path"), rank)
     logger = logging.getLogger()
     seed = int(cfg.get("seed", 0))
     set_random_seed(seed)
-    writer = SummaryWriter(cfg.run_dir) if cfg.get("run_dir") else None
+    # one writer: the scalars are rank 0's
+    writer = (SummaryWriter(cfg.run_dir) if cfg.get("run_dir") and primary
+              else None)
     num_classes = int(cfg.num_classes)
     tf = cfg.get("datatransforms")
     num_votes = int(cfg.get("num_votes", 0) or 0)
@@ -311,8 +385,14 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
                          f"pipeline (datatransforms.vote)")
 
     def loader(batch_size, ds_cfg, split):
+        # train loaders are sharded over the ranks; val and test are not,
+        # so every rank scores the whole split alike
+        # (geot_tpu/engine/train.py:188-208)
+        shards = world if split == "train" else 1
         return build_dataloader_from_cfg(int(batch_size), ds_cfg, tf,
-                                         split=split, seed=seed)
+                                         split=split, seed=seed,
+                                         num_shards=shards,
+                                         shard_index=rank % shards)
 
     val_loader = loader(cfg.get("batch_size_val", 2), cfg.dataset_l, "val")
     test_loader = loader(cfg.get("batch_size_test", 2), cfg.dataset_l, "test")
@@ -324,7 +404,9 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
                 f"val={len(val_loader.dataset)} "
                 f"test={len(test_loader.dataset)}"
                 + (f" train_u={len(train_loader_u.dataset)}" if semi
-                   else "") + f"; device {device}")
+                   else "") + f"; device {device}"
+                + (f"; rank {rank} of {world} ({dist.backend()})"
+                   if world > 1 else ""))
     eval_step = make_eval_step()
 
     pretrained = cfg.get("pretrained_path")
@@ -352,9 +434,10 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
         _load_pretrained(model, weights, str(pretrained), mode, eval_only,
                          logger)
         model.to(device)
-        res = validate(eval_step, model, test_loader if split == "test"
-                       else val_loader, cfg, logger, num_votes=num_votes,
-                       data_transform=vote_t, tag=split)
+        res = _rank0_metrics(validate(
+            eval_step, model, test_loader if split == "test" else
+            val_loader, cfg, logger, num_votes=num_votes,
+            data_transform=vote_t, tag=split), device)
         if writer:
             for k, v in res.items():
                 writer.add_scalar(f"{mode}_{k}", v, 0)
@@ -422,8 +505,16 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
             state.cm = cal_mean_feature(make_cm_step(), state.model,
                                         train_loader_l, num_classes, device)
 
+    # every rank starts from the same state (a fresh one from the seed, or
+    # the checkpoint it resumed from)
+    dist.assert_same(_state_tensors(state), "states at the start")
     timer = StepTimer(os.path.join(cfg.run_dir, "step_times.jsonl")
-                      if cfg.get("run_dir") else None)
+                      if cfg.get("run_dir") and primary else None)
+    # debug knob (geot_tpu's): per-step losses at full precision, a host
+    # sync per step, the step's milliseconds to that sync, and each rank's
+    # kernel launches in the step; under data parallelism also the check
+    # that every rank holds the same state after each step
+    step_log = bool(os.environ.get("GEOT_LOG_STEP_LOSS"))
     print_freq = int(cfg.get("print_freq", 0) or 0)
     test_model = None
 
@@ -467,12 +558,30 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
                 run = (lambda b: sup_step(
                     state, to_device(b, MODEL_KEYS, device), lr))
             for batch in batches:
+                if step_log:
+                    before = dict(LAUNCHES)
+                    t_step = time.perf_counter()
                 metrics = run(batch)
                 # on the device: a fetch per step would make the host wait
                 # for every step
                 sums = {k: sums[k] + v if k in sums else v.clone()
                         for k, v in metrics.items()}
                 n += 1
+                if step_log:
+                    loss, sup, unsup = (float(metrics[k]) for k in
+                                        ("loss", "sup_loss", "unsup_loss"))
+                    # from the batch's copy to the device to the losses on
+                    # the host, which waits for the step
+                    step_ms = (time.perf_counter() - t_step) * 1e3
+                    logger.info(f"steploss {epoch}/{n} {loss:.9f} "
+                                f"sup {sup:.9f} unsup {unsup:.9f} "
+                                f"ms {step_ms:.3f}")
+                    logger.info(f"launches step {state.step} " + json.dumps(
+                        _launches_by_rank(before, device)))
+                    if world > 1:
+                        dist.assert_same(_state_tensors(state),
+                                         f"states after step {state.step}")
+                        logger.info(f"ranks equal after step {state.step}")
                 timer.tick(state.step, epoch=epoch)
                 if print_freq and n % print_freq == 0:
                     logger.info(f"epoch {epoch} step {n} dispatched "
@@ -519,15 +628,17 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
             val_freq = int(cfg.get("val_freq", 250) or 0)
             if (val_freq and epoch % val_freq == 0) or epoch == epochs:
                 ema_on = bool(state.ema_params)
-                res = validate(eval_step, state.eval_model(), val_loader,
-                               cfg, logger)
+                res = _rank0_metrics(validate(
+                    eval_step, state.eval_model(), val_loader, cfg, logger),
+                    device)
                 results["val"] = res
                 # the candidate for best: the better of the EMA and raw
                 # weights (geot_tpu/engine/train.py:601-636)
                 sel, sel_tree = res, ("ema" if ema_on else "raw")
                 if ema_on:
-                    res_raw = validate(eval_step, state.model, val_loader,
-                                       cfg, logger, tag="val_raw")
+                    res_raw = _rank0_metrics(validate(
+                        eval_step, state.model, val_loader, cfg, logger,
+                        tag="val_raw"), device)
                     results["val_raw"] = res_raw
                     if writer:
                         for k, v in res_raw.items():
@@ -605,18 +716,22 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
 
 
 def parse_and_run(argv=None) -> Dict[str, Any]:
-    """``--cfg <yaml> [k=v | --k v ...]``: load, override, set up the run
-    directory, write ``cfg.yaml`` and run ``main`` on ``cfg.device``
-    (default ``cuda``)."""
+    """``--cfg <yaml> [k=v | --k v ...]``: load, override, join the process
+    group (``parallel.dist.init``; a no-op for one process), draw the seed
+    if the config has none, set up the run directory, write ``cfg.yaml``
+    and run ``main`` on ``cfg.device`` (default ``cuda``)."""
     parser = argparse.ArgumentParser("geot_tpu_torch segmentation training")
     parser.add_argument("--cfg", type=str, required=True)
     args, opts = parser.parse_known_args(argv)
     cfg = EasyConfig()
     cfg.load(args.cfg, recursive=True)
     cfg.update(opts)
-    if cfg.get("seed") is None:
-        cfg.seed = int(np.random.randint(1, 10000))
     refuse_unported(cfg)
+    device = resolve_device(cfg.get("device", "cuda"))
+    if cfg.get("distributed", "auto") is not False:
+        dist.init(cfg, device)
+    if cfg.get("seed") is None:
+        cfg.seed = _draw_seed(device)
 
     path = os.path.abspath(args.cfg)
     cfg.task_name = os.path.basename(os.path.dirname(path))
@@ -631,6 +746,9 @@ def parse_and_run(argv=None) -> Dict[str, Any]:
         os.makedirs(cfg.ckpt_dir, exist_ok=True)
     elif mode == "resume" or mode in EVAL_MODES:
         resume_exp_directory(cfg, pretrained_path=cfg.get("pretrained_path"))
+    elif dist.world() > 1:
+        raise ValueError("several ranks need one shared run_dir=<dir> "
+                         "(engine.launch passes one)")
     else:
         generate_exp_directory(cfg, tags)
     # an evaluation in the run's directory keeps the run's cfg.yaml
@@ -638,10 +756,12 @@ def parse_and_run(argv=None) -> Dict[str, Any]:
     if mode in EVAL_MODES and os.path.exists(os.path.join(cfg.run_dir,
                                                           "cfg.yaml")):
         cfg_name = f"cfg_{mode}.yaml"
-    with open(os.path.join(cfg.run_dir, cfg_name), "w") as f:
-        f.write(dump_yaml(cfg.dict()))
-    return main(cfg, device=cfg.get("device", "cuda"))
+    if dist.is_primary():
+        with open(os.path.join(cfg.run_dir, cfg_name), "w") as f:
+            f.write(dump_yaml(cfg.dict()))
+    return main(cfg, device=device)
 
 
 if __name__ == "__main__":
     parse_and_run()
+    dist.shutdown()

@@ -37,6 +37,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ...parallel import dist
+
 DtypeArg = Union[None, str, torch.dtype]
 
 
@@ -146,7 +148,12 @@ class BatchNorm(nn.BatchNorm1d):
     the running statistics as flax ``nn.BatchNorm(momentum=0.9)`` does
     (``geot_tpu/models/layers/common.py:59-69``): ``running = 0.9 * running
     + 0.1 * batch`` with the BIASED batch variance, where torch's own
-    ``BatchNorm1d`` would take the unbiased one. Eval mode is torch's."""
+    ``BatchNorm1d`` would take the unbiased one. Under data parallelism
+    (``parallel.dist``, world size > 1) the batch is the global one: the
+    statistics are those of every rank's rows, as BatchNorm over a
+    dp-sharded batch is in ``geot_tpu`` (``parallel/mesh.py:6-10``), and
+    the running statistics update alike on every rank. Eval mode is
+    torch's."""
 
     def __init__(self, num_features: int, dtype: DtypeArg = None):
         super().__init__(num_features)
@@ -158,8 +165,19 @@ class BatchNorm(nn.BatchNorm1d):
         if not self.training:
             y = super().forward(x2)
         else:
-            mean = x2.mean(dim=0)
-            var = ((x2 * x2).mean(dim=0) - mean * mean).clamp_min(0.0)
+            if dist.world() > 1:
+                # the global batch's statistics (SyncBN): count, sum and
+                # sum of squares all-reduced, with the gradient
+                stats = dist.all_reduce_sum(torch.cat([
+                    x2.sum(dim=0), (x2 * x2).sum(dim=0),
+                    x2.new_full((1,), x2.shape[0])]))
+                C = x2.shape[1]
+                n = stats[2 * C]
+                mean = stats[:C] / n
+                var = (stats[C:2 * C] / n - mean * mean).clamp_min(0.0)
+            else:
+                mean = x2.mean(dim=0)
+                var = ((x2 * x2).mean(dim=0) - mean * mean).clamp_min(0.0)
             y = (x2 - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
                 + self.bias
             with torch.no_grad():
@@ -224,9 +242,13 @@ class Dropout(nn.Module):
 
 
 def _keep_mask(x, shape, keep, generator):
-    """Keep with probability ``keep`` and scale by 1 / keep, as flax does."""
-    mask = torch.rand(shape, dtype=x.dtype, device=x.device,
-                      generator=generator) < keep
+    """Keep with probability ``keep`` and scale by 1 / keep, as flax does.
+    Under data parallelism every rank draws the masks of all ranks' blocks
+    and keeps its own, so the ranks' generators stay in step (their later
+    draws, on the global batch, are the same) and their masks differ."""
+    draws = [torch.rand(shape, dtype=x.dtype, device=x.device,
+                        generator=generator) for _ in range(dist.world())]
+    mask = draws[dist.rank()] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

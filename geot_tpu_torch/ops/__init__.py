@@ -1,7 +1,10 @@
 """Point ops. ``fps``, ``fps_bucket``, ``knn_small_k`` and
 ``knn_small_k_pruned`` launch the CUDA kernels for CUDA tensors (``fps_block``
 and ``knn_small_k_unsplit`` the first versions of the first and third);
-every op runs its plain PyTorch version for CPU tensors. ``ball_query``
+every op runs its plain PyTorch version for CPU tensors. ``fps`` and
+``knn_small_k`` are the custom ops ``geot::fps`` and ``geot::knn_small_k``
+(importing this package registers them); the pruned kernels, on no path,
+stay plain ``ctypes`` wrappers. ``ball_query``
 is plain PyTorch on both, as ``geot_tpu`` computes it in XLA."""
 from ._build import LAUNCHES, reset_launches
 from .ball_query import ball_query

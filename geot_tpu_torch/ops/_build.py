@@ -8,6 +8,12 @@ a stale build is never loaded; objects go to a directory of the process's
 own and the library is renamed into place, so no lock file is ever needed.
 The build runs at first use, from the wrapper that first launches a kernel.
 
+``csrc/obj_loader.cpp`` is host code: ``native_library()`` builds it with
+``g++ -O3 -shared -fPIC`` by the same route (hashed name, private object
+directory, rename into place), at first use, on any machine with a C++
+compiler. A failed build raises with the compiler's output; nothing falls
+back to another parser.
+
 Launch counts: each kernel wrapper adds one to ``LAUNCHES[name]`` where it
 launches its kernel and nowhere else, so a run can show that its main path
 went through the kernels.
@@ -34,12 +40,18 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+NATIVE_SOURCES = (_PKG / "csrc" / "obj_loader.cpp",)
+# the host compiler of ``native_library()``
+CXX = "g++"
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
 # one count per kernel, named after its source in csrc/
 LAUNCHES = {"fps": 0, "fps_cluster": 0, "knn_small_k": 0, "knn_split": 0,
             "fps_bucket": 0, "knn_small_k_pruned": 0}
 
 _lock = threading.Lock()
 _lib = None
+_native_lib = None
 _build_info: dict = {}
 
 
@@ -58,14 +70,70 @@ def _nvcc() -> str:
                        "cannot be built")
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def _hashed_path(stem: str, sources, flags) -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libgeot_kernels_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    return _hashed_path("libgeot_kernels", SOURCES, NVCC_FLAGS)
+
+
+def native_library_path() -> Path:
+    """Where the host library of ``NATIVE_SOURCES`` lives."""
+    return _hashed_path("libgeot_native", NATIVE_SOURCES, (CXX, *CXX_FLAGS))
+
+
+def build_native() -> dict:
+    """Compile the host library if it is not built yet; ``{"path",
+    "seconds", "log"}`` as ``build``. Raises ``RuntimeError`` with the
+    compiler's output when the compiler is missing or fails."""
+    path = native_library_path()
+    if path.exists():
+        return {"path": str(path), "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp_dir = BUILD_DIR / f"{path.stem}.{os.getpid()}.tmp"
+    tmp_dir.mkdir(exist_ok=True)
+    tmp = tmp_dir / path.name
+    cmd = [CXX, *CXX_FLAGS, "-o", str(tmp), *map(str, NATIVE_SOURCES)]
+    t0 = time.perf_counter()
+    try:
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=600)
+        except OSError as e:
+            raise RuntimeError(f"the host compiler did not run: "
+                               f"{' '.join(cmd)}\n{e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"{CXX} failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    return {"path": str(path), "seconds": time.perf_counter() - t0,
+            "log": proc.stdout + proc.stderr}
+
+
+def native_library() -> ctypes.CDLL:
+    """The loaded host library (``obj_count_vertices``,
+    ``obj_load_vertices``), built first if needed."""
+    global _native_lib
+    with _lock:
+        if _native_lib is None:
+            lib = ctypes.CDLL(build_native()["path"])
+            lib.obj_count_vertices.restype = ctypes.c_long
+            lib.obj_count_vertices.argtypes = [ctypes.c_char_p]
+            lib.obj_load_vertices.restype = ctypes.c_long
+            lib.obj_load_vertices.argtypes = [
+                ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
+                ctypes.c_long]
+            _native_lib = lib
+    return _native_lib
 
 
 def build() -> dict:

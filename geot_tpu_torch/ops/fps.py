@@ -24,7 +24,6 @@ when their box proves no min-distance in them can change.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, NamedTuple
 
 import numpy as np
@@ -140,16 +139,38 @@ def card_cluster_size(device: torch.device, batch: int) -> int:
 def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """(B, N, 3) float32 -> (B, npoint) int32 indices; idx[:, 0] == 0.
 
-    A CUDA tensor goes to the cluster kernel or, by ``fps_plan``, to the
-    one-block kernel; a CPU tensor to ``fps_ref``."""
+    The custom op ``geot::fps``: a CUDA tensor goes to the cluster kernel
+    or, by ``fps_plan`` (chosen inside the op at run time), to the
+    one-block kernel; a CPU tensor to ``fps_ref``; another device
+    raises. ``torch.export`` keeps the op in the exported graph."""
+    if xyz.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fps: unsupported device {xyz.device}")
+    return torch.ops.geot.fps(xyz, npoint)
+
+
+@torch.library.custom_op("geot::fps", mutates_args=())
+def _fps_op(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    return fps_direct(xyz, npoint)
+
+
+def fps_direct(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """What ``geot::fps`` runs, called without the op's dispatch (for
+    timing the dispatch)."""
     if xyz.device.type == "cpu":
         return fps_ref(xyz, npoint)
     _check_fps_args("fps", xyz, npoint)
     B, N, _ = xyz.shape
     plan = fps_plan(N, card_cluster_size(xyz.device, B))
-    if plan.route == "fps":
-        return fps_block(xyz, npoint)
-    return fps_cluster(xyz, npoint, plan)
+    # the launch goes to the current card: make it the tensor's
+    with torch.cuda.device(xyz.device):
+        if plan.route == "fps":
+            return fps_block(xyz, npoint)
+        return fps_cluster(xyz, npoint, plan)
+
+
+@_fps_op.register_fake
+def _fps_fake(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)
 
 
 def fps_cluster(xyz: torch.Tensor, npoint: int, plan: FpsPlan
@@ -226,11 +247,23 @@ def _bitrev_schedule(n: int) -> np.ndarray:
     return rev[rev < n]
 
 
-@functools.lru_cache(maxsize=16)
+_BITREV: Dict[tuple, torch.Tensor] = {}
+
+
 def _bitrev_on(n: int, device: torch.device) -> torch.Tensor:
     """``_bitrev_schedule(n)`` on ``device``, uploaded once: a copy from
-    pageable host memory would wait for the device's queue on every call."""
-    return torch.from_numpy(_bitrev_schedule(n)).to(device)
+    pageable host memory would wait for the device's queue on every call.
+    Under ``torch.export`` a cached schedule is a real tensor on the
+    device, which the exported program keeps as a constant there (so
+    ``export_forward`` runs the model once before tracing); one made
+    during the trace is not cached."""
+    key = (n, torch.device(device))
+    sched = _BITREV.get(key)
+    if sched is None:
+        sched = torch.from_numpy(_bitrev_schedule(n)).to(device)
+        if not torch.compiler.is_compiling():
+            _BITREV[key] = sched
+    return sched
 
 
 def fps_stratified(xyz: torch.Tensor, npoint: int, fps_prefix: int,

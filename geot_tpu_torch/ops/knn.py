@@ -133,8 +133,25 @@ def knn_small_k(query: torch.Tensor, support: torch.Tensor, k: int):
     """Exact kNN for 1 <= k <= 4 on xyz: squared d2 and int32 idx, each
     (B, Q, k), ascending, ties to the smaller index.
 
-    A CUDA tensor goes to the split kernel, a CPU tensor to
-    ``knn_small_k_ref``."""
+    The custom op ``geot::knn_small_k``: a CUDA tensor goes to the split
+    kernel (``knn_split_plan`` chosen inside the op at run time), a CPU
+    tensor to ``knn_small_k_ref``; another device raises.
+    ``torch.export`` keeps the op in the exported graph."""
+    for t in (query, support):
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"knn_small_k: unsupported device {t.device}")
+    return torch.ops.geot.knn_small_k(query, support, k)
+
+
+@torch.library.custom_op("geot::knn_small_k", mutates_args=())
+def _knn_small_k_op(query: torch.Tensor, support: torch.Tensor,
+                    k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return knn_small_k_direct(query, support, k)
+
+
+def knn_small_k_direct(query: torch.Tensor, support: torch.Tensor, k: int):
+    """What ``geot::knn_small_k`` runs, called without the op's dispatch
+    (for timing the dispatch)."""
     if query.device.type == "cpu" and support.device.type == "cpu":
         return knn_small_k_ref(query, support, k)
     _check_small_k("knn_small_k", query, support, k)
@@ -150,13 +167,22 @@ def knn_small_k(query: torch.Tensor, support: torch.Tensor, k: int):
                               device=query.device)
         sd, si = scratch[0].view(torch.float32), scratch[1]
     stream = torch.cuda.current_stream(query.device).cuda_stream
-    rc = lib.geot_knn_split(query.data_ptr(), support.data_ptr(),
-                            d2.data_ptr(), idx.data_ptr(),
-                            sd.data_ptr() if sd is not None else None,
-                            si.data_ptr() if si is not None else None,
-                            B, Q, N, k, S, split_len, stream)
+    # the launch goes to the current card: make it the tensors'
+    with torch.cuda.device(query.device):
+        rc = lib.geot_knn_split(query.data_ptr(), support.data_ptr(),
+                                d2.data_ptr(), idx.data_ptr(),
+                                sd.data_ptr() if sd is not None else None,
+                                si.data_ptr() if si is not None else None,
+                                B, Q, N, k, S, split_len, stream)
     _build.check_launch("knn_split", rc)
     return d2, idx
+
+
+@_knn_small_k_op.register_fake
+def _knn_small_k_fake(query: torch.Tensor, support: torch.Tensor, k: int):
+    B, Q = query.shape[:2]
+    return (query.new_empty((B, Q, k), dtype=torch.float32),
+            query.new_empty((B, Q, k), dtype=torch.int32))
 
 
 def knn_small_k_unsplit(query: torch.Tensor, support: torch.Tensor, k: int):
@@ -263,12 +289,14 @@ def knn(query: torch.Tensor, support: torch.Tensor, k: int,
     """Batched exact kNN: (B, Q, C), (B, N, C) -> (dist, idx), each
     (B, Q, k), ascending; idx int32. ``squared`` returns squared distances.
 
-    k <= 4 on xyz with Q >= 128 on a CUDA tensor runs the small-k kernel
-    (``geot_tpu/ops/knn.py:113-120``); everything else the tiled path."""
+    k <= 4 on xyz with Q >= 128 goes through ``knn_small_k`` (the small-k
+    kernel on a CUDA tensor, ``geot_tpu/ops/knn.py:113-120``; its plain
+    version, the same tiled search, on the CPU); everything else the tiled
+    path."""
     query = query.float().contiguous()
     support = support.float().contiguous()
     if k <= 4 and query.shape[-1] == 3 and query.shape[1] >= 128 \
-            and query.is_cuda:
+            and support.shape[1] >= k:
         d2, idx = knn_small_k(query, support, k)
     else:
         d2, idx = _knn_tiled(query, support, k, tile)

@@ -347,5 +347,7 @@ def test_serve_cli_takes_a_config_and_fast_and_refuses_an_artifact():
     args = model["segmentor_args"]
     assert (args["trans_dim"], args["dtype"], n) == (48, "bfloat16", 16000)
     assert "fast_pyramid" not in args
-    with pytest.raises(NotImplementedError, match="--artifact"):
-        tserve.main(["--artifact", "forward.pt2"])
+    # an artifact bakes the topology in: --fast with it is refused, as in
+    # geot_tpu (tests/test_torch_export.py serves artifacts)
+    with pytest.raises(SystemExit):
+        tserve.main(["--artifact", "forward.pt2", "--fast"])

@@ -676,3 +676,125 @@ def test_zoo_step_on_the_card_matches_the_cpu(cuda, name):
     for k, ref in gc.items():
         scale = max(float(ref.abs().max()), 1e-6 * gmax)
         assert float((gg[k] - ref).abs().max()) <= 1e-6 * scale, k
+
+
+# --- the custom ops, the exported forward and two ranks on the card --------
+
+@pytest.mark.parametrize("B,N,npoint", [(1, 16000, 8192), (2, 4000, 1000)])
+def test_custom_fps_op_is_the_direct_kernel_call(cuda, B, N, npoint):
+    from geot_tpu_torch.ops.fps import fps_direct
+
+    xyz = _cloud(3, (B, N, 3)).to(cuda)
+    n0 = dict(ops.LAUNCHES)
+    got = torch.ops.geot.fps(xyz, npoint)
+    assert sum(ops.LAUNCHES.values()) == sum(n0.values()) + 1
+    assert torch.equal(got, fps_direct(xyz, npoint))
+    assert torch.equal(got, ops.fps_ref(xyz, npoint))
+
+
+@pytest.mark.parametrize("Q,N,k", [(4096, 512, 3), (16000, 8192, 4),
+                                   (300, 300, 1)])
+def test_custom_knn_op_is_the_direct_kernel_call(cuda, Q, N, k):
+    from geot_tpu_torch.ops.knn import knn_small_k_direct
+
+    q, s = _cloud(4, (2, Q, 3)).to(cuda), _cloud(5, (2, N, 3)).to(cuda)
+    n0 = ops.LAUNCHES["knn_split"]
+    d, i = torch.ops.geot.knn_small_k(q, s, k)
+    assert ops.LAUNCHES["knn_split"] == n0 + 1
+    d_d, i_d = knn_small_k_direct(q, s, k)
+    assert torch.equal(d, d_d) and torch.equal(i, i_d)
+    d_r, i_r = ops.knn_small_k_ref(q, s, k)
+    assert torch.equal(d, d_r) and torch.equal(i, i_r)
+
+
+def test_export_round_trip_on_the_card(cuda, tmp_path):
+    """The small model exported on the card: the artifact's logits and
+    launches equal the eager forward's."""
+    from geot_tpu_torch.engine.export import export_forward, load_forward
+
+    model = load_model(dict(SMALL_ARGS, drop_path_rate=0.0), device=cuda)
+    pos = _cloud(6, (1, 256, 3)).to(cuda)
+    cls = torch.zeros((1, 1), dtype=torch.long, device=cuda)
+    with torch.no_grad():
+        n0 = dict(ops.LAUNCHES)
+        want = model({"pos": pos, "x": pos, "cls": cls})[0]
+        eager = {k: ops.LAUNCHES[k] - n0[k] for k in n0}
+    path = export_forward(model, n_points=256, batch=1,
+                          out=str(tmp_path / "m.pt2"))
+    fwd = load_forward(path)
+    with torch.no_grad():
+        n0 = dict(ops.LAUNCHES)
+        got = fwd(pos, cls)
+        launched = {k: ops.LAUNCHES[k] - n0[k] for k in n0}
+    assert launched == eager and eager["fps_cluster"] == 1
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_two_rank_gloo_step_on_one_card(cuda, tmp_path):
+    """Two ranks on cuda:0 over gloo, one semi step of the small config on
+    1 + 1 + 1 clouds each: the ranks end bit-equal, and against one process
+    on the 2 + 2 + 2 global batch their losses agree within 1e-4 and
+    AdamW's first moments (the summed gradients) tensor by tensor within
+    5e-2 of the tensor's largest entry, floored at 1e-3 of the largest
+    (``tests/test_torch_dist.py``'s CPU bounds)."""
+    import os
+    import subprocess
+    import sys
+
+    from geot_tpu_torch import FLAGSHIP_SEMI_CFG
+    from geot_tpu_torch.data import build as tdata_build
+    from geot_tpu_torch.engine.launch import find_free_port
+    from geot_tpu_torch.engine.state import SemiTrainState
+    from geot_tpu_torch.engine.steps import make_semi_step
+
+    cfg = dict(FLAGSHIP_SEMI_CFG, num_points=256)
+    args = dict(SMALL_ARGS, drop_path_rate=0.0, head_dropout=0.0)
+    l, u = tdata_build.build_semi_loaders(cfg)
+    l.set_epoch(1)
+    u.set_epoch(1)
+    bl, bu = next(tdata_build.semi_pairs(l, u))
+    state = SemiTrainState.create(cfg, seg_args=args, device=cuda)
+    init = {"model": state.model.state_dict(),
+            "teacher": state.teacher.state_dict(),
+            "t_predictor": state.t_predictor.state_dict(),
+            "ema_t": state.ema_t, "cm": state.cm}
+    batches = [(tdata_build.to_device(bl, tdata_build.MODEL_KEYS, "cpu"),
+                tdata_build.to_device(bu, tdata_build.SEMI_KEYS, "cpu"))]
+    torch.save({"cfg": cfg, "seg_args": args, "lr": 1e-3, "batches": batches,
+                "state": {k: (v.cpu() if torch.is_tensor(v) else
+                              {n: t.cpu() for n, t in v.items()})
+                          for k, v in init.items()}}, tmp_path / "in.pt")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, MASTER_ADDR="localhost", WORLD_SIZE="2",
+               MASTER_PORT=str(find_free_port()), GEOT_DIST_DEVICE="cuda",
+               # one card visible: both ranks on it, so over gloo
+               CUDA_VISIBLE_DEVICES=os.environ.get(
+                   "CUDA_VISIBLE_DEVICES", "0").split(",")[0])
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests", "torch_dist_worker.py"),
+         "step", str(tmp_path / "in.pt"), str(tmp_path)], cwd=root,
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    for p in procs:
+        out = p.communicate(timeout=600)[0]
+        assert p.returncode == 0, out[-3000:]
+    r0, r1 = (torch.load(tmp_path / f"rank{r}_step0.pt") for r in (0, 1))
+    for k, v in r0["model"].items():
+        assert torch.equal(v, r1["model"][k]), k
+    assert torch.equal(r0["ema_t"], r1["ema_t"])
+    want = make_semi_step(cfg)(state, {k: v.to(cuda) for k, v in
+                                       batches[0][0].items()},
+                               {k: v.to(cuda) for k, v in
+                                batches[0][1].items()}, 1e-3, True)
+    for k in ("loss", "sup_loss", "unsup_loss"):
+        got, ref = float(r0["metrics"][k]), float(want[k])
+        assert abs(got - ref) <= 1e-4 * abs(ref), (k, got, ref)
+    moments = {n: state.opt.state[p]["exp_avg"].cpu()
+               for n, p in state.model.named_parameters()}
+    gmax = max(float(v.abs().max()) for v in moments.values())
+    for n, ref in moments.items():
+        scale = max(float(ref.abs().max()), 1e-3 * gmax)
+        err = float((r0["exp_avg"][n] - ref).abs().max()) / scale
+        assert err <= 5e-2, (n, err)

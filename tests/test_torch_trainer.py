@@ -324,8 +324,9 @@ def _ported(opt, key):
     _ported("ema_eval=0.999", "ema_eval"), ("num_votes=2", None),
     ("profile_epoch=1", "profile_epoch"),
     ("wandb.use_wandb=True", "wandb.use_wandb"),
-    ("jax_distributed=True", "jax_distributed"),
-    ("distributed=True", "distributed"), ("tp=2", "tp"), ("sp=2", "sp"),
+    _ported("jax_distributed=True", "jax_distributed"),
+    _ported("distributed=True", "distributed"), ("tp=2", "tp"),
+    ("sp=2", "sp"),
     ("fsdp=True", "fsdp"), ("step_per_update=2", "step_per_update"),
     ("eval_device_cache=False", "eval_device_cache"),
     ("pretrain_encoder_path=/x", "pretrain_encoder_path"),
