@@ -15,21 +15,34 @@ Phases, each printed with the seconds elapsed when it starts:
    block barrier, write-to-peers, synchronisation and reduction, no
    distance work) at each cluster size, then the cluster kernel
    (``fps_cluster``) at (1|2|6, 16000) -> 8192, ties, an odd N and an N
-   that its shape rule sends to the one-block kernel (``fps``), and both
-   kernels' times in turns. kNN: the split kernel (``knn_split``) and the
-   one-thread-per-query kernel (``knn_small_k``) against the plain version
-   and each other at the serving path's 8 searches and ties, each timed as
-   wrapper calls and kernel-only (a CUDA graph of the calls). The
-   bucket-pruned kernels (``fps_bucket``, ``knn_small_k_pruned``; on no
-   path, as in ``geot_tpu``) are also held bit for bit against the path's
-   kernels, at the training FPS shape too, with the share of work they
-   skip. Times from CUDA events after a warm-up.
+   that its shape rule sends past the cluster (to ``fps_bucket``), and
+   the cluster and one-block (``fps``) kernels' times in turns. kNN: the
+   split kernel (``knn_split``) and the one-thread-per-query kernel
+   (``knn_small_k``) against the plain version, each other and the path's
+   route (``knn_route``) at the serving path's 8 searches and ties, each
+   timed as wrapper calls and kernel-only (a CUDA graph of the calls).
+   The bucket-pruned kernels: ``fps_bucket`` bit-equal to its plain
+   version and the path's FPS at (1|6, 16000) -> 8192, ties and a whole
+   150,000-point scan -> 8192 (against ``fps_block``, the route it took
+   over), kernel-only and with its plan, beside the path's kernel;
+   ``knn_small_k_pruned`` bit-equal to its plain version, ``knn_split``
+   and the route at the scan's 8 searches, ties, the upsample of a
+   150,000-point scan, (1, 155648) x (1, 16000), and ``knn_route``'s
+   crossover shapes (the top2 self-search, (2, 16000) x (2, 16000), and
+   (24576|32768, 16000)), kernel-only and with its plan beside
+   ``knn_split``, which it must beat where the route takes it (with its
+   plan on the device, and as wrapper calls, the median of 7 runs); its
+   plan's Morton and prepare kernels against their plain versions. Each with
+   its skip share and two bounds: brute force, and the work done (the
+   buckets updated, the tile-chunk pairs visited). Times from CUDA events
+   after a warm-up.
 4. serving: the flagship ``WholePartSeg`` at full width with seeded random
    weights serves 3 synthetic scans of 40,000 points through
-   ``predict_scan``; the launch counters must show 1 ``fps_cluster`` and 8
-   ``knn_split`` launches per scan and no other. Logits finite, labels FDI
-   codes of the jaw, and the card's forward agrees with the same model's
-   CPU forward.
+   ``predict_scan``; the launch counters must show 1 ``fps_cluster``, 7
+   ``knn_split`` and the upsample's pruned route (``morton``,
+   ``knn_pruned_prepare``, ``knn_small_k_pruned``, one each) per scan and
+   no other. Logits finite, labels FDI codes of the jaw, and the card's
+   forward agrees with the same model's CPU forward.
 5. http: 3 ``POST /predict`` requests with ``.npy`` bodies through
    ``engine.serve`` on 127.0.0.1.
 6. train: the flagship FixMatch + NTM recipe at full width (batch 2 + 2 + 2
@@ -51,8 +64,8 @@ Phases, each printed with the seconds elapsed when it starts:
    every epoch): losses finite, val/test metrics in [0, 1], the reference's
    epoch scalars present, the latest/best/E1/E2 checkpoints written, and
    the launch counters equal to 2 ``fps_cluster`` + 14 ``knn_split`` a
-   step, 1 + 7 a cm batch, 1 + 9 a val/test batch of 2 scans, 0 for the
-   other kernels. Run C: ``mode=val`` on A's best checkpoint gives A's best
+   step, 1 + 7 a cm batch, 1 + 7 and two upsamples (the pruned route) a
+   val/test batch of 2 scans, 0 for the other kernels. Run C: ``mode=val`` on A's best checkpoint gives A's best
    val metrics. Run B: ``mode=resume`` from A's epoch-1 checkpoint; its
    epoch-2 scalars agree with A's (each loss term within the spread
    measured between uninterrupted runs, ``RESUME_LOSS_RTOL``; metrics
@@ -70,7 +83,8 @@ Phases, each printed with the seconds elapsed when it starts:
    flagship at full width with seeded weights serves 6 scans in float32
    and 6 in bfloat16 through ``predict_scan`` (latency, peak memory, a
    profiled window's device idle share), each scan launching 1
-   ``fps_cluster`` and 6 ``knn_split`` and nothing else; float32 on the
+   ``fps_cluster``, 5 ``knn_split`` and the upsample's pruned route and
+   nothing else; float32 on the
    card against the port's CPU forward (max |dlogit| <= 1e-3 x the logit
    p99, argmax agreement >= 0.999); bfloat16 on the card against the
    port's CPU bfloat16 forward (argmax agreement >= 0.98, max |dlogit| <=
@@ -201,6 +215,7 @@ import faulthandler
 import io
 import json
 import math
+import statistics
 import os
 import subprocess
 import sys
@@ -240,6 +255,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_median(fn, reps: int, runs: int = 7) -> float:
+    """Median over ``runs`` of ``cuda_ms(fn, reps)``: a call that the host
+    bounds meets a stall of the shared host now and then, and one mean of
+    ``reps`` calls carries the whole stall."""
+    return statistics.median(cuda_ms(fn, reps) for _ in range(runs))
+
+
 class Bound:
     """Least time for a piece of work: the larger of its bytes over the
     memory rate and its fp32 operations over the fp32 peak, both scaled by
@@ -253,6 +275,20 @@ class Bound:
         t_bytes = nbytes / (HBM_PEAK * self.scale)
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
+
+
+# launches of one full-resolution upsample of a scan of 40,000 points or
+# more, (1, 40960 or more) x (1, 16000): knn_small_k's pruned route
+# (ops.knn_route), the plan's Morton and prepare kernels and the search
+UPSAMPLE = {"morton": 1, "knn_pruned_prepare": 1, "knn_small_k_pruned": 1}
+
+
+def _with_upsamples(counts: dict, n: int) -> dict:
+    """``counts`` and n upsamples' launches."""
+    out = dict(counts)
+    for k, v in UPSAMPLE.items():
+        out[k] = out.get(k, 0) + n * v
+    return out
 
 
 def phase_device():
@@ -378,9 +414,15 @@ def _kernels_fps(bound: Bound, pos, pos2, pos6, dup):
                             fps_mod.card_cluster_size(dev, xyz.shape[0]))
         before = dict(ops.LAUNCHES)
         got = ops.fps(xyz, npoint)
-        routed = [k for k in ops.LAUNCHES if ops.LAUNCHES[k] != before[k]]
-        check(routed == [plan.route], f"fps {label}: launched {routed}, "
-              f"plan {plan}")
+        routed = sorted(k for k in ops.LAUNCHES
+                        if ops.LAUNCHES[k] != before[k])
+        # past the cluster's registers: the bucket kernel and its plan's
+        # Morton launch, up to what its clusters hold
+        want = ([plan.route] if plan.route == "fps_cluster" else
+                ["fps_bucket", "morton"] if xyz.shape[1]
+                <= ops.bucket_capacity(16) else ["fps"])
+        check(routed == want, f"fps {label}: launched {routed}, plan "
+              f"{plan}")
         ref = ops.fps_ref(xyz, npoint)
         block = ops.fps_block(xyz, npoint)
         torch.cuda.synchronize()
@@ -389,7 +431,7 @@ def _kernels_fps(bound: Bound, pos, pos2, pos6, dup):
         err = max(err, int((got.long() - ref.long()).abs().max()))
         check(torch.equal(block, ref), f"fps_block {label}: indices differ "
               f"from fps_ref at {int((block != ref).sum())} places")
-        log(f"fps {label}: route {plan.route} {plan[1:]}; indices bit-equal "
+        log(f"fps {label}: route {want[0]} {plan[1:]}; indices bit-equal "
             f"to fps_ref, and so are fps_block's")
 
     # both kernels in turns (block, cluster, block); the cluster kernel at
@@ -443,14 +485,17 @@ def _kernels_knn(bound: Bound, path_shapes, ties_case):
     t_ops = t_bytes = 0.0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, q, s, k in path_shapes + (ties_case,):
-        d, i = ops.knn_small_k(q, s, k)
+        d, i = ops.knn_split(q, s, k)
         d_r, i_r = ops.knn_small_k_ref(q, s, k)
         d_u, i_u = ops.knn_small_k_unsplit(q, s, k)
+        d_p, i_p = ops.knn_small_k(q, s, k)           # the path's route
         torch.cuda.synchronize()
         B, Q, N = q.shape[0], q.shape[1], s.shape[1]
         shape = f"({Q},{N},{k})"
         for name, dd, ii in (("knn_small_k_ref", d_r, i_r),
-                             ("knn_small_k_unsplit", d_u, i_u)):
+                             ("knn_small_k_unsplit", d_u, i_u),
+                             (f"knn_small_k ({ops.knn_route(Q, N)})", d_p,
+                              i_p)):
             check(torch.equal(i, ii), f"knn {label} {shape}: idx differ from "
                   f"{name} at {int((i != ii).sum())} places")
             check(torch.equal(d, dd), f"knn {label} {shape}: d2 not "
@@ -462,8 +507,8 @@ def _kernels_knn(bound: Bound, path_shapes, ties_case):
             log(f"knn ties {shape}: {S} splits; idx equal, d2 bit-equal to "
                 f"the plain version and the unsplit kernel")
             continue
-        t = {"split": cuda_ms(lambda: ops.knn_small_k(q, s, k), 20),
-             "split_kernel": graph_ms(lambda: ops.knn_small_k(q, s, k), 20),
+        t = {"split": cuda_ms(lambda: ops.knn_split(q, s, k), 20),
+             "split_kernel": graph_ms(lambda: ops.knn_split(q, s, k), 20),
              "unsplit": cuda_ms(lambda: ops.knn_small_k_unsplit(q, s, k), 20),
              "unsplit_kernel": graph_ms(
                  lambda: ops.knn_small_k_unsplit(q, s, k), 20),
@@ -478,7 +523,8 @@ def _kernels_knn(bound: Bound, path_shapes, ties_case):
             rec["ms"] += t[kern]
             rec["plain_ms"] += t["plain"]
             rec["bound_ms"] += b_ms
-        log(f"knn {label} {shape}: {S} splits of {split_len}; idx equal, d2 "
+        log(f"knn {label} {shape}: {S} splits of {split_len}; route "
+            f"{ops.knn_route(Q, N)}; idx equal, d2 "
             f"bit-equal; split kernel {t['split_kernel']:.4f} ms (wrapper "
             f"{t['split']:.4f}), unsplit kernel {t['unsplit_kernel']:.4f} ms "
             f"(wrapper {t['unsplit']:.4f}), plain {t['plain']:.2f} ms, "
@@ -621,85 +667,327 @@ def phase_kernels(bound: Bound):
     for rec, extra in ((knn_rec, fast_knn), (knnu_rec, fast_knnu)):
         rec["max_abs_err"] = max(rec["max_abs_err"], extra["max_abs_err"])
 
-    # the bucket-pruned kernels: equal to their plain versions AND to the
-    # path's kernels, at the serving and training FPS shapes and the
-    # serving search shapes; same bound as the unpruned kernel
-    fpsb_rec = {}
+    big = _big_scan()
+    fpsb_rec = _kernels_pruned_fps(bound, pos, pos6, dup, big,
+                                   fps_rec["plain_ms"])
+    knnp_recs = _kernels_pruned_knn(bound, path_shapes, c4096, ties, big)
+    return {"fps_cluster": fps_rec, "fps": fpsblock_rec,
+            "knn_split": knn_rec, "knn_small_k": knnu_rec,
+            "fps_bucket": fpsb_rec, **knnp_recs}
+
+
+def _big_scan():
+    """A whole 150,000-point scan, normalised as ``predict_scan`` does: its
+    points (1, 150000, 3), its full-resolution upsample's queries padded to
+    19 x 8,192 rows and 16,000 of them sampled, all on the card."""
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch.data.tooth_semi import _synthetic_scan, pc_norm
+    from geot_tpu_torch.engine.eval import BUCKET, pad_to_bucket
+
+    norm, _, _ = pc_norm(_synthetic_scan(306, 150000)[0])
+    sel = np.random.default_rng(0).choice(len(norm), 16000, replace=False)
+    return {"xyz": torch.from_numpy(norm)[None].cuda(),
+            "full": torch.from_numpy(pad_to_bucket(norm, BUCKET))[None].cuda(),
+            "sample": torch.from_numpy(
+                np.ascontiguousarray(norm[sel]))[None].cuda()}
+
+
+def _bucket_updates(dev, B: int, N: int, npoint: int):
+    """fps_bucket's cluster size for B clouds of N points and its (step,
+    bucket) updates if none were skipped: npoint - 1 steps of every real
+    256-point bucket of its C blocks."""
+    import importlib
+
+    fps_mod = importlib.import_module("geot_tpu_torch.ops.fps")
+    C = fps_mod.fps_bucket_size(fps_mod.card_bucket_max_active(dev), B, N)
+    per = -(-N // C)
+    buckets = B * sum(-(-max(0, min(N - r * per, per)) // fps_mod.BUCKET)
+                      for r in range(C))
+    return C, buckets * (npoint - 1)
+
+
+def _kernels_pruned_fps(bound: Bound, pos, pos6, dup, big, plain_ms):
+    """Kernel 3, ``fps_bucket``, bit-equal to its plain version and to the
+    path's FPS kernels (``fps_cluster`` at 16,000 points; ``fps_block``, the
+    route it replaced, at a 150,000-point scan), its skip share and times:
+    kernel-only (the plan given), with its plan, and beside the path's
+    kernel; two bounds: the brute-force one (every point every step) and
+    the work done (9 operations for each point of each bucket updated)."""
+    import torch
+
+    from geot_tpu_torch import ops
+
+    dev = pos.device
+    rec = {}
     for label, xyz, npoint in (("(1,16000,3)->8192", pos, 8192),
                                ("(6,16000,3)->8192", pos6, 8192),
-                               ("ties (1,5200,3)->2048", dup, 2048)):
+                               ("ties (1,5200,3)->2048", dup, 2048),
+                               ("past the cluster (1,65537,3)->8192",
+                                big["xyz"][:, :65537].contiguous(), 8192),
+                               ("scan (1,150000,3)->8192", big["xyz"],
+                                8192)):
+        B, N, _ = xyz.shape
         skipped = torch.zeros(1, dtype=torch.int64, device=dev)
         got = ops.fps_bucket(xyz, npoint, skipped=skipped)
         ref = ops.fps_bucket_ref(xyz, npoint)
-        unpruned = ops.fps(xyz, npoint)
+        if N > 16 * 4096:        # past fps_cluster: the route is this kernel
+            before = dict(ops.LAUNCHES)
+            routed = ops.fps(xyz, npoint)
+            grew = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            check(grew == dict(dict.fromkeys(grew, 0), fps_bucket=1,
+                               morton=1), f"fps {label}: launched {grew}")
+            path, path_name = ops.fps_block(xyz, npoint), "fps_block"
+            torch.cuda.synchronize()
+            check(torch.equal(routed, got), f"fps {label}: route differs")
+        else:
+            path, path_name = ops.fps(xyz, npoint), "fps_cluster"
         torch.cuda.synchronize()
         check(torch.equal(got, ref), f"fps_bucket {label}: indices differ "
               f"from fps_bucket_ref at {int((got != ref).sum())} places")
-        check(torch.equal(got, unpruned), f"fps_bucket {label}: indices "
-              f"differ from fps at {int((got != unpruned).sum())} places")
-        B, N, _ = xyz.shape
-        share = int(skipped) / (B * -(-N // 1024) * (npoint - 1))
-        msg = (f"fps_bucket {label}: indices bit-equal to fps_bucket_ref "
-               f"and fps; buckets skipped {100 * share:.1f} %")
-        if label.startswith(("(1,", "(6,")):
+        check(torch.equal(got, path), f"fps_bucket {label}: indices differ "
+              f"from {path_name} at {int((got != path).sum())} places")
+        C, total = _bucket_updates(dev, B, N, npoint)
+        share = int(skipped) / total
+        brute_ms, brute_by = _fps_bound(bound, B, N, npoint)
+        work_ms, work_by = bound(9.0 * (total - int(skipped)) * 256,
+                                 B * N * 12 + B * npoint * 4)
+        msg = (f"fps_bucket {label}: C = {C}; indices bit-equal to "
+               f"fps_bucket_ref and {path_name}; bucket updates skipped "
+               f"{int(skipped)}/{total} ({100 * share:.1f} %)")
+        if not label.startswith("ties"):
             plan = ops.fps_bucket_plan(xyz)
-            ms = cuda_ms(lambda: ops.fps_bucket(xyz, npoint), 5)
-            kern_ms = cuda_ms(lambda: ops.fps_bucket(xyz, npoint, plan=plan),
-                              5)
-            b_ms, b_by = _fps_bound(bound, B, N, npoint)
-            msg += (f"; wrapper {ms:.3f} ms (kernel alone {kern_ms:.3f} ms), "
-                    f"bound {b_ms:.4f} ms ({b_by})")
+            reps = 3
+            t = {path_name: cuda_ms(lambda: (ops.fps_block(xyz, npoint)
+                                             if path_name == "fps_block" else
+                                             ops.fps(xyz, npoint)),
+                                    1 if path_name == "fps_block" else reps),
+                 "kernel": cuda_ms(lambda: ops.fps_bucket(xyz, npoint,
+                                                          plan=plan), reps),
+                 "with_plan": cuda_ms(lambda: ops.fps_bucket(xyz, npoint),
+                                      reps),
+                 "plan": graph_ms(lambda: ops.fps_bucket_plan(xyz), 10)}
+            t["kernel again"] = cuda_ms(
+                lambda: ops.fps_bucket(xyz, npoint, plan=plan), reps)
+            # the route takes this kernel only past the cluster, and there
+            # it must beat the one-block kernel it replaced
+            check(path_name == "fps_cluster" or t["with_plan"]
+                  < t[path_name], f"fps_bucket {label}: slower than "
+                  f"{path_name} with its plan")
+            msg += (f"; kernel {t['kernel']:.3f} / {t['kernel again']:.3f} "
+                    f"ms, with plan {t['with_plan']:.3f} ms (plan "
+                    f"{t['plan']:.4f}), {path_name} {t[path_name]:.3f} ms; "
+                    f"bound of the work done {work_ms:.5f} ms ({work_by}; "
+                    f"the kernel at {100 * work_ms / t['kernel']:.2f} % of "
+                    f"it), brute-force bound {brute_ms:.4f} ms ({brute_by}; "
+                    f"{100 * brute_ms / t['kernel']:.2f} %)")
+            row = {"ms": t["kernel"], "with_plan_ms": t["with_plan"],
+                   "plan_ms": t["plan"], f"{path_name}_ms": t[path_name],
+                   "bound_ms": work_ms, "bound_by": work_by,
+                   "brute_force_bound_ms": brute_ms,
+                   "brute_force_bound_by": brute_by, "skip_share": share,
+                   "cluster_size": C}
             if label.startswith("(1,"):
-                fpsb_rec = {"ms": ms, "kernel_ms": kern_ms,
-                            "plain_ms": fps_rec["plain_ms"],
-                            "bound_ms": b_ms, "bound_by": b_by,
-                            "skip_share": share, "max_abs_err": 0.0}
+                rec = dict(row, plain_ms=plain_ms, max_abs_err=0.0)
+            elif label.startswith("(6,"):
+                rec["b6"] = row
+            elif label.startswith("past"):
+                rec["past_cluster_65537"] = row
+            else:
+                rec["scan_150000"] = row
         log(msg)
+    return rec
 
-    knnp_rec = {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0,
-                "bound_ms": knn_rec["bound_ms"],
-                "bound_by": knn_rec["bound_by"], "max_abs_err": 0.0}
+
+def _knn_work(bound: Bound, B, Q, N, k, skipped):
+    """The pruned kNN's two bounds: brute force (8 operations for every
+    (query, support) pair) and the work done (the pairs of the (32-query
+    tile, 128-support chunk) pairs visited, counted as whole ones)."""
+    nbytes = B * ((Q + N) * 12 + Q * k * 8)
+    pairs = B * -(-Q // 32) * -(-N // 128)
+    return (bound(8.0 * B * Q * N, nbytes),
+            bound(8.0 * (pairs - skipped) * 32 * 128, nbytes),
+            skipped / pairs)
+
+
+def _kernels_plan(bound: Bound, q, s_):
+    """The pruned kNN's plan kernels at the upsample's clouds, each against
+    its plain version: the Morton codes of both clouds (one launch) and
+    the sorted support rows with their chunk boxes; times from CUDA
+    graphs; bounds: bytes, each input read once and each output written
+    once."""
+    import torch
+
+    from geot_tpu_torch import ops
+
+    Q, N = q.shape[1], s_.shape[1]
+    codes = ops.morton_codes_kernel(q, s_)
+    order = ops.knn_pruned_order(q, s_)
+    s4, boxes = ops.knn_pruned_prepare(s_, order[:, Q:], base=Q)
+    torch.cuda.synchronize()
+    check(torch.equal(codes, ops.morton_codes_joint(q, s_))
+          and torch.equal(order, torch.sort(ops.morton_codes_joint(q, s_),
+                                            dim=-1, stable=True).indices),
+          "morton: codes differ from morton_codes")
+    for got, want in zip((s4, boxes), ops.knn_pruned_prepare_ref(
+            s_, order[:, Q:], base=Q)):
+        check(torch.equal(got, want), "knn_pruned_prepare differs from its "
+              "plain version")
+    NC = boxes.shape[1]
+    rec = {"morton": {
+        "ms": graph_ms(lambda: ops.morton_codes_kernel(q, s_), 10),
+        "plain_ms": cuda_ms(lambda: ops.morton_codes_joint(q, s_), 10),
+        "max_abs_err": 0.0},
+        "knn_pruned_prepare": {
+        "ms": graph_ms(lambda: ops.knn_pruned_prepare(s_, order[:, Q:],
+                                                      base=Q), 10),
+        "plain_ms": cuda_ms(lambda: ops.knn_pruned_prepare_ref(
+            s_, order[:, Q:], base=Q), 10),
+        "max_abs_err": 0.0},
+        "sort_ms": graph_ms(lambda: torch.sort(codes, dim=-1, stable=True),
+                            10)}
+    rec["morton"]["bound_ms"], rec["morton"]["bound_by"] = bound(
+        0.0, (Q + N) * 16)
+    rec["knn_pruned_prepare"]["bound_ms"], \
+        rec["knn_pruned_prepare"]["bound_by"] = bound(
+            0.0, N * (12 + 8 + 16) + NC * 32)
+    log(f"the plan at ({Q},{N}): Morton codes of both clouds "
+        f"{rec['morton']['ms']:.4f} ms (plain {rec['morton']['plain_ms']:.4f}"
+        f", bound {rec['morton']['bound_ms']:.5f}), their one stable sort "
+        f"{rec['sort_ms']:.4f} ms, the sorted rows and chunk boxes "
+        f"{rec['knn_pruned_prepare']['ms']:.4f} ms (plain "
+        f"{rec['knn_pruned_prepare']['plain_ms']:.4f}, bound "
+        f"{rec['knn_pruned_prepare']['bound_ms']:.5f}); both bit-equal to "
+        f"their plain versions")
+    sort_ms = rec.pop("sort_ms")
+    rec["morton"]["sort_after_it_ms"] = sort_ms
+    return rec
+
+
+def _kernels_pruned_knn(bound: Bound, path_shapes, c4096, ties, big):
+    """Kernel 4, ``knn_small_k_pruned``, and its plan's kernels (Morton
+    codes, the sorted supports and chunk boxes): bit-equal to the plain
+    version and to ``knn_split`` at a scan's 8 searches, ties, the two
+    upsamples (a 40,000-point scan's and a 150,000-point scan's) and
+    ``knn_route``'s crossover shapes; per search its kernel-only time (a
+    CUDA graph, the plan given), with its plan (a graph of the wrapper, and
+    the wrapper with the host, the median of 7 runs of 10 calls),
+    ``knn_split``'s (the same two ways), the skip share and two bounds
+    (brute force, and the pairs visited)."""
+    import torch
+
+    from geot_tpu_torch import ops
+
+    dev = c4096.device
+    shapes = path_shapes + (("ties", c4096, ties, 4),
+                            ("upsample of a 150,000-point scan", big["full"],
+                             big["sample"], 3))
+    path_labels = [x[0] for x in path_shapes]
+    cross = (("self-search (2,16000)x(2,16000)", None, None, 2),
+             ("crossover (24576,16000)", big["full"][:, :24576].contiguous(),
+              big["sample"], 3),
+             ("crossover (32768,16000)", big["full"][:, :32768].contiguous(),
+              big["sample"], 3))
+    scan8 = {"ms": 0.0, "with_plan_ms": 0.0, "wrapper_ms": 0.0,
+             "knn_split_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+             "brute_force_bound_ms": 0.0}
     n_skip = n_pairs = 0
-    for label, q, s, k in path_shapes + (("ties", c4096, ties, 4),):
+    out = {}
+    for label, q, s_, k in shapes + cross:
+        if q is None:               # the top2 loss's self-search, 2 clouds
+            q = s_ = torch.cat([path_shapes[-2][1], torch.flip(
+                path_shapes[-2][1], dims=[1])]).contiguous()
+        B, Q, N = q.shape[0], q.shape[1], s_.shape[1]
         skipped = torch.zeros(1, dtype=torch.int64, device=dev)
-        d, i = ops.knn_small_k_pruned(q, s, k, skipped=skipped)
-        d_r, i_r = ops.knn_small_k_pruned_ref(q, s, k)
-        d_u, i_u = ops.knn_small_k(q, s, k)
+        d, i = ops.knn_small_k_pruned(q, s_, k, skipped=skipped)
+        d_r, i_r = ops.knn_small_k_pruned_ref(q, s_, k)
+        d_s, i_s = ops.knn_split(q, s_, k)
+        d_p, i_p = ops.knn_small_k(q, s_, k)
         torch.cuda.synchronize()
-        shape = f"({q.shape[1]},{s.shape[1]},{k})"
+        shape = f"({Q},{N},{k})"
+        route = ops.knn_route(Q, N)
         for name, dd, ii in (("knn_small_k_pruned_ref", d_r, i_r),
-                             ("knn_small_k", d_u, i_u)):
+                             ("knn_split", d_s, i_s),
+                             (f"knn_small_k ({route})", d_p, i_p)):
             check(torch.equal(i, ii), f"knn_small_k_pruned {label} {shape}: "
                   f"idx differ from {name} at {int((i != ii).sum())} places")
             check(torch.equal(d, dd), f"knn_small_k_pruned {label} {shape}: "
                   f"d2 not bit-equal to {name}")
-        pairs = -(-q.shape[1] // 256) * -(-s.shape[1] // 1024)
-        msg = (f"knn_small_k_pruned {label} {shape}: idx equal, d2 "
-               f"bit-equal to the plain version and knn_small_k; chunks "
-               f"skipped {int(skipped)}/{pairs}")
+        (brute_ms, brute_by), (work_ms, work_by), share = _knn_work(
+            bound, B, Q, N, k, int(skipped))
+        msg = (f"knn_small_k_pruned {label} {shape}: idx equal, d2 bit-equal "
+               f"to the plain version, knn_split and the route ({route}); "
+               f"(tile, chunk) pairs skipped {100 * share:.1f} %")
         if label != "ties":
-            n_skip += int(skipped)
-            n_pairs += pairs
-            plan = ops.knn_pruned_plan(q, s)
-            ms = cuda_ms(lambda: ops.knn_small_k_pruned(q, s, k), 10)
-            kern_ms = cuda_ms(lambda: ops.knn_small_k_pruned(q, s, k,
-                                                             plan=plan), 10)
-            plain_ms = cuda_ms(lambda: ops.knn_small_k_pruned_ref(q, s, k), 2)
-            knnp_rec["ms"] += ms
-            knnp_rec["kernel_ms"] += kern_ms
-            knnp_rec["plain_ms"] += plain_ms
-            msg += (f"; wrapper {ms:.3f} ms (kernel alone {kern_ms:.3f} ms), "
-                    f"plain {plain_ms:.2f} ms")
+            plan = ops.knn_pruned_plan(q, s_)
+            t = {"kernel": graph_ms(lambda: ops.knn_small_k_pruned(
+                     q, s_, k, plan=plan), 10),
+                 "with_plan": graph_ms(lambda: ops.knn_small_k_pruned(
+                     q, s_, k), 10),
+                 "wrapper": cuda_ms_median(lambda: ops.knn_small_k_pruned(
+                     q, s_, k), 10),
+                 "split": graph_ms(lambda: ops.knn_split(q, s_, k), 10),
+                 "split_wrapper": cuda_ms_median(
+                     lambda: ops.knn_split(q, s_, k), 10),
+                 "plan": graph_ms(lambda: ops.knn_pruned_plan(q, s_), 10),
+                 "morton": graph_ms(lambda: ops.morton_codes_kernel(q, s_),
+                                    10),
+                 "plain": cuda_ms(lambda: ops.knn_small_k_pruned_ref(
+                     q, s_, k), 1)}
+            faster = t["with_plan"] < t["split"] and \
+                t["wrapper"] < t["split_wrapper"]
+            msg += (f"; kernel {t['kernel']:.4f} ms, with plan "
+                    f"{t['with_plan']:.4f} (plan {t['plan']:.4f}, its Morton "
+                    f"launch {t['morton']:.4f}; wrapper {t['wrapper']:.4f}); "
+                    f"knn_split {t['split']:.4f} (wrapper "
+                    f"{t['split_wrapper']:.4f}): the pruned kernel with its "
+                    f"plan is {'faster' if faster else 'slower'}; plain "
+                    f"{t['plain']:.2f} ms; bound of the pairs visited "
+                    f"{work_ms:.5f} ms ({work_by}; the kernel at "
+                    f"{100 * work_ms / t['kernel']:.2f} % of it), brute-force "
+                    f"bound {brute_ms:.5f} ms ({brute_by}; "
+                    f"{100 * brute_ms / t['kernel']:.2f} %)")
+            row = {"ms": t["kernel"], "with_plan_ms": t["with_plan"],
+                   "wrapper_ms": t["wrapper"], "plan_ms": t["plan"],
+                   "morton_ms": t["morton"], "knn_split_ms": t["split"],
+                   "knn_split_wrapper_ms": t["split_wrapper"],
+                   "plain_ms": t["plain"], "bound_ms": work_ms,
+                   "bound_by": work_by, "brute_force_bound_ms": brute_ms,
+                   "brute_force_bound_by": brute_by, "skip_share": share,
+                   "knn_route": route, "faster_with_plan": faster}
+            # the route takes the pruned kernel only where it is faster
+            check(faster or route == "knn_split", f"{label}: the route takes "
+                  f"the pruned kernel, slower here with its plan")
+            if label in path_labels:
+                for key, src in (("ms", "kernel"), ("with_plan_ms",
+                                                    "with_plan"),
+                                 ("wrapper_ms", "wrapper"),
+                                 ("knn_split_ms", "split"),
+                                 ("plain_ms", "plain")):
+                    scan8[key] += t[src]
+                scan8["bound_ms"] += work_ms
+                scan8["brute_force_bound_ms"] += brute_ms
+                n_skip += int(skipped)
+                n_pairs += B * -(-Q // 32) * -(-N // 128)
+            if label.startswith("upsample three_nn"):
+                out["knn_small_k_pruned"] = dict(row, max_abs_err=0.0)
+                out.update(_kernels_plan(bound, q, s_))
+            elif label.startswith("upsample of a 150"):
+                out.setdefault("knn_small_k_pruned", {})["scan_150000"] = row
+            elif label not in path_labels:
+                out.setdefault("crossover", {})[label] = row
         log(msg)
-    knnp_rec["skip_share"] = n_skip / n_pairs
-    log(f"knn_small_k_pruned over the 8 searches of a scan: wrapper "
-        f"{knnp_rec['ms']:.3f} ms (kernel alone {knnp_rec['kernel_ms']:.3f} "
-        f"ms), knn_small_k {knn_rec['ms']:.4f} ms kernel, bound "
-        f"{knnp_rec['bound_ms']:.4f} ms; chunks skipped "
-        f"{100 * knnp_rec['skip_share']:.1f} %")
-    return {"fps_cluster": fps_rec, "fps": fpsblock_rec,
-            "knn_split": knn_rec, "knn_small_k": knnu_rec,
-            "fps_bucket": fpsb_rec, "knn_small_k_pruned": knnp_rec}
+    scan8["skip_share"] = n_skip / n_pairs
+    out["knn_small_k_pruned"]["scan_8_searches"] = scan8
+    out["knn_small_k_pruned"]["crossover"] = out.pop("crossover")
+    log(f"knn_small_k_pruned over a scan's 8 searches: kernel "
+        f"{scan8['ms']:.4f} ms, with plan {scan8['with_plan_ms']:.4f} ms "
+        f"(wrapper {scan8['wrapper_ms']:.4f}); knn_split "
+        f"{scan8['knn_split_ms']:.4f} ms; bound of the pairs visited {scan8['bound_ms']:.5f} ms, "
+        f"brute-force bound {scan8['brute_force_bound_ms']:.4f} ms; pairs "
+        f"skipped {100 * scan8['skip_share']:.1f} %")
+    return out
 
 
 def _fdi_ok(labels, jaw: int) -> bool:
@@ -736,10 +1024,10 @@ def phase_serving():
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
         grew = {k: ops.LAUNCHES[k] - before[k] for k in before}
-        check(grew == dict(dict.fromkeys(ops.LAUNCHES, 0), fps_cluster=1,
-                           knn_split=8),
+        check(grew == _with_upsamples(dict(
+            dict.fromkeys(ops.LAUNCHES, 0), fps_cluster=1, knn_split=7), 1),
               f"scan {n}: kernel launches {grew}, expected 1 fps_cluster + "
-              f"8 knn_split")
+              f"7 knn_split + the upsample's {UPSAMPLE}")
         check(logits.shape == (16000, 17) and bool(torch.isfinite(logits).all()),
               f"scan {n}: logits {tuple(logits.shape)} not finite/shaped")
         labels = map_pred_to_fdi(pred, jaw)
@@ -1057,10 +1345,10 @@ def phase_train():
 
 # the trainer's expected kernel launches: per semi step, per cm-bootstrap
 # batch, per val/test batch of 2 scans (the batched forward + one
-# full-resolution upsample per scan)
+# full-resolution upsample per scan of 40,000 points)
 _PER_STEP = {"fps_cluster": 2, "knn_split": 14}
 _PER_CM_BATCH = {"fps_cluster": 1, "knn_split": 7}
-_PER_EVAL_BATCH = {"fps_cluster": 1, "knn_split": 9}
+_PER_EVAL_BATCH = _with_upsamples({"fps_cluster": 1, "knn_split": 7}, 2)
 # epoch-2 scalars of a resume (run B) against the uninterrupted run A, with
 # the card's default, non-deterministic backward (atomics): loss terms
 # relative, val/test metrics absolute. Each loss term's bound is the spread
@@ -1312,9 +1600,9 @@ def phase_trainer():
 # the serving topology of geot_tpu's ``serve --fast``
 FAST = {"fast_pyramid": 1024, "fast_graph": True}
 # launches per fast scan: the true-FPS prefix; the non-prefix rows of the 3
-# FeaturePropagation levels, the 2 DGCNN cross-level searches (fast_graph
-# drops the 2 fine-level self-searches) and the full-resolution upsample
-_PER_FAST_SCAN = {"fps_cluster": 1, "knn_split": 6}
+# FeaturePropagation levels and the 2 DGCNN cross-level searches (fast_graph
+# drops the 2 fine-level self-searches); the full-resolution upsample
+_PER_FAST_SCAN = _with_upsamples({"fps_cluster": 1, "knn_split": 5}, 1)
 # bfloat16 on the card against the port's CPU bfloat16 forward of the same
 # weights and input: bounds fixed from the CPU tests (tests/test_torch_fast.py
 # ::test_bfloat16_forward_matches_jax) before the first card run (PERF.md
@@ -1463,7 +1751,8 @@ def phase_fast_serving(scans):
                            vote_transform=vote_t)
     torch.cuda.synchronize()
     vote_ms = (time.perf_counter() - t) * 1e3
-    counted(_launch_counts(fps_cluster=3, knn_split=3 * 5 + 1), "2 votes")
+    counted(_with_upsamples(_launch_counts(fps_cluster=3, knn_split=3 * 5),
+                            1), "2 votes")
     check(_fdi_ok(map_pred_to_fdi(pred, 0), 0), "2 votes: bad labels")
     members = (model, load_model(dict(FLAGSHIP_SEG_ARGS, **FAST), seed=1,
                                  device="cuda"))
@@ -1472,7 +1761,8 @@ def phase_fast_serving(scans):
     pred, _ = predict_scan(members, scans[1], jaw=1)
     torch.cuda.synchronize()
     ens_ms = (time.perf_counter() - t) * 1e3
-    counted(_launch_counts(fps_cluster=2, knn_split=2 * 5 + 1), "ensemble")
+    counted(_with_upsamples(_launch_counts(fps_cluster=2, knn_split=2 * 5),
+                            1), "ensemble")
     check(_fdi_ok(map_pred_to_fdi(pred, 1), 1), "ensemble: bad labels")
     items = [(f"scan{n}", scans[n % len(scans)], n % 2) for n in range(4)]
     rng = np.random.default_rng(0)
@@ -1485,7 +1775,8 @@ def phase_fast_serving(scans):
     streamed = list(predict_stream(members, iter(items), seed=0,
                                    inflight=2))
     stream_s = time.perf_counter() - t
-    counted(_launch_counts(fps_cluster=4 * 2, knn_split=4 * (2 * 5 + 1)),
+    counted(_with_upsamples(_launch_counts(fps_cluster=4 * 2,
+                                           knn_split=4 * 2 * 5), 4),
             "stream")
     check([x[0] for x in streamed] == [x[0] for x in items],
           "stream: order")
@@ -1611,10 +1902,10 @@ def phase_fast_trainer():
         # cm bootstrap 12 batches + 12 steps + val and test 12 batches
         # each: the student (B = 2 or 6, prefix 1024) everywhere, the exact
         # teacher (B = 2, 8192) in the steps; knn_split 5 a fast forward,
-        # 7 an exact one, 1 an upsampled scan
-        want = _launch_counts(fps_cluster=12 + 2 * 12 + 12 + 12,
-                              knn_split=12 * 5 + 12 * (5 + 7)
-                              + 2 * 12 * (5 + 2))
+        # 7 an exact one; an upsample (the pruned route) an evaluated scan
+        want = _with_upsamples(_launch_counts(
+            fps_cluster=12 + 2 * 12 + 12 + 12,
+            knn_split=12 * 5 + 12 * (5 + 7) + 2 * 12 * 5), 2 * 12 * 2)
         want_shapes = {"(2,16000)->1024": 36, "(6,16000)->1024": 12,
                        "(2,16000)->8192": 12}
         check(launches == want, f"fast run launches {launches}, expected "
@@ -1633,8 +1924,8 @@ def phase_fast_trainer():
         torch.cuda.synchronize()
         test_s = time.perf_counter() - t
         launches_t = dict(ops.LAUNCHES)
-        want = _launch_counts(fps_cluster=12 * 3,
-                              knn_split=12 * (3 * 5 + 2))
+        want = _with_upsamples(_launch_counts(fps_cluster=12 * 3,
+                                              knn_split=12 * 3 * 5), 12 * 2)
         check(launches_t == want, f"mode=test with 2 votes: launches "
               f"{launches_t}, expected {want}")
         check(dict(shapes) == {"(2,16000)->1024": 36},
@@ -2378,9 +2669,10 @@ def _zoo_model(name, dev="cuda", opts=()):
         run_s = time.perf_counter() - t
         run_peak = torch.cuda.max_memory_allocated() / 2 ** 20
         got = dict(ops.LAUNCHES)
-        # 12 val + 12 test batches of 2 scans
-        want_run = _launch_counts(fps_cluster=steps * f + 24 * f,
-                                  knn_split=steps * k + 24 * (k + 2))
+        # 12 val + 12 test batches of 2 scans, an upsample a scan
+        want_run = _with_upsamples(_launch_counts(
+            fps_cluster=steps * f + 24 * f, knn_split=steps * k + 24 * k),
+            24 * 2)
         check(got == want_run, f"{name} trainer launches {got}, expected "
               f"{want_run}")
         (run_dir,) = [os.path.join(root, "tooth_sup", d)
@@ -2410,7 +2702,8 @@ def _zoo_model(name, dev="cuda", opts=()):
         torch.cuda.synchronize()
         test_s = time.perf_counter() - t
         got_t = dict(ops.LAUNCHES)
-        want_t = _launch_counts(fps_cluster=12 * f, knn_split=12 * (k + 2))
+        want_t = _with_upsamples(_launch_counts(fps_cluster=12 * f,
+                                                knn_split=12 * k), 12 * 2)
         check(got_t == want_t, f"{name} mode=test launches {got_t}, "
               f"expected {want_t}")
         check(abs(res_t["test"]["whole_miou"] - res["test"]["whole_miou"])
@@ -2502,10 +2795,10 @@ _SERVE_ZOO_AGREE = {"pointnet2": 0.999, "dgcnn": 0.99, "pointmlp": 0.999,
                     "transformer": 0.999}
 _SERVE_ZOO_OVER = {"pointnet2": 0.0, "dgcnn": 0.01, "pointmlp": 0.0,
                    "transformer": 0.0}
-# (fps_cluster, knn_split) launches of one served zoo scan: the forward's
-# (phase 12's table) and the full-resolution upsample
-_SERVE_ZOO_PER_SCAN = {"pointnet2": (4, 5), "dgcnn": (0, 1),
-                       "pointmlp": (4, 5), "transformer": (1, 8)}
+# (fps_cluster, knn_split) launches of one served zoo scan, the forward's
+# (phase 12's table); the full-resolution upsample adds UPSAMPLE
+_SERVE_ZOO_PER_SCAN = {"pointnet2": (4, 4), "dgcnn": (0, 0),
+                       "pointmlp": (4, 4), "transformer": (1, 7)}
 
 
 def _write_obj(path, pts):
@@ -2547,7 +2840,8 @@ def _kernels_upsample(bound: Bound, pts):
     """Kernel 2 at the full-resolution upsample of a 150,000-point scan:
     its points padded to 19 x 8,192 rows against the 16,000 sampled, k = 3,
     bit-equal to the plain version, timed kernel-only, as wrapper calls and
-    plain."""
+    plain; and the search's route (the pruned kernel, phase 3 times it)
+    bit-equal and timed as wrapper calls."""
     import numpy as np
     import torch
 
@@ -2560,23 +2854,30 @@ def _kernels_upsample(bound: Bound, pts):
     q = torch.from_numpy(pad_to_bucket(norm, BUCKET))[None].cuda()
     s_ = torch.from_numpy(np.ascontiguousarray(norm[sel]))[None].cuda()
     Q, N = q.shape[1], s_.shape[1]
-    d, idx = ops.knn_small_k(q, s_, 3)
+    d, idx = ops.knn_split(q, s_, 3)
     d_r, i_r = ops.knn_small_k_ref(q, s_, 3)
+    d_p, i_p = ops.knn_small_k(q, s_, 3)              # the route: pruned
     torch.cuda.synchronize()
     label = f"(1,{Q})x(1,{N}) k=3"
     check(torch.equal(idx, i_r) and torch.equal(d, d_r),
           f"knn_split {label}: differs from knn_small_k_ref")
+    check(torch.equal(i_p, i_r) and torch.equal(d_p, d_r),
+          f"knn_small_k ({ops.knn_route(Q, N)}) {label}: differs from "
+          f"knn_small_k_ref")
     b_ms, b_by = bound(8.0 * Q * N, (Q + N) * 12 + Q * 3 * 8)
-    rec = {"ms": graph_ms(lambda: ops.knn_small_k(q, s_, 3), 5),
-           "wrapper_ms": cuda_ms(lambda: ops.knn_small_k(q, s_, 3), 5),
+    rec = {"ms": graph_ms(lambda: ops.knn_split(q, s_, 3), 5),
+           "wrapper_ms": cuda_ms(lambda: ops.knn_split(q, s_, 3), 5),
            "plain_ms": cuda_ms(lambda: ops.knn_small_k_ref(q, s_, 3), 1),
            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
            "splits": ops.knn_split_plan(1, Q, N, torch.cuda
                                         .get_device_properties(0)
                                         .multi_processor_count)[0]}
+    rec["route_wrapper_ms"] = cuda_ms(lambda: ops.knn_small_k(q, s_, 3), 5)
     log(f"knn_split upsample {label}: {rec['splits']} splits; bit-equal; "
         f"kernel {rec['ms']:.4f} ms (wrapper {rec['wrapper_ms']:.4f}), "
-        f"plain {rec['plain_ms']:.2f} ms, bound {b_ms:.5f} ms ({b_by})")
+        f"plain {rec['plain_ms']:.2f} ms, bound {b_ms:.5f} ms ({b_by}); the "
+        f"route ({ops.knn_route(Q, N)}, plan included) "
+        f"{rec['route_wrapper_ms']:.4f} ms, bit-equal")
     return rec
 
 
@@ -2607,6 +2908,7 @@ def _serve_zoo(name, pts):
     per_scan = {k: (ops.LAUNCHES[k] - before[k]) / 5 for k in before}
     want = dict.fromkeys(per_scan, 0)
     want["fps_cluster"], want["knn_split"] = _SERVE_ZOO_PER_SCAN[name]
+    want = _with_upsamples(want, 1)
     check(per_scan == want, f"{name}: launches a scan {per_scan}, "
           f"expected {want}")
     # the same model's CPU forward on the sample predict_scan drew (seed 0)
@@ -2806,7 +3108,8 @@ def phase_files(bound: Bound):
         launches = dict(ops.LAUNCHES)
         want = dict.fromkeys(launches, 0)
         want["fps_cluster"] = 2 * 2 + 2 + 4
-        want["knn_split"] = 2 * 14 + 2 * 7 + 4 * 7 + 6
+        want["knn_split"] = 2 * 14 + 2 * 7 + 4 * 7
+        want = _with_upsamples(want, 6)             # one a scan evaluated
         check(launches == want, f"trainer launches {launches}, expected "
               f"{want}")
         run_dir = os.path.join(root, "runs", "tooth_semi",
@@ -2836,8 +3139,9 @@ def phase_files(bound: Bound):
         n = predict.main(["--cfg", flagship, "--input", tree, "--output",
                           os.path.join(root, "labels")])
         dir_s = time.perf_counter() - t
-        check(n == len(objs) and dict(ops.LAUNCHES) == dict(
-            dict.fromkeys(ops.LAUNCHES, 0), fps_cluster=n, knn_split=8 * n),
+        check(n == len(objs) and dict(ops.LAUNCHES) == _with_upsamples(
+            dict(dict.fromkeys(ops.LAUNCHES, 0), fps_cluster=n,
+                 knn_split=7 * n), n),
             f"directory: {n} scans, launches {dict(ops.LAUNCHES)}")
         for m, jaw, pts, _ in scans:
             stem = f"{m}_{'lower' if jaw == 0 else 'upper'}"
@@ -2853,17 +3157,16 @@ def phase_files(bound: Bound):
         # one scan with 2 votes, one in the fast topology with a PLY
         single = {}
         for tag, extra, per in (
-                ("votes", ["--votes", "2"], (3, 3 * 7 + 1)),
+                ("votes", ["--votes", "2"], _with_upsamples(
+                    {"fps_cluster": 3, "knn_split": 3 * 7}, 1)),
                 ("fast", ["--fast", "--ply", os.path.join(root, "p.ply")],
-                 (_PER_FAST_SCAN["fps_cluster"],
-                  _PER_FAST_SCAN["knn_split"]))):
+                 _PER_FAST_SCAN)):
             ops.reset_launches()
             path = os.path.join(root, f"{tag}.json")
             labels = predict.main(["--cfg", flagship, "--input", objs[0],
                                    "--output", path, *extra])
             grew = dict(ops.LAUNCHES)
-            check(grew == dict(dict.fromkeys(grew, 0), fps_cluster=per[0],
-                               knn_split=per[1]),
+            check(grew == dict(dict.fromkeys(grew, 0), **per),
                   f"--{tag}: launches {grew}")
             with open(path) as f:
                 d = json.load(f)
@@ -2922,7 +3225,11 @@ def phase_files(bound: Bound):
     launches = {"fps_cluster": sum(v for k, v in shapes.items()
                                    if k[0] == "fps"),
                 "knn_split": sum(v for k, v in shapes.items()
-                                 if k[0] == "knn")}
+                                 if k[0] == "knn" and ops.knn_route(
+                                     k[2], k[3]) == "knn_split")}
+    launches = _with_upsamples(launches, sum(
+        v for k, v in shapes.items() if k[0] == "knn"
+        and ops.knn_route(k[2], k[3]) == "knn_small_k_pruned"))
     check(by_shape["knn_upsample"] == 3, f"the 150,000-point upsample ran "
           f"{by_shape['knn_upsample']} times, expected 3 (val, test, CLI)")
     log(f"phase 13 launches by shape: {by_shape}; in all {launches}; "
@@ -3156,7 +3463,9 @@ def _ops_rows(bound: Bound):
                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
     searches, _, _ = _scan_searches(pts, pos, center, scale)
     knn_row = {"ms": 0.0, "direct_ms": 0.0, "plain_ms": 0.0,
-               "bound_ms": 0.0, "max_abs_err": 0.0}
+               "bound_ms": 0.0, "max_abs_err": 0.0,
+               "routes": dict.fromkeys(("knn_split", "knn_small_k_pruned"),
+                                       0)}
     flops = nbytes = 0.0
     for label, q, s_, k in searches:
         d, i = torch.ops.geot.knn_small_k(q, s_, k)
@@ -3172,6 +3481,7 @@ def _ops_rows(bound: Bound):
         knn_row["plain_ms"] += cuda_ms(
             lambda: ops.knn_small_k_ref(q, s_, k), 2)
         B, Q, N = q.shape[0], q.shape[1], s_.shape[1]
+        knn_row["routes"][ops.knn_route(Q, N)] += 1
         f, nb = 8.0 * B * Q * N, B * ((Q + N) * 12 + Q * k * 8)
         knn_row["bound_ms"] += bound(f, nb)[0]
         flops += f
@@ -3181,8 +3491,9 @@ def _ops_rows(bound: Bound):
         f"(direct wrapper {t_direct:.3f}, plain {t_plain:.1f}, bound "
         f"{b_ms:.4f}); geot::knn_small_k, the scan's 8 searches "
         f"{knn_row['ms']:.4f} ms (direct wrapper {knn_row['direct_ms']:.4f}, "
-        f"plain {knn_row['plain_ms']:.2f}, bound {knn_row['bound_ms']:.4f}); "
-        f"both bit-equal to their plain versions")
+        f"plain {knn_row['plain_ms']:.2f}, bound {knn_row['bound_ms']:.4f}; "
+        f"routes {knn_row['routes']}); both bit-equal to their plain "
+        f"versions")
     return fps_row, knn_row
 
 
@@ -3351,17 +3662,17 @@ def phase_export_dp(bound: Bound):
                     pred, _ = predict.predict_scan(mm, scan, jaw=1)
                     torch.cuda.synchronize()
                     per[kind].append((time.perf_counter() - t) * 1e3)
-                    want = ({"fps_cluster": 1, "knn_split": 8}
-                            if name == "exact" else
-                            {"fps_cluster": _PER_FAST_SCAN["fps_cluster"],
-                             "knn_split": _PER_FAST_SCAN["knn_split"]})
+                    want = (_with_upsamples(
+                        {"fps_cluster": 1, "knn_split": 7}, 1)
+                        if name == "exact" else dict(_PER_FAST_SCAN))
                     grew = {k: v for k, v in ops.LAUNCHES.items() if v}
                     check(grew == want, f"{name} {kind} scan launches "
                           f"{grew}, expected {want}")
                     counted()
             scan_ms[name] = {k: v[1:] for k, v in per.items()}
             log(f"{name} scan of 40,000 points (1 fps_cluster + "
-                f"{want['knn_split']} knn_split each way): eager "
+                f"{want['knn_split']} knn_split + the upsample's "
+                f"{UPSAMPLE} each way): eager "
                 f"{', '.join(f'{x:.1f}' for x in per['eager'][1:])} ms; "
                 f"through the artifact "
                 f"{', '.join(f'{x:.1f}' for x in per['artifact'][1:])} ms")
@@ -3540,7 +3851,8 @@ def phase_export_dp(bound: Bound):
                 p.kill()
                 p.wait()
         shutil.rmtree(root, ignore_errors=True)
-    check(total["fps_cluster"] > 0 and total["knn_split"] > 0,
+    check(all(total[k] > 0 for k in ("fps_cluster", "knn_split",
+                                     *UPSAMPLE)),
           f"phase 14's paths launched {total}")
     log(f"phase 14 launches {total}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -3684,8 +3996,9 @@ def main() -> int:
     # launches on the main paths: 3 served scans, the train run (2 cm
     # batches + 3 steps), the trainer's run A, the fast scans (12, votes,
     # ensemble, stream), the fast trainer's runs and the branch steps and
-    # trainer of phase 11; the first versions of FPS and kNN and the pruned
-    # kernels are on no path
+    # trainer of phase 11; the pruned kNN and its plan's kernels run every
+    # upsample of a whole scan; the first versions of FPS and kNN, and
+    # fps_bucket (the route of clouds past C x 4,096 points), on no path
     trained = {k: sum(c[k] for c in train["cm_batches"] + train["per_step"])
                for k in serving}
     per_step = train["per_step"][0]
@@ -3696,9 +4009,9 @@ def main() -> int:
         f"and the serving CLI {files['launches']}, export and data "
         f"parallel {export_dp['launches']}")
 
-    def entry(name, replaces):
+    def entry(name, replaces, source=None):
         return {"name": name, "route": "cuda",
-                "source": f"geot_tpu_torch/csrc/{name}.cu",
+                "source": f"geot_tpu_torch/csrc/{source or name}.cu",
                 "replaces": replaces,
                 "launches": (serving[name] + trained[name]
                              + trainer["launches"][name]
@@ -3727,6 +4040,11 @@ def main() -> int:
         entry("knn_small_k", "geot_tpu/ops/pallas_knn.py:98"),
         entry("fps_bucket", "geot_tpu/ops/pallas_fps.py:181"),
         entry("knn_small_k_pruned", "geot_tpu/ops/pallas_knn_pruned.py:104"),
+        # the pruned kNN's plan on the card; in geot_tpu XLA computes it
+        # outside the pallas_call of pallas_knn_pruned.py:104
+        entry("morton", "geot_tpu/ops/morton.py:28"),
+        entry("knn_pruned_prepare", "geot_tpu/ops/pallas_knn_pruned.py:130",
+              source="knn_small_k_pruned"),
         # kernel 2 at the self-search of a whole cloud (Poly1FocalLoss_U_top2):
         # launches at that shape in phase 11
         {"name": "knn_split_self_search_2x16000_k2", "route": "cuda",
@@ -3760,11 +4078,19 @@ def main() -> int:
          "launches": sum(files["launches_by_shape"]["knn_decoder"]
                          .values()),
          **files["kernels"]["knn_decoder"]},
+        # kernel 2 at that upsample, timed beside the route that now serves
+        # it (knn_route: the pruned kernel, the next row), so no launch
         {"name": "knn_split_upsample_155648x16000_k3", "route": "cuda",
          "source": "geot_tpu_torch/csrc/knn_split.cu",
          "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
+         "launches": 0, **files["kernels"]["knn_upsample"]},
+        {"name": "knn_small_k_pruned_upsample_155648x16000_k3",
+         "route": "cuda",
+         "source": "geot_tpu_torch/csrc/knn_small_k_pruned.cu",
+         "replaces": "geot_tpu/ops/pallas_knn_pruned.py:104",
+         "library_ms": None,
          "launches": files["launches_by_shape"]["knn_upsample"],
-         **files["kernels"]["knn_upsample"]},
+         **recs["knn_small_k_pruned"]["scan_150000"], "max_abs_err": 0.0},
         # kernels 1 and 2 called through the custom ops geot::fps and
         # geot::knn_small_k (ms: the op; direct_ms: the wrapper without the
         # op's dispatch); launches: phase 14's main paths in this process
@@ -3780,6 +4106,10 @@ def main() -> int:
          "launches": export_dp["launches"]["knn_split"],
          **export_dp["kernels"]["knn_split"]},
     ]
+    # every kernel of the paths ran in this run
+    for kname in ("fps_cluster", "knn_split", *UPSAMPLE):
+        row = next(r for r in kernels if r["name"] == kname)
+        check(row["launches"] > 0, f"{kname}: no launch on the main paths")
     log("done")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

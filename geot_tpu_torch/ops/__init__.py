@@ -3,28 +3,37 @@
 and ``knn_small_k_unsplit`` the first versions of the first and third);
 every op runs its plain PyTorch version for CPU tensors. ``fps`` and
 ``knn_small_k`` are the custom ops ``geot::fps`` and ``geot::knn_small_k``
-(importing this package registers them); the pruned kernels, on no path,
-stay plain ``ctypes`` wrappers. ``ball_query``
+(importing this package registers them); each picks its kernel by shape
+(``fps_plan`` and ``bucket_capacity``, ``knn_route``), the bucket-pruned
+kernels and their plans (``morton_codes_kernel``) included. ``ball_query``
 is plain PyTorch on both, as ``geot_tpu`` computes it in XLA."""
 from ._build import LAUNCHES, reset_launches
 from .ball_query import ball_query
-from .fps import (FpsPlan, cluster_exchange, fps, fps_block, fps_bucket,
-                  fps_bucket_plan, fps_bucket_ref, fps_cluster, fps_gather,
-                  fps_plan, fps_ref, fps_stratified)
+from .fps import (FpsPlan, bucket_capacity, cluster_exchange, fps,
+                  fps_block, fps_bucket, fps_bucket_plan, fps_bucket_ref,
+                  fps_bucket_size, fps_cluster, fps_gather, fps_plan, fps_ref,
+                  fps_stratified)
 from .group import gather_points, grouping_operation
 from .interpolate import three_interpolate, three_interpolation, three_nn
-from .knn import (knn, knn_pruned_plan, knn_small_k, knn_small_k_pruned,
-                  knn_small_k_pruned_ref, knn_small_k_ref,
-                  knn_small_k_unsplit, knn_split_plan, pairwise_dist2)
-from .morton import morton_codes, spatial_sort
+from .knn import (KnnPrunedPlan, knn, knn_pruned_order, knn_pruned_plan,
+                  knn_pruned_prepare, knn_pruned_prepare_ref, knn_route,
+                  knn_small_k, knn_small_k_pruned, knn_small_k_pruned_ref,
+                  knn_small_k_ref, knn_small_k_unsplit, knn_split,
+                  knn_split_plan, pairwise_dist2)
+from .morton import morton_codes, morton_codes_joint, morton_codes_kernel
 
-__all__ = ["LAUNCHES", "reset_launches", "ball_query", "FpsPlan", "cluster_exchange",
+__all__ = ["LAUNCHES", "reset_launches", "ball_query", "FpsPlan",
+           "bucket_capacity", "cluster_exchange",
            "fps", "fps_block", "fps_bucket", "fps_bucket_plan",
-           "fps_bucket_ref", "fps_cluster", "fps_gather", "fps_plan",
+           "fps_bucket_ref", "fps_bucket_size", "fps_cluster", "fps_gather",
+           "fps_plan",
            "fps_ref", "fps_stratified", "gather_points",
            "grouping_operation", "three_interpolate", "three_interpolation",
-           "three_nn", "knn",
-           "knn_pruned_plan", "knn_small_k", "knn_small_k_pruned",
+           "three_nn", "KnnPrunedPlan", "knn",
+           "knn_pruned_order", "knn_pruned_plan", "knn_pruned_prepare",
+           "knn_pruned_prepare_ref",
+           "knn_small_k", "knn_small_k_pruned",
            "knn_small_k_pruned_ref", "knn_small_k_ref",
-           "knn_small_k_unsplit", "knn_split_plan", "morton_codes",
-           "pairwise_dist2", "spatial_sort"]
+           "knn_small_k_unsplit", "knn_split", "knn_split_plan", "knn_route",
+           "morton_codes", "morton_codes_joint",
+           "morton_codes_kernel", "pairwise_dist2"]

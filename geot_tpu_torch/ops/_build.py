@@ -32,7 +32,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
     "fps.cu", "fps_cluster.cu", "knn_small_k.cu", "knn_split.cu",
-    "fps_bucket.cu", "knn_small_k_pruned.cu"))
+    "fps_bucket.cu", "knn_small_k_pruned.cu", "morton.cu"))
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: the plain versions and the JAX reference round dx*dx,
 # dy*dy, dz*dz and each sum separately; a contracted FMA changes d2 in the
@@ -45,9 +45,11 @@ NATIVE_SOURCES = (_PKG / "csrc" / "obj_loader.cpp",)
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
-# one count per kernel, named after its source in csrc/
+# one count per kernel, named after its source in csrc/ (the pruned kNN's
+# plan kernel, in knn_small_k_pruned.cu, after its wrapper)
 LAUNCHES = {"fps": 0, "fps_cluster": 0, "knn_small_k": 0, "knn_split": 0,
-            "fps_bucket": 0, "knn_small_k_pruned": 0}
+            "fps_bucket": 0, "knn_small_k_pruned": 0, "morton": 0,
+            "knn_pruned_prepare": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -208,11 +210,21 @@ def library() -> ctypes.CDLL:
             lib.geot_knn_split.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                            i, p]
             lib.geot_knn_split.restype = i
-            lib.geot_fps_bucket.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+            lib.geot_fps_bucket.argtypes = [p, p, p, p, i, i, i, i, i, p]
             lib.geot_fps_bucket.restype = i
-            lib.geot_knn_small_k_pruned.argtypes = [p, p, p, p, p, p, p, p,
-                                                    i, i, i, i, p]
+            lib.geot_fps_bucket_max_active.argtypes = [
+                i, ctypes.POINTER(ctypes.c_int)]
+            lib.geot_fps_bucket_max_active.restype = i
+            lib.geot_knn_pruned_prepare.argtypes = [p, p, i, i, p, p, i, i,
+                                                    p]
+            lib.geot_knn_pruned_prepare.restype = i
+            lib.geot_knn_small_k_pruned.argtypes = [p, p, i, p, p, i, i, p,
+                                                    p, p, p, p, i, i, i, i,
+                                                    p]
             lib.geot_knn_small_k_pruned.restype = i
+            lib.geot_morton_codes.argtypes = [p, p, i, p, p, i, i, i, i,
+                                              ctypes.c_uint, p]
+            lib.geot_morton_codes.restype = i
             _lib = lib
     return _lib
 

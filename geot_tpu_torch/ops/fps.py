@@ -2,9 +2,11 @@
 
 ``fps`` is the path's FPS: for a CUDA tensor it runs the cluster kernel
 ``csrc/fps_cluster.cu`` (one thread-block cluster per cloud, the winner of
-each step exchanged through distributed shared memory), or, for a cloud
-larger than a cluster's registers hold, the one-block kernel ``csrc/fps.cu``
-(``fps_block``). ``fps_plan`` is that shape rule. Both kernels port
+each step exchanged through distributed shared memory); a cloud larger than
+a cluster's registers hold (``fps_plan``'s route "fps") goes to the
+bucket-pruned cluster kernel ``csrc/fps_bucket.cu`` (``fps_bucket``) up to
+what its clusters' shared memory holds, and above that to the one-block
+kernel ``csrc/fps.cu`` (``fps_block``). The cluster and block kernels port
 ``geot_tpu/ops/pallas_fps.py:fps_pallas``. ``fps_ref`` is their plain
 PyTorch version with the semantics of ``geot_tpu/ops/fps.py:_fps_impl``:
 idx[0] = 0, the running min-distance starts at 1e10, and each step takes the
@@ -17,8 +19,8 @@ plain PyTorch around the kernel as in ``geot_tpu``.
 
 ``fps_bucket`` is the wrapper of ``csrc/fps_bucket.cu`` (the port of
 ``geot_tpu/ops/pallas_fps.py:fps_bucket_pallas``): the same contract, bit
-for bit, computed over Morton-sorted 1024-point buckets that are skipped
-when their box proves no min-distance in them can change.
+for bit, computed by a cluster over Morton-sorted 256-point buckets that
+are skipped when their box proves no min-distance in them can change.
 ``fps_bucket_ref`` is its plain version.
 """
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from . import _build
 from .group import gather_points
-from .morton import morton_codes, spatial_sort
+from .morton import morton_codes, morton_codes_kernel
 
 # fps_block: points per cloud whose xyz the kernel keeps in registers (512
 # threads x 32, their min-distance in shared memory); the min-distance of
@@ -42,10 +44,10 @@ _REG_POINTS = 512 * 32
 CLUSTER_THREADS = 256
 CLUSTER_SLOTS = (2, 4, 8, 16)
 CLUSTER_SIZES = (16, 8, 4, 2)
-# fps_bucket: points per bucket and the most buckets a cloud may have
-BUCKET = 1024
-MAX_BUCKETS = 30
-_SENT = 1 << 30          # original index of a padded bucket slot
+# fps_bucket: points per bucket and the most buckets a block holds in its
+# shared memory (csrc/fps_bucket.cu)
+BUCKET = 256
+BUCKET_BLOCK = 44
 
 
 def fps_ref(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -104,6 +106,7 @@ def fps_plan(N: int, C: int) -> FpsPlan:
 
 
 _max_active: Dict[int, Dict[int, int]] = {}
+_bucket_max_active: Dict[int, Dict[int, int]] = {}
 
 
 def _index(device: torch.device) -> int:
@@ -111,24 +114,37 @@ def _index(device: torch.device) -> int:
         torch.cuda.current_device()
 
 
-def card_max_active(device: torch.device) -> Dict[int, int]:
-    """Per cluster size of ``CLUSTER_SIZES``, how many clusters of the
-    cluster kernel the card runs at once (``cudaOccupancyMaxActiveClusters``
-    at 16 slots), queried once per device."""
+def _card_max_active(device: torch.device, cache: Dict[int, Dict[int, int]],
+                     query: str) -> Dict[int, int]:
+    """Per cluster size of ``CLUSTER_SIZES``, how many clusters the card
+    runs at once by the launcher ``query`` (``cudaOccupancyMaxActiveClusters``
+    at the kernel's largest shared memory), asked once per device."""
     index = _index(device)
-    if index not in _max_active:
-        lib = _build.library()
+    if index not in cache:
+        fn = getattr(_build.library(), query)
         counts = {}
         with torch.cuda.device(index):
             for C in CLUSTER_SIZES:
                 count = ctypes.c_int(0)
-                rc = lib.geot_fps_cluster_max_active(C, ctypes.byref(count))
+                rc = fn(C, ctypes.byref(count))
                 if rc != 0:
                     raise RuntimeError(f"cudaOccupancyMaxActiveClusters at "
                                        f"C={C} failed with CUDA error {rc}")
                 counts[C] = count.value
-        _max_active[index] = counts
-    return _max_active[index]
+        cache[index] = counts
+    return cache[index]
+
+
+def card_max_active(device: torch.device) -> Dict[int, int]:
+    """``_card_max_active`` of the cluster kernel at 16 slots."""
+    return _card_max_active(device, _max_active,
+                            "geot_fps_cluster_max_active")
+
+
+def card_bucket_max_active(device: torch.device) -> Dict[int, int]:
+    """``_card_max_active`` of the bucket kernel at 44 buckets a block."""
+    return _card_max_active(device, _bucket_max_active,
+                            "geot_fps_bucket_max_active")
 
 
 def card_cluster_size(device: torch.device, batch: int) -> int:
@@ -140,8 +156,9 @@ def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """(B, N, 3) float32 -> (B, npoint) int32 indices; idx[:, 0] == 0.
 
     The custom op ``geot::fps``: a CUDA tensor goes to the cluster kernel
-    or, by ``fps_plan`` (chosen inside the op at run time), to the
-    one-block kernel; a CPU tensor to ``fps_ref``; another device
+    or, by ``fps_plan`` and ``bucket_capacity`` (chosen inside the op at
+    run time), to the bucket kernel or the one-block kernel; a CPU tensor
+    to ``fps_ref``; another device
     raises. ``torch.export`` keeps the op in the exported graph."""
     if xyz.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fps: unsupported device {xyz.device}")
@@ -163,9 +180,11 @@ def fps_direct(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     plan = fps_plan(N, card_cluster_size(xyz.device, B))
     # the launch goes to the current card: make it the tensor's
     with torch.cuda.device(xyz.device):
-        if plan.route == "fps":
-            return fps_block(xyz, npoint)
-        return fps_cluster(xyz, npoint, plan)
+        if plan.route == "fps_cluster":
+            return fps_cluster(xyz, npoint, plan)
+        if N <= bucket_capacity(CLUSTER_SIZES[0]):
+            return fps_bucket(xyz, npoint)
+        return fps_block(xyz, npoint)
 
 
 @_fps_op.register_fake
@@ -332,27 +351,13 @@ def _check_xyz(name: str, xyz: torch.Tensor) -> None:
         raise ValueError(f"{name}: xyz must be contiguous")
 
 
-def fps_bucket_plan(xyz: torch.Tensor):
-    """What ``fps_bucket``'s kernel reads, in plain PyTorch (the part of
-    ``fps_bucket_pallas`` outside its ``pallas_call``): the cloud
-    Morton-sorted and padded to whole buckets (padding at 1e9), each sorted
-    slot's original index (``1 << 30`` for padding) and each bucket's box
-    (min xyz, max xyz) over its real points.
-
-    Returns ``(sorted_xyz (B, nb*1024, 3), order (B, nb*1024) int32,
-    boxes (B, nb, 6))``."""
-    B, N, _ = xyz.shape
-    nb = -(-N // BUCKET)
-    pad = nb * BUCKET - N
-    sx, order = spatial_sort(xyz)
-    sx = torch.nn.functional.pad(sx, (0, 0, 0, pad), value=1e9)
-    order = torch.nn.functional.pad(order, (0, pad), value=_SENT)
-    pts = sx.reshape(B, nb, BUCKET, 3)
-    valid = (order < _SENT).reshape(B, nb, BUCKET, 1)
-    bmin = torch.where(valid, pts, 4e9).amin(dim=2)
-    bmax = torch.where(valid, pts, -4e9).amax(dim=2)
-    return (sx.contiguous(), order.contiguous(),
-            torch.cat([bmin, bmax], dim=-1).contiguous())
+def fps_bucket_plan(xyz: torch.Tensor) -> torch.Tensor:
+    """What ``fps_bucket``'s kernel reads besides the cloud: the stable sort
+    of its Morton codes, (B, N) int64 (the part of ``fps_bucket_pallas``
+    outside its ``pallas_call`` that orders the points). On the card the
+    codes come from the Morton kernel (one launch, counted in
+    ``LAUNCHES``); on the CPU from ``morton_codes``."""
+    return torch.sort(morton_codes_kernel(xyz), dim=-1, stable=True).indices
 
 
 def fps_bucket_ref(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -361,37 +366,64 @@ def fps_bucket_ref(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return fps_ref(xyz, npoint)
 
 
+def bucket_capacity(C: int) -> int:
+    """The most points a cluster of C blocks of the bucket kernel holds."""
+    return C * BUCKET_BLOCK * BUCKET
+
+
+def fps_bucket_size(max_active: Dict[int, int], batch: int, N: int) -> int:
+    """The bucket kernel's cluster size for ``batch`` clouds of N points:
+    of the sizes in ``CLUSTER_SIZES`` whose blocks hold N, the largest
+    whose ``batch`` clusters the card runs at once (``max_active[C]``), else
+    the smallest, and the batch runs in waves. Raises if no size holds
+    N."""
+    holds = [C for C in CLUSTER_SIZES if bucket_capacity(C) >= N]
+    if not holds:
+        raise ValueError(f"fps_bucket: N = {N} is more than a cluster holds "
+                         f"({bucket_capacity(CLUSTER_SIZES[0])} points)")
+    for C in holds:
+        if max_active.get(C, 0) >= batch:
+            return C
+    return holds[-1]
+
+
 def fps_bucket(xyz: torch.Tensor, npoint: int,
                skipped: "torch.Tensor | None" = None,
-               plan=None) -> torch.Tensor:
-    """(B, N, 3) float32, N <= 30 * 1024 -> (B, npoint) int32 original
-    indices, equal to ``fps``.
+               plan: "torch.Tensor | None" = None) -> torch.Tensor:
+    """(B, N, 3) float32, N <= ``bucket_capacity(16)`` (180,224) -> (B,
+    npoint) int32 original indices, equal to ``fps``.
 
     A CUDA tensor goes to the kernel, a CPU tensor to ``fps_bucket_ref``.
     ``skipped``, a one-element int64 CUDA tensor, gets the number of
     (step, bucket) distance updates the kernel skipped added to it.
-    ``plan`` is ``fps_bucket_plan(xyz)`` when the caller has it already."""
+    ``plan`` is ``fps_bucket_plan(xyz)`` when the caller has it already.
+    The cluster size is ``fps_bucket_size`` of the card."""
     if xyz.device.type == "cpu":
         return fps_bucket_ref(xyz, npoint)
     if xyz.device.type != "cuda":
         raise ValueError(f"fps_bucket: unsupported device {xyz.device}")
     _check_xyz("fps_bucket", xyz)
     B, N, _ = xyz.shape
-    if N < 1 or npoint < 1 or -(-N // BUCKET) > MAX_BUCKETS:
-        raise ValueError(f"fps_bucket: need 1 <= N <= {MAX_BUCKETS * BUCKET} "
-                         f"and npoint >= 1, got N={N}, npoint={npoint}")
+    if N < 1 or npoint < 1 or N > bucket_capacity(CLUSTER_SIZES[0]):
+        raise ValueError(f"fps_bucket: need 1 <= N <= "
+                         f"{bucket_capacity(CLUSTER_SIZES[0])} and npoint >= "
+                         f"1, got N={N}, npoint={npoint}")
+    C = fps_bucket_size(card_bucket_max_active(xyz.device), B, N)
     if skipped is not None and (skipped.dtype != torch.int64
                                 or skipped.numel() != 1
                                 or skipped.device != xyz.device):
         raise ValueError("fps_bucket: skipped must be one int64 element on "
                          "the device of xyz")
+    if plan is None:
+        plan = fps_bucket_plan(xyz)
     lib = _build.library()
-    sx, order, boxes = fps_bucket_plan(xyz) if plan is None else plan
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    rc = lib.geot_fps_bucket(xyz.data_ptr(), sx.data_ptr(), order.data_ptr(),
-                             boxes.data_ptr(), out.data_ptr(),
-                             skipped.data_ptr() if skipped is not None
-                             else None, B, N, boxes.shape[1], npoint, stream)
+    with torch.cuda.device(xyz.device):
+        rc = lib.geot_fps_bucket(xyz.data_ptr(), plan.data_ptr(),
+                                 out.data_ptr(),
+                                 skipped.data_ptr() if skipped is not None
+                                 else None, B, N, npoint, C, -(-N // C),
+                                 stream)
     _build.check_launch("fps_bucket", rc)
     return out

@@ -5,26 +5,29 @@ ties to the smaller index (``lax.top_k``'s rule): ``geot_tpu``'s default
 ``approx_min_k`` is an XLA operation, and exact selection is what it
 computes under ``GEOT_EXACT_KNN=1``.
 
-``knn_small_k`` is the path's small-k search: for CUDA tensors it runs
-the CUDA kernel ``csrc/knn_split.cu``, which splits the support range over
-blocks (``knn_split_plan``) and merges their lists; ``knn_small_k_unsplit``
-runs the first version ``csrc/knn_small_k.cu`` (one thread per query). Both
-port ``geot_tpu/ops/pallas_knn.py:knn_small_k_pallas``, and
+``knn_small_k`` is the path's small-k search. For CUDA tensors it runs,
+by ``knn_route``, the CUDA kernel ``csrc/knn_split.cu`` (``knn_split``),
+which splits the support range over blocks (``knn_split_plan``) and merges
+their lists, or, for the largest searches (the upsample of a whole scan),
+the pruned kernel; ``knn_small_k_unsplit`` runs the first version
+``csrc/knn_small_k.cu`` (one thread per query). The split and unsplit
+kernels port ``geot_tpu/ops/pallas_knn.py:knn_small_k_pallas``, and
 ``knn_small_k_ref`` is their plain version. ``knn_small_k_pruned`` is the
 wrapper of ``csrc/knn_small_k_pruned.cu`` (the port of
 ``geot_tpu/ops/pallas_knn_pruned.py:knn_small_k_pruned``): the same
-contract, bit for bit, over Morton-sorted query tiles and support chunks
-that are skipped when their boxes are farther apart than a tile's k-th
-best; ``knn_small_k_pruned_ref`` is its plain version.
+contract, bit for bit, over Morton-sorted 32-query tiles that visit
+128-support chunks nearest first and stop at the first one farther than
+the tile's k-th best; ``knn_small_k_pruned_ref`` is its plain version.
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _build
-from .morton import spatial_sort
+from .morton import morton_codes_kernel, morton_launch
 
 _TILE = 2048
 # knn_split: queries per block (one per thread), fewest supports per
@@ -32,9 +35,19 @@ _TILE = 2048
 SPLIT_QTILE = 128
 SPLIT_MIN = 64
 SPLIT_WAVES = 4
-# knn_small_k_pruned: sorted queries per tile, sorted supports per chunk
-PRUNED_TILE = 256
-PRUNED_CHUNK = 1024
+# knn_small_k_pruned: sorted queries per tile (a warp), sorted supports per
+# chunk, and the most chunks whose keys a block's 4 warps keep in shared
+# memory (csrc/knn_small_k_pruned.cu)
+PRUNED_TILE = 32
+PRUNED_CHUNK = 128
+PRUNED_MAX_CHUNKS = 7000
+# knn_small_k's route: the pruned kernel, its plan included, from this many
+# (query, support) pairs a cloud; knn_split below. chip_smoke.py phase 3
+# times both at the two upsamples of whole scans, (40960, 16000) and
+# (155648, 16000), and at (24576 | 32768, 16000) and the (2, 16000)^2
+# self-search, kernel-only and as wrapper calls (PERF.md, section 6): the
+# pruned kernel with its plan is faster at each shape taken here.
+PRUNED_MIN_PAIRS = 400_000_000
 
 
 def pairwise_dist2(query: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
@@ -133,8 +146,8 @@ def knn_small_k(query: torch.Tensor, support: torch.Tensor, k: int):
     """Exact kNN for 1 <= k <= 4 on xyz: squared d2 and int32 idx, each
     (B, Q, k), ascending, ties to the smaller index.
 
-    The custom op ``geot::knn_small_k``: a CUDA tensor goes to the split
-    kernel (``knn_split_plan`` chosen inside the op at run time), a CPU
+    The custom op ``geot::knn_small_k``: a CUDA tensor goes to
+    ``knn_route``'s kernel (chosen inside the op at run time), a CPU
     tensor to ``knn_small_k_ref``; another device raises.
     ``torch.export`` keeps the op in the exported graph."""
     for t in (query, support):
@@ -149,12 +162,34 @@ def _knn_small_k_op(query: torch.Tensor, support: torch.Tensor,
     return knn_small_k_direct(query, support, k)
 
 
+def knn_route(Q: int, N: int) -> str:
+    """Which kernel ``knn_small_k`` runs for (B, Q, 3) x (B, N, 3):
+    "knn_small_k_pruned" (with its plan) at ``PRUNED_MIN_PAIRS`` pairs a
+    cloud or more, where it holds the supports' keys, else
+    "knn_split"."""
+    if Q * N >= PRUNED_MIN_PAIRS and N <= PRUNED_MAX_CHUNKS * PRUNED_CHUNK:
+        return "knn_small_k_pruned"
+    return "knn_split"
+
+
 def knn_small_k_direct(query: torch.Tensor, support: torch.Tensor, k: int):
     """What ``geot::knn_small_k`` runs, called without the op's dispatch
-    (for timing the dispatch)."""
+    (for timing the dispatch): ``knn_route``'s kernel."""
     if query.device.type == "cpu" and support.device.type == "cpu":
         return knn_small_k_ref(query, support, k)
     _check_small_k("knn_small_k", query, support, k)
+    if knn_route(query.shape[1], support.shape[1]) == "knn_small_k_pruned":
+        return _knn_pruned(query, support, k, None, None)
+    return knn_split(query, support, k)
+
+
+def knn_split(query: torch.Tensor, support: torch.Tensor, k: int):
+    """The split kernel ``csrc/knn_split.cu`` (``knn_split_plan`` chosen
+    here), whatever ``knn_route`` says; CPU tensors go to
+    ``knn_small_k_ref``."""
+    if query.device.type == "cpu" and support.device.type == "cpu":
+        return knn_small_k_ref(query, support, k)
+    _check_small_k("knn_split", query, support, k)
     B, Q, _ = query.shape
     N = support.shape[1]
     S, split_len = knn_split_plan(B, Q, N, _num_sms(query.device.index))
@@ -204,38 +239,91 @@ def knn_small_k_unsplit(query: torch.Tensor, support: torch.Tensor, k: int):
     return d2, idx
 
 
-def knn_pruned_plan(query: torch.Tensor, support: torch.Tensor,
-                tq: int = PRUNED_TILE, cs: int = PRUNED_CHUNK):
-    """What ``knn_small_k_pruned``'s kernel reads, in plain PyTorch (the
-    part of ``pallas_knn_pruned.py:knn_small_k_pruned`` outside its
-    ``pallas_call``, lines 120-146): both clouds Morton-sorted; the box of
-    each tile of ``tq`` sorted queries (the last tile padded with the last
-    query) and of each chunk of ``cs`` sorted supports; per tile the chunks
-    in ascending box-to-box squared distance (a stable sort) and those
-    distances in that order.
+class KnnPrunedPlan(NamedTuple):
+    """What ``knn_small_k_pruned``'s kernel reads: ``q_order`` (B, Q)
+    int64, the stable sort of the queries' Morton codes (a view of the
+    joint order, rows Q + N apart); ``s4`` (B, N, 4) float32, the supports
+    in the stable sort of their codes as (x, y, z, original index as the
+    float's bits); ``boxes`` (B, NC, 2, 4) float32, the (min, max) xyz of
+    each chunk of ``PRUNED_CHUNK`` sorted supports, NaN where a coordinate
+    on that axis is NaN (``[..., 3]`` is 0)."""
+    q_order: torch.Tensor
+    s4: torch.Tensor
+    boxes: torch.Tensor
 
-    Returns ``(sorted_q, q_order, sorted_s, s_order, visit (B, NT, NC)
-    int32, d2cb (B, NT, NC))``."""
-    B, Q, _ = query.shape
-    N = support.shape[1]
-    NT, NC = -(-Q // tq), -(-N // cs)
-    sq, qord = spatial_sort(query)
-    ss, sord = spatial_sort(support)
-    qpad = torch.cat([sq, sq[:, -1:].expand(B, NT * tq - Q, 3)], dim=1)
-    tiles = qpad.reshape(B, NT, tq, 3)
-    tmin, tmax = tiles.amin(dim=2), tiles.amax(dim=2)
-    spad = torch.nn.functional.pad(ss, (0, 0, 0, NC * cs - N), value=1e9)
-    chunks = spad.reshape(B, NC, cs, 3)
-    valid = (torch.arange(NC * cs, device=support.device) < N).reshape(
-        1, NC, cs, 1)
-    cmin = torch.where(valid, chunks, 4e9).amin(dim=2)
-    cmax = torch.where(valid, chunks, -4e9).amax(dim=2)
-    gap = torch.maximum(cmin[:, None] - tmax[:, :, None],
-                        tmin[:, :, None] - cmax[:, None]).clamp_min(0.0)
-    d2cb = (gap * gap).sum(dim=-1)                          # (B, NT, NC)
-    d2cb, visit = torch.sort(d2cb, dim=-1, stable=True)
-    return (sq.contiguous(), qord, ss.contiguous(), sord.contiguous(),
-            visit.to(torch.int32).contiguous(), d2cb.contiguous())
+
+def knn_pruned_order(query: torch.Tensor, support: torch.Tensor
+                     ) -> torch.Tensor:
+    """Both clouds in Morton order from one sort: (B, Q + N) int64, the
+    stable sort of ``morton_codes_kernel(query, support)`` (the supports'
+    codes tagged above the queries'), so columns [0, Q) are the stable
+    sort of the queries' codes and columns [Q, Q + N) Q plus that of the
+    supports' codes."""
+    return torch.sort(morton_codes_kernel(query, support), dim=-1,
+                      stable=True).indices
+
+
+def knn_pruned_plan(query: torch.Tensor, support: torch.Tensor
+                    ) -> KnnPrunedPlan:
+    """The pruned kernel's plan (the part of
+    ``pallas_knn_pruned.py:knn_small_k_pruned`` outside its
+    ``pallas_call``, with 128-support chunks and no tile-by-chunk sort: the
+    kernel orders its own visits): ``knn_pruned_order`` (one Morton launch
+    for both clouds and one stable ``torch.sort``), then
+    ``knn_pruned_prepare``. On the CPU the same in plain PyTorch."""
+    Q = query.shape[1]
+    order = knn_pruned_order(query, support)
+    return KnnPrunedPlan(order[:, :Q],
+                         *knn_pruned_prepare(support, order[:, Q:], base=Q))
+
+
+def knn_pruned_prepare_ref(support: torch.Tensor, order: torch.Tensor,
+                           base: int = 0):
+    """Plain version of ``knn_pruned_prepare``, on any device."""
+    B, N = support.shape[:2]
+    NC = -(-N // PRUNED_CHUNK)
+    order = order - base
+    ss = torch.gather(support, 1, order[..., None].expand(-1, -1, 3))
+    s4 = torch.cat([ss, order.to(torch.int32).view(torch.float32)
+                    [..., None]], dim=-1)
+    chunks = torch.nn.functional.pad(
+        ss, (0, 0, 0, NC * PRUNED_CHUNK - N)).reshape(B, NC, PRUNED_CHUNK, 3)
+    valid = (torch.arange(NC * PRUNED_CHUNK, device=support.device)
+             < N).reshape(1, NC, PRUNED_CHUNK, 1)
+    inf = float("inf")
+    lo = torch.where(valid, chunks, inf).amin(dim=2)
+    hi = torch.where(valid, chunks, -inf).amax(dim=2)
+    return s4, torch.nn.functional.pad(torch.stack([lo, hi], dim=2), (0, 1))
+
+
+def knn_pruned_prepare(support: torch.Tensor, order: torch.Tensor,
+                       base: int = 0):
+    """The supports in ``order - base`` ((B, N) int64, rows contiguous) as
+    (B, N, 4) float32 rows (x, y, z, original index as the float's bits)
+    and the (min, max) xyz of each chunk of ``PRUNED_CHUNK`` of them, (B,
+    NC, 2, 4), NaN kept: the kernel ``geot_knn_pruned_prepare`` (one
+    launch) for CUDA tensors, ``knn_pruned_prepare_ref`` on the CPU."""
+    if support.device.type == "cpu":
+        return knn_pruned_prepare_ref(support, order, base)
+    B, N = support.shape[:2]
+    NC = -(-N // PRUNED_CHUNK)
+    if support.device.type != "cuda" or order.device != support.device \
+            or order.dtype != torch.int64 or order.shape != (B, N) \
+            or not support.is_contiguous() or order.stride(-1) != 1:
+        raise ValueError("knn_pruned_prepare: expected a contiguous CUDA "
+                         "(B, N, 3) support and (B, N) int64 order with "
+                         "contiguous rows on its device")
+    lib = _build.library()
+    s4 = torch.empty((B, N, 4), dtype=torch.float32, device=support.device)
+    boxes = torch.empty((B, NC, 2, 4), dtype=torch.float32,
+                        device=support.device)
+    stream = torch.cuda.current_stream(support.device).cuda_stream
+    with torch.cuda.device(support.device):
+        rc = lib.geot_knn_pruned_prepare(
+            support.data_ptr(), order.data_ptr(), order.stride(0), base,
+            s4.data_ptr(), boxes.data_ptr(), B, N, stream)
+    _build.check_launch("knn_pruned_prepare", rc)
+    return s4, boxes
 
 
 def knn_small_k_pruned_ref(query: torch.Tensor, support: torch.Tensor,
@@ -246,15 +334,16 @@ def knn_small_k_pruned_ref(query: torch.Tensor, support: torch.Tensor,
 
 
 def knn_small_k_pruned(query: torch.Tensor, support: torch.Tensor, k: int,
-                       skipped: "torch.Tensor | None" = None, plan=None):
+                       skipped: "torch.Tensor | None" = None,
+                       plan: "KnnPrunedPlan | None" = None):
     """Exact kNN for 1 <= k <= 4 on xyz, equal to ``knn_small_k``: squared
     d2 and int32 idx, each (B, Q, k), ascending, ties to the smaller index.
 
     A CUDA tensor goes to the kernel, a CPU tensor to
     ``knn_small_k_pruned_ref``. ``skipped``, a one-element int64 CUDA
-    tensor, gets the number of (query tile, support chunk) pairs the kernel
-    skipped added to it. ``plan`` is ``knn_pruned_plan(query, support)`` when
-    the caller has it already."""
+    tensor, gets the number of (32-query tile, 128-support chunk) pairs the
+    kernel did not visit added to it. ``plan`` is ``knn_pruned_plan(query,
+    support)`` when the caller has it already."""
     if query.device.type == "cpu" and support.device.type == "cpu":
         return knn_small_k_pruned_ref(query, support, k)
     _check_small_k("knn_small_k_pruned", query, support, k)
@@ -263,24 +352,49 @@ def knn_small_k_pruned(query: torch.Tensor, support: torch.Tensor, k: int,
                                 or skipped.device != query.device):
         raise ValueError("knn_small_k_pruned: skipped must be one int64 "
                          "element on the device of query")
+    return _knn_pruned(query, support, k, skipped, plan)
+
+
+def _knn_pruned(query, support, k, skipped, plan):
+    """``knn_small_k_pruned`` on checked CUDA tensors. Without a plan: the
+    Morton launch, one sort, and the prepare and search kernels from one
+    call, with the device made current once."""
     B, Q, _ = query.shape
     N = support.shape[1]
+    if Q < 1:
+        raise ValueError("knn_small_k_pruned: need Q >= 1")
+    if N > PRUNED_MAX_CHUNKS * PRUNED_CHUNK:
+        raise ValueError(f"knn_small_k_pruned: N = {N} supports is more "
+                         f"than {PRUNED_MAX_CHUNKS * PRUNED_CHUNK}")
+    dev = query.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.library()
-    sq, qord, ss, sord, visit, d2cb = (knn_pruned_plan(query, support)
-                                        if plan is None else plan)
-    d2s = torch.empty((B, Q, k), dtype=torch.float32, device=query.device)
-    idxs = torch.empty((B, Q, k), dtype=torch.int32, device=query.device)
-    stream = torch.cuda.current_stream(query.device).cuda_stream
-    rc = lib.geot_knn_small_k_pruned(
-        sq.data_ptr(), ss.data_ptr(), sord.data_ptr(), visit.data_ptr(),
-        d2cb.data_ptr(), d2s.data_ptr(), idxs.data_ptr(),
-        skipped.data_ptr() if skipped is not None else None, B, Q, N, k,
-        stream)
+    d2 = torch.empty((B, Q, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, Q, k), dtype=torch.int32, device=dev)
+    skip_ptr = skipped.data_ptr() if skipped is not None else None
+    with torch.cuda.device(dev):
+        if plan is None:
+            order = torch.sort(morton_launch(query, support, stream), dim=-1,
+                               stable=True).indices
+            # s4 (B, N) and the boxes (B, NC, 2) float4 in one allocation
+            NC = -(-N // PRUNED_CHUNK)
+            scratch = torch.empty(B * (N + 2 * NC) * 4, dtype=torch.float32,
+                                  device=dev)
+            s4 = scratch.data_ptr()
+            o = order.data_ptr()
+            rc = lib.geot_knn_small_k_pruned(
+                query.data_ptr(), o, Q + N, support.data_ptr(), o + 8 * Q,
+                Q + N, Q, s4, s4 + 16 * B * N, d2.data_ptr(), idx.data_ptr(),
+                skip_ptr, B, Q, N, k, stream)
+        else:
+            rc = lib.geot_knn_small_k_pruned(
+                query.data_ptr(), plan.q_order.data_ptr(),
+                plan.q_order.stride(0), None, None, 0, 0,
+                plan.s4.data_ptr(), plan.boxes.data_ptr(), d2.data_ptr(),
+                idx.data_ptr(), skip_ptr, B, Q, N, k, stream)
     _build.check_launch("knn_small_k_pruned", rc)
-    # rows back to the caller's query order
-    rows = qord.long()[..., None].expand(-1, -1, k)
-    d2 = torch.empty_like(d2s).scatter_(1, rows, d2s)
-    idx = torch.empty_like(idxs).scatter_(1, rows, idxs)
+    if plan is None:
+        _build.check_launch("knn_pruned_prepare", rc)
     return d2, idx
 
 

@@ -14,7 +14,9 @@ import torch
 
 from geot_tpu_torch import ops
 from geot_tpu_torch.engine.predict import load_model
-from geot_tpu_torch.ops.fps import CLUSTER_SIZES, card_cluster_size
+from geot_tpu_torch.ops.fps import (BUCKET, CLUSTER_SIZES,
+                                    card_bucket_max_active,
+                                    card_cluster_size)
 
 SMALL_ARGS = {"NAME": "PointTransformer_seg_T", "trans_dim": 48, "depth": 3,
               "num_heads": 4, "group_size": 8, "num_group": 32,
@@ -114,13 +116,32 @@ def test_fps_stratified_on_the_card_equals_the_cpu(cuda, distinct):
 
 
 def test_fps_routes_an_oversized_cloud_to_the_block_kernel(cuda):
+    """A cloud past what the bucket kernel's clusters hold goes to the
+    one-block kernel."""
     C = card_cluster_size(cuda, 1)
-    xyz = _cloud(8, (1, C * 256 * 16 + 1, 3)).to(cuda)
+    xyz = _cloud(8, (1, ops.bucket_capacity(16) + 1, 3)).to(cuda)
     assert ops.fps_plan(xyz.shape[1], C).route == "fps"
     n0 = dict(ops.LAUNCHES)
     got = ops.fps(xyz, 200)
     assert ops.LAUNCHES == dict(n0, fps=n0["fps"] + 1)
     torch.testing.assert_close(got, ops.fps_ref(xyz, 200), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("N", [16 * 4096 + 1, 150000])
+def test_fps_routes_a_cloud_past_the_cluster_to_the_bucket_kernel(cuda, N):
+    """A cloud past the cluster kernel's registers (C x 4,096 points) and
+    within the bucket kernel's shared memory goes to the bucket kernel
+    (its plan's Morton launch, then the kernel), bit-equal to the one-block
+    kernel it replaced there."""
+    C = card_cluster_size(cuda, 1)
+    xyz = _cloud(8, (1, N, 3)).to(cuda)
+    assert ops.fps_plan(N, C).route == "fps"
+    n0 = dict(ops.LAUNCHES)
+    got = ops.fps(xyz, 1000)
+    assert ops.LAUNCHES == dict(n0, fps_bucket=n0["fps_bucket"] + 1,
+                                morton=n0["morton"] + 1)
+    torch.testing.assert_close(got, ops.fps_block(xyz, 1000), rtol=0,
+                               atol=0)
 
 
 def test_cluster_exchange_runs_at_every_size(cuda):
@@ -171,29 +192,94 @@ def test_knn_split_kernel_matches_plain_at_path_shapes(cuda, B, Q, N, k, dup):
                    _cloud(10, (B, Q - min(Q, s.shape[1]) // 2, 3)).to(cuda)],
                   dim=1).contiguous()
     n0 = ops.LAUNCHES["knn_split"]
-    d, i = ops.knn_small_k(q, s, k)
+    d, i = ops.knn_split(q, s, k)
     assert ops.LAUNCHES["knn_split"] == n0 + 1
     d_r, i_r = ops.knn_small_k_ref(q, s, k)
     torch.testing.assert_close(i, i_r, rtol=0, atol=0)
     torch.testing.assert_close(d, d_r, rtol=0, atol=0)
+    # the path's route at this shape (the pruned kernel at the upsample)
+    d_p, i_p = ops.knn_small_k(q, s, k)
+    assert torch.equal(i_p, i) and torch.equal(d_p, d)
 
 
+def _bucket_count(B, N, C):
+    """How many buckets ``fps_bucket``'s C blocks hold for B clouds of N
+    points (the (step, bucket) updates of one step)."""
+    per = -(-N // C)
+    return B * sum(-(-max(0, min(N - r * per, per)) // BUCKET)
+                   for r in range(C))
+
+
+# the training FPS shape, small and ragged clouds, ties, a cloud just past
+# the cluster kernel's capacity (C x 4,096 points: the route "fps") and a
+# whole 150,000-point scan
 @pytest.mark.parametrize("B,N,npoint,dup", [(1, 16000, 8192, False),
                                              (2, 2500, 700, False),
                                              (1, 30000, 300, False),
                                              (1, 100, 64, False),
-                                             (2, 1000, 600, True)])
+                                             (2, 1000, 600, True),
+                                             (1, 16 * 4096 + 1, 2000, False),
+                                             (1, 150000, 8192, False)])
 def test_fps_bucket_kernel_matches_plain_and_fps(cuda, B, N, npoint, dup):
     xyz = _cloud(4, (B, N, 3), dup).to(cuda)
-    n0 = ops.LAUNCHES["fps_bucket"]
+    n0 = dict(ops.LAUNCHES)
     skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
     got = ops.fps_bucket(xyz, npoint, skipped=skipped)
-    assert ops.LAUNCHES["fps_bucket"] == n0 + 1
+    assert ops.LAUNCHES == dict(n0, fps_bucket=n0["fps_bucket"] + 1,
+                                morton=n0["morton"] + 1)
     torch.testing.assert_close(got, ops.fps_bucket_ref(xyz, npoint), rtol=0,
                                atol=0)
-    torch.testing.assert_close(got, ops.fps(xyz, npoint), rtol=0, atol=0)
-    nb = -(-xyz.shape[1] // 1024)
-    assert 0 <= int(skipped) <= B * nb * (npoint - 1)
+    path = (ops.fps(xyz, npoint) if N <= 16 * 4096
+            else ops.fps_block(xyz, npoint))
+    torch.testing.assert_close(got, path, rtol=0, atol=0)
+    C = ops.fps_bucket_size(card_bucket_max_active(cuda), B, xyz.shape[1])
+    assert 0 <= int(skipped) <= (npoint - 1) * _bucket_count(
+        B, xyz.shape[1], C)
+
+
+def test_fps_bucket_at_smaller_clusters_and_a_nan_coordinate(cuda):
+    """Batches too large for clusters of 16 run on smaller ones, with the
+    same indices; a NaN coordinate is taken as the cluster kernel takes it
+    (its d2 leaves the min-distance as it is)."""
+    sizes = set()
+    for B in (1, 8, 16):
+        xyz = _cloud(5, (B, 20000, 3)).to(cuda)
+        sizes.add(ops.fps_bucket_size(card_bucket_max_active(cuda), B,
+                                      20000))
+        torch.testing.assert_close(ops.fps_bucket(xyz, 3000),
+                                   ops.fps(xyz, 3000), rtol=0, atol=0)
+    assert len(sizes) > 1
+    xyz = _cloud(5, (2, 20000, 3)).to(cuda)
+    xyz[0, 77, 1] = float("nan")
+    xyz[1, 1000:1100, 0] = float("nan")
+    torch.testing.assert_close(ops.fps_bucket(xyz, 500), ops.fps(xyz, 500),
+                               rtol=0, atol=0)
+
+
+def test_morton_kernel_matches_morton_codes(cuda):
+    """The plans' first launch: both clouds' codes in one launch (one
+    joint row, the second cloud's tagged), bit-equal to ``morton_codes``
+    on the card, ragged sizes and duplicates; the plans' orders equal the
+    stable sorts of those codes."""
+    a = _cloud(3, (2, 16000, 3), dup=True).to(cuda)
+    b = _cloud(4, (2, 777, 3)).to(cuda)
+    for x in (a, b, a[:, :5].contiguous()):
+        n0 = ops.LAUNCHES["morton"]
+        assert torch.equal(ops.morton_codes_kernel(x), ops.morton_codes(x))
+        assert ops.LAUNCHES["morton"] == n0 + 1
+    n0 = ops.LAUNCHES["morton"]
+    joint = ops.morton_codes_kernel(a, b)
+    assert ops.LAUNCHES["morton"] == n0 + 1
+    assert torch.equal(joint, ops.morton_codes_joint(a, b))
+    n = a.shape[1]
+    assert torch.equal(joint[:, :n], ops.morton_codes(a))
+    assert torch.equal(joint[:, n:], ops.morton_codes(b) | (1 << 30))
+    assert torch.equal(ops.fps_bucket_plan(a), torch.sort(
+        ops.morton_codes(a), dim=-1, stable=True).indices)
+    plan = ops.knn_pruned_plan(b, a)
+    cpu = ops.knn_pruned_plan(b.cpu(), a.cpu())
+    for got, want in zip(plan, cpu):
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("Q,N,k,dup", [(300, 450, 3, False),
@@ -206,15 +292,46 @@ def test_knn_pruned_kernel_matches_plain_and_knn(cuda, Q, N, k, dup):
     s = _cloud(5, (2, N, 3), dup).to(cuda)
     q = torch.cat([s[:, :Q // 2], _cloud(6, (2, Q - Q // 2, 3)).to(cuda)],
                   dim=1).contiguous()          # half the queries are supports
-    n0 = ops.LAUNCHES["knn_small_k_pruned"]
+    n0 = dict(ops.LAUNCHES)
     skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
     d, i = ops.knn_small_k_pruned(q, s, k, skipped=skipped)
-    assert ops.LAUNCHES["knn_small_k_pruned"] == n0 + 1
+    assert ops.LAUNCHES == dict(
+        n0, knn_small_k_pruned=n0["knn_small_k_pruned"] + 1,
+        morton=n0["morton"] + 1,
+        knn_pruned_prepare=n0["knn_pruned_prepare"] + 1)
     for d_r, i_r in (ops.knn_small_k_pruned_ref(q, s, k),
                      ops.knn_small_k(q, s, k)):
         torch.testing.assert_close(i, i_r, rtol=0, atol=0)
         torch.testing.assert_close(d, d_r, rtol=0, atol=0)
-    assert 0 <= int(skipped) <= 2 * -(-Q // 256) * -(-N // 1024)
+    assert 0 <= int(skipped) <= 2 * -(-q.shape[1] // 32) * -(-N // 128)
+
+
+@pytest.mark.parametrize("B,Q,N,k", [(1, 40960, 16000, 3),
+                                     (1, 155648, 16000, 3),
+                                     (1, 24576, 16000, 3),
+                                     (1, 32768, 16000, 3),
+                                     (2, 16000, 16000, 2),
+                                     (1, 16000, 8192, 3)])
+def test_knn_route_at_its_crossover_shapes(cuda, B, Q, N, k):
+    """``knn_route`` takes the pruned kernel from ``PRUNED_MIN_PAIRS``
+    pairs a cloud on (the upsamples of 40,000- and 150,000-point scans),
+    ``knn_split`` below (propagation_0, the top2 self-search); either way
+    the route is bit-equal to the other kernel."""
+    from geot_tpu_torch.ops.knn import PRUNED_MIN_PAIRS
+
+    s = _cloud(11, (B, N, 3)).to(cuda)
+    q = torch.cat([s[:, :min(Q, N) // 2],
+                   _cloud(12, (B, Q - min(Q, N) // 2, 3)).to(cuda)],
+                  dim=1).contiguous()
+    route = ops.knn_route(Q, N)
+    assert (route == "knn_small_k_pruned") == (Q * N >= PRUNED_MIN_PAIRS)
+    n0 = dict(ops.LAUNCHES)
+    d, i = ops.knn_small_k(q, s, k)
+    assert ops.LAUNCHES[route] == n0[route] + 1
+    other = (ops.knn_split if route == "knn_small_k_pruned"
+             else ops.knn_small_k_pruned)
+    d_o, i_o = other(q, s, k)
+    assert torch.equal(i, i_o) and torch.equal(d, d_o)
 
 
 def test_knn_kernel_rejects_what_it_does_not_take(cuda):
@@ -234,7 +351,8 @@ def test_knn_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         ops.knn_small_k_pruned(q, q, 5)
     with pytest.raises(ValueError):
-        ops.fps_bucket(torch.zeros((1, 31 * 1024, 3), device=cuda), 8)
+        ops.fps_bucket(torch.zeros((1, ops.bucket_capacity(16) + 1, 3),
+                                   device=cuda), 8)
 
 
 def test_forward_on_the_card_matches_the_cpu(cuda):
@@ -556,8 +674,8 @@ def test_fps_and_knn_at_the_zoo_shapes_when_serving(cuda):
 def test_upsample_search_of_a_150000_point_scan(cuda):
     """The full-resolution upsample of a 150,000-vertex scan: its points
     padded to 19 x 8,192 = 155,648 rows (``engine.eval.pad_to_bucket``)
-    against 16,000 sampled points, k = 3, bit-equal to the plain
-    version."""
+    against 16,000 sampled points, k = 3: routed to the pruned kernel with
+    its plan, bit-equal to the plain version and to the split kernel."""
     from geot_tpu_torch.data.tooth_semi import _synthetic_scan, pc_norm
     from geot_tpu_torch.engine.eval import pad_to_bucket
 
@@ -567,11 +685,16 @@ def test_upsample_search_of_a_150000_point_scan(cuda):
     sel = np.random.default_rng(0).choice(150000, 16000, replace=False)
     sup = torch.from_numpy(np.ascontiguousarray(norm[sel]))[None].to(cuda)
     assert full.shape == (1, 155648, 3)
-    n0 = ops.LAUNCHES["knn_split"]
+    n0 = dict(ops.LAUNCHES)
     d, i = ops.knn(full.contiguous(), sup, 3, squared=True)
-    assert ops.LAUNCHES["knn_split"] == n0 + 1
+    assert ops.LAUNCHES == dict(
+        n0, knn_small_k_pruned=n0["knn_small_k_pruned"] + 1,
+        morton=n0["morton"] + 1,
+        knn_pruned_prepare=n0["knn_pruned_prepare"] + 1)
     d_r, i_r = ops.knn_small_k_ref(full.contiguous(), sup, 3)
     assert torch.equal(i, i_r) and torch.equal(d, d_r)
+    d_s, i_s = ops.knn_split(full.contiguous(), sup, 3)
+    assert torch.equal(i, i_s) and torch.equal(d, d_s)
 
 
 def _write_obj(path, pts):
