@@ -187,6 +187,24 @@ Phases, each printed with the seconds elapsed when it starts:
    ``DP_WEIGHT_RMS_LR`` learning rates (root mean square); step ms of
    both. A control run whose ranks take rank 0's gradient in place of
    the sum must land past the last three bounds.
+15. pretraining: ``cfgs/tooth_pretrain/viewgen.yaml`` at its width
+   (trans_dim 384, depth 12, 512 groups of 32, 16,000 points, batch 2, 2
+   views, ``ViewTransformer`` depth 2, 128 x 128 renders, cosine with 5
+   warmup epochs) on the synthetic scans and renders: kernel 1 at the
+   tokenizer's (2, 16000) -> 512 bit-equal to its plain version and timed
+   kernel-only; 5 steps and 4 validation batches timed (median after the
+   first, peak memory), one ``fps_cluster`` launch each and no other
+   kernel; 2 profiled steps (device time by kernel, idle share); one forward with the same weights on the card and the CPU (loss
+   within ``PRETRAIN_LOSS_RTOL`` relative, recon within
+   ``PRETRAIN_RECON_ATOL``); ``parse_and_run`` for 2 epochs (the cuts
+   ``PRETRAIN_CUTS`` logged) with each epoch's lr the schedule's, finite
+   losses, ``latest``/``best``/``E1``/``E2``, then ``mode=resume`` from
+   ``E1``, which writes epoch 2 only; one epoch from a manifest tree of OBJ
+   clouds and 8-bit RGB PNG renders written with ``zlib`` (read back
+   bit-equal); the flagship recipe with ``pretrain_encoder_path=<best>``
+   on a Teeth3DS tree for one semi step of 2 + 2 + 2: the student's and the
+   teacher's trunk equal to the checkpoint's encoder, nothing skipped,
+   finite losses, phase 6's launches for the step.
 Phase 3 also holds ``fps_cluster`` at the serving topology's prefix,
 (1|6, 16000) -> 1024 and a duplicate-heavy cloud, and ``knn_split`` at a
 fast scan's 6 searches, against their plain versions, with times and
@@ -3860,6 +3878,418 @@ def phase_export_dp(bound: Bound):
                         "knn_split": ops_rows[1]}, "launches": total, **out}
 
 
+# phase 15: GeoT's pretraining stage. viewgen.yaml at its own width; the
+# cuts, each logged: epochs (60 -> 2), val_freq (10 -> 1) and save_freq
+# (60 -> 1, for the epoch-1 checkpoint the resume starts from)
+PRETRAIN_CUTS = ("epochs=2", "val_freq=1", "save_freq=1")
+# ViewGenBase, the same weights, card against CPU (eval mode): loss
+# relative, recon absolute
+PRETRAIN_LOSS_RTOL = 1e-4
+PRETRAIN_RECON_ATOL = 1e-3
+# the manifest tree of the from-disk run: 4 train and 2 val clouds
+_PRETRAIN_TREE = {"train": (0, 1, 2, 3), "val": (4, 5)}
+
+
+def _write_png(path, rgb):
+    """An 8-bit RGB PNG of ``rgb`` (H, W, 3) uint8, every row unfiltered,
+    with the standard library's ``zlib``."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _write_pretrain_tree(root, size):
+    """A ``tooth_6000_pca`` manifest tree: 6 OBJ clouds of 40,000 points
+    (``case<id>/case<id>_<jaw>.obj``), the 9 PCA views of each as 8-bit RGB
+    PNG renders (depth splats of the normalised cloud), and
+    ``<split>_pca_cur_0.5.json`` for ``train`` and ``val``. Returns the
+    renders of cloud 0 as written (uint8)."""
+    import numpy as np
+
+    from geot_tpu_torch.data.data_util import rotate_theta_phi
+    from geot_tpu_torch.data.tooth_pretrain import _PCA_ANGLES, _splat_render
+    from geot_tpu_torch.data.tooth_semi import _synthetic_scan, pc_norm
+
+    table = rotate_theta_phi(_PCA_ANGLES)
+    pcs, rgbs, first = [], [], None
+    for i in range(6):
+        case = os.path.join(root, f"case{i:04d}")
+        rdir = os.path.join(case, "render")
+        os.makedirs(rdir)
+        name = f"case{i:04d}_{'lower' if i % 2 == 0 else 'upper'}"
+        pts = _synthetic_scan(800 + i, 40000)[0]
+        _write_obj(os.path.join(case, name + ".obj"), pts)
+        norm = pc_norm(pts)[0].astype(np.float32)
+        renders = [np.round(_splat_render(norm, v, size) * 255).astype(
+            np.uint8) for v in table]
+        for v, img in enumerate(renders):
+            _write_png(os.path.join(rdir, f"{name}_{v}.png"), img)
+        first = first if first is not None else renders
+        pcs.append(os.path.join(case, name + ".obj"))
+        rgbs.append(rdir)
+    for split, which in _PRETRAIN_TREE.items():
+        with open(os.path.join(root, f"{split}_pca_cur_0.5.json"), "w") as f:
+            json.dump({"pc_data": [pcs[i] for i in which],
+                       "rgb_data": [rgbs[i] for i in which]}, f)
+    return first
+
+
+def phase_pretrain(bound: Bound, smi: str):
+    """Phase 15: GeoT's pretraining stage at ``viewgen.yaml``'s width."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.core.config import EasyConfig
+    from geot_tpu_torch.data.build import build_dataloader_from_cfg
+    from geot_tpu_torch.data.tooth_semi import _synthetic_scan
+    from geot_tpu_torch.engine import train as train_mod
+    from geot_tpu_torch.engine.checkpoint import ckpt_path, load_variables
+    from geot_tpu_torch.engine.pretrain import (make_pretrain_eval_step,
+                                                make_pretrain_step,
+                                                pretrain_batch)
+    from geot_tpu_torch.engine.state import TrainState
+    from geot_tpu_torch.optim import build_scheduler_from_cfg
+
+    log("phase 15: GeoT's pretraining stage (cfgs/tooth_pretrain/"
+        "viewgen.yaml) at full width")
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    viewgen = os.path.join(here, "cfgs", "tooth_pretrain", "viewgen.yaml")
+    flagship = os.path.join(here, "cfgs", "tooth_semi",
+                            "transformer_finetune_fixmatch_ntm.yaml")
+    cfg = EasyConfig()
+    cfg.load(viewgen, recursive=True)
+    enc, gen = cfg.model.encoder_args, cfg.model.generator_args
+    common = cfg.dataset.common
+    log(f"viewgen.yaml: trans_dim {enc.trans_dim}, depth {enc.depth}, "
+        f"{enc.num_group} groups of {enc.group_size}; {common.num_points} "
+        f"points, batch {cfg.batch_size}, {common.n_views} views; "
+        f"ViewTransformer depth {gen.depth}, {common.img_size} x "
+        f"{common.img_size} renders; {cfg.sched} with warmup_epochs "
+        f"{cfg.warmup_epochs}; cuts {list(PRETRAIN_CUTS)} (epochs "
+        f"{cfg.epochs}, val_freq {cfg.val_freq}, save_freq {cfg.save_freq} "
+        f"in the config)")
+    dev = torch.device("cuda")
+    B, N, G = int(cfg.batch_size), int(common.num_points), int(enc.num_group)
+    # launches on this phase's main paths: all of them, and kernel 1's at
+    # the pretraining shape, (B, N) -> G
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    at_shape = 0
+    one = _launch_counts(fps_cluster=1)
+
+    def counted():
+        for k, v in ops.LAUNCHES.items():
+            total[k] += v
+        ops.reset_launches()
+
+    loader = build_dataloader_from_cfg(B, cfg.dataset, None, split="train",
+                                       seed=int(cfg.seed))
+    loader.set_epoch(1)
+    it = iter(loader)
+    batches = [next(it) for _ in range(5)]
+    val_loader = build_dataloader_from_cfg(B, cfg.dataset, None, split="val",
+                                           seed=int(cfg.seed))
+    vals = [b for _, b in zip(range(4), val_loader)]
+
+    # kernel 1 at the tokenizer's shape: bit-equal, kernel-only time
+    pos = torch.from_numpy(batches[0]["pos"]).to(dev).contiguous()
+    got = ops.fps(pos, G)
+    ref = ops.fps_ref(pos, G)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"fps ({B},{N})->{G}: indices differ from "
+          f"fps_ref at {int((got != ref).sum())} places")
+    ms = graph_ms(lambda: ops.fps(pos, G), 10)
+    plain = cuda_ms(lambda: ops.fps_ref(pos, G), 1)
+    b_ms, b_by = _fps_bound(bound, B, N, G)
+    row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": float((got.long() - ref.long()).abs().max())}
+    log(f"fps ({B},{N})->{G}: bit-equal to fps_ref; kernel {ms:.4f} ms, "
+        f"plain {plain:.1f} ms, bound {b_ms:.5f} ms ({b_by})")
+    ops.reset_launches()
+
+    # timed steps and validation batches
+    state = TrainState.create(cfg, cfg.model, seed=int(cfg.seed), device=dev)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    step = make_pretrain_step(cfg)
+    eval_step = make_pretrain_eval_step()
+    lr = build_scheduler_from_cfg(cfg)(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    step_ms = []
+    for n, b in enumerate(batches):
+        b = pretrain_batch(b, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = float(step(state, b, lr)["loss"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        check(math.isfinite(loss), f"pretrain step {n}: loss {loss}")
+        check(dict(ops.LAUNCHES) == one, f"pretrain step {n}: launches "
+              f"{dict(ops.LAUNCHES)}, expected {one}")
+        at_shape += 1
+        counted()
+    peak_mb = (torch.cuda.max_memory_allocated() - resident) / 2 ** 20
+    # device time by kernel and the card's idle share of a step: a warm-up
+    # and 2 profiled steps, a launch each
+    b1 = pretrain_batch(batches[1], dev)
+    wall, busy = _profile("pretrain step", lambda: step(state, b1, lr), 2,
+                          top=10)
+    want_p = _launch_counts(fps_cluster=3)
+    check(dict(ops.LAUNCHES) == want_p, f"profiled pretrain steps: "
+          f"launches {dict(ops.LAUNCHES)}, expected {want_p}")
+    at_shape += 3
+    counted()
+    val_ms = []
+    for n, b in enumerate(vals):
+        b = pretrain_batch(b, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v = float(eval_step(state.model, b))
+        torch.cuda.synchronize()
+        val_ms.append((time.perf_counter() - t) * 1e3)
+        check(math.isfinite(v), f"pretrain val batch {n}: loss {v}")
+        check(dict(ops.LAUNCHES) == one, f"pretrain val batch {n}: launches "
+              f"{dict(ops.LAUNCHES)}, expected {one}")
+        at_shape += 1
+        counted()
+    step_med = statistics.median(step_ms[1:])
+    val_med = statistics.median(val_ms[1:])
+    log(f"pretrain: {n_params} parameters; steps "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} ms (median after the "
+        f"first {step_med:.2f} ms), val batches "
+        f"{', '.join(f'{x:.1f}' for x in val_ms)} ms (median after the "
+        f"first {val_med:.2f} ms), peak memory {peak_mb:.0f} MiB above the "
+        f"resident {resident / 2 ** 20:.0f} MiB; {smi}")
+
+    # the same weights and batch on the card and on the CPU
+    b = vals[0]
+    state.model.eval()
+    with torch.no_grad():
+        loss_g, rec_g = state.model(pretrain_batch(b, dev))
+        torch.cuda.synchronize()
+        at_shape += 1
+        counted()
+        cpu_model = copy.deepcopy(state.model).cpu().eval()
+        t = time.perf_counter()
+        loss_c, rec_c = cpu_model(pretrain_batch(b, "cpu"))
+        cpu_s = time.perf_counter() - t
+    d_loss = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    d_rec = float((rec_g.cpu() - rec_c).abs().max())
+    check(d_loss <= PRETRAIN_LOSS_RTOL and d_rec <= PRETRAIN_RECON_ATOL,
+          f"pretrain forward card vs CPU: loss {float(loss_g)} vs "
+          f"{float(loss_c)} ({d_loss:.2e} relative), recon max |d| {d_rec}")
+    log(f"pretrain forward card vs CPU: loss {float(loss_g):.8f} vs "
+        f"{float(loss_c):.8f} ({d_loss:.2e} relative, bound "
+        f"{PRETRAIN_LOSS_RTOL}), recon max |d| {d_rec:.2e} (bound "
+        f"{PRETRAIN_RECON_ATOL}); CPU forward {cpu_s:.1f} s")
+    del state, cpu_model
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="geot_pretrain_")
+    out = {}
+    try:
+        # the trainer: 2 epochs, then a resume from epoch 1
+        sched = build_scheduler_from_cfg(cfg)
+        steps = len(loader)
+        n_val = len(val_loader)
+        t = time.perf_counter()
+        res = train_mod.parse_and_run(["--cfg", viewgen, *PRETRAIN_CUTS,
+                                       f"root_dir={root}", "device=cuda"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        want = _launch_counts(fps_cluster=2 * (steps + n_val))
+        check(dict(ops.LAUNCHES) == want, f"pretrain trainer launches "
+              f"{dict(ops.LAUNCHES)}, expected {want}")
+        at_shape += 2 * (steps + n_val)
+        counted()
+        (run_dir,) = [os.path.join(root, "tooth_pretrain", d)
+                      for d in os.listdir(os.path.join(root,
+                                                       "tooth_pretrain"))]
+        name = os.path.basename(run_dir)
+        ck = os.path.join(run_dir, "checkpoint")
+        with open(os.path.join(run_dir, "scalars.jsonl")) as fh:
+            sc = [json.loads(x) for x in fh]
+        lrs = {d["step"]: d["value"] for d in sc if d["tag"] == "lr"}
+        check(lrs == {1: sched(1), 2: sched(2)}, f"pretrain lr by epoch "
+              f"{lrs}, the schedule's {sched(1)}, {sched(2)}")
+        losses = {d["step"]: d["value"] for d in sc
+                  if d["tag"] == "train_loss"}
+        check(len(losses) == 2 and all(map(math.isfinite, losses.values())),
+              f"pretrain train losses {losses}")
+        for tag in ("latest", "best", "E1", "E2"):
+            check(os.path.exists(ckpt_path(ck, name, tag)),
+                  f"pretrain: no {tag} checkpoint")
+        e1 = ckpt_path(ck, name, "E1")
+        t = time.perf_counter()
+        res_b = train_mod.parse_and_run(["--cfg", viewgen, *PRETRAIN_CUTS,
+                                         "mode=resume",
+                                         f"pretrained_path={e1}",
+                                         f"root_dir={root}", "device=cuda"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t
+        want_b = _launch_counts(fps_cluster=steps + n_val)
+        check(dict(ops.LAUNCHES) == want_b, f"pretrain resume launches "
+              f"{dict(ops.LAUNCHES)}, expected {want_b}")
+        at_shape += steps + n_val
+        counted()
+        with open(os.path.join(run_dir, "scalars.jsonl")) as fh:
+            sc_b = [json.loads(x) for x in fh][len(sc):]
+        check({d["step"] for d in sc_b} == {2}, f"the resume wrote epochs "
+              f"{sorted({d['step'] for d in sc_b})}, expected [2]")
+        lr_b = [d["value"] for d in sc_b if d["tag"] == "lr"]
+        check(lr_b == [sched(2)], f"resumed lr {lr_b}")
+        b2 = {d["tag"]: d["value"] for d in sc_b}
+        log(f"pretrain trainer: {run_s:.1f} s for 2 epochs of {steps} steps "
+            f"and {n_val} val batches; lr {lrs}; train loss {losses}; val "
+            f"loss {res['val_loss']:.6f}, best {res['best']}; resume from "
+            f"E1 {resume_s:.1f} s: epoch 2 train loss {b2['train_loss']:.6f}"
+            f" (uninterrupted {losses[2]:.6f}), val {res_b['val_loss']:.6f}")
+        best = ckpt_path(ck, name, "best")
+
+        # one epoch from a manifest tree: OBJ clouds and PNG renders
+        tree = os.path.join(root, "tree")
+        written = _write_pretrain_tree(tree, int(common.img_size))
+        ds = build_dataloader_from_cfg(B, {"common": dict(
+            common, data_root=tree)}, None, split="train", seed=0).dataset
+        check(not ds.synthetic and len(ds) == 4, "the manifest tree was "
+              "not read")
+        ds.epoch = 1
+        item = ds[0]
+        rng = ds._rng(0)
+        ds._point_payload(0, rng)
+        views = ds._views_for(ds.file_list[0], rng)[0]
+        check(all(np.array_equal(item["imgs"][j],
+                                 written[v].astype(np.float32) / 255)
+                  for j, v in enumerate(views)),
+              "the PNG renders read back differ from those written")
+        t = time.perf_counter()
+        res_d = train_mod.parse_and_run(["--cfg", viewgen, "epochs=1",
+                                         f"dataset.common.data_root={tree}",
+                                         f"root_dir={root}/disk",
+                                         "device=cuda"])
+        torch.cuda.synchronize()
+        disk_s = time.perf_counter() - t
+        want_d = _launch_counts(fps_cluster=len(_PRETRAIN_TREE["train"])
+                                // B + len(_PRETRAIN_TREE["val"]) // B)
+        check(dict(ops.LAUNCHES) == want_d, f"pretrain from disk launches "
+              f"{dict(ops.LAUNCHES)}, expected {want_d}")
+        check(math.isfinite(res_d["val_loss"]), f"from disk: val loss "
+              f"{res_d['val_loss']}")
+        at_shape += sum(want_d.values())
+        counted()
+        log(f"pretrain from a manifest tree (6 OBJ clouds of 40,000 points, "
+            f"9 PNG renders each): views {[int(v) for v in views]} of cloud 0 "
+            f"read back "
+            f"bit-equal; 1 epoch {disk_s:.1f} s, val loss "
+            f"{res_d['val_loss']:.6f}")
+
+        # the graft into the flagship, one semi step of 2 + 2 + 2
+        teeth = os.path.join(root, "teeth3ds")
+        os.makedirs(teeth)
+        _write_teeth3ds(teeth, [(f"P{i:03d}", i % 2,
+                                 *_synthetic_scan(600 + i, 40000))
+                                for i in range(6)], _DP_SPLITS)
+        enc_sd = {k[len("encoder."):]: v for k, v in
+                  load_variables(best, False).items()
+                  if k.startswith("encoder.")}
+        seen = {}
+        real_step, real_graft = (train_mod.make_semi_step,
+                                 train_mod.load_pretrain_encoder)
+
+        def graft(*args, **kwargs):
+            merged, skipped = real_graft(*args, **kwargs)
+            seen["skipped"] = skipped
+            return merged, skipped
+
+        def make(cfg_):
+            semi_step = real_step(cfg_)
+
+            def first(state_, *args, **kwargs):
+                for who, m in (("student", state_.model),
+                               ("teacher", state_.teacher)):
+                    sd = m.state_dict()
+                    bad = [k for k, v in enc_sd.items()
+                           if not torch.equal(sd["segmentor." + k].cpu(), v)]
+                    check(not bad, f"graft: the {who}'s trunk differs from "
+                          f"the checkpoint at {bad[:3]}")
+                counted()
+                m_ = semi_step(state_, *args, **kwargs)
+                torch.cuda.synchronize()
+                seen["step"] = dict(ops.LAUNCHES)
+                seen["losses"] = {k: float(m_[k]) for k in
+                                  ("loss", "sup_loss", "unsup_loss")}
+                counted()
+                return m_
+
+            return first
+
+        train_mod.make_semi_step = make
+        train_mod.load_pretrain_encoder = graft
+        try:
+            t = time.perf_counter()
+            res_f = train_mod.parse_and_run([
+                "--cfg", flagship, f"dataset_l.common.data_root={teeth}",
+                f"dataset_u.common.data_root={teeth}", "epochs=1",
+                "val_freq=1", "test_freq=1", f"pretrain_encoder_path={best}",
+                f"root_dir={root}/ft", "device=cuda"])
+            torch.cuda.synchronize()
+            ft_s = time.perf_counter() - t
+        finally:
+            train_mod.make_semi_step = real_step
+            train_mod.load_pretrain_encoder = real_graft
+        counted()
+        check(seen.get("skipped") == [], f"graft skipped "
+              f"{seen.get('skipped')}")
+        trunk = {k.split(".", 1)[0] for k in enc_sd}
+        check(trunk == {"encoder", "reduce_dim", "pos_embed", "blocks",
+                        "norm"}, f"the checkpoint's encoder holds {trunk}")
+        want_s = _launch_counts(**_PER_STEP)
+        check(seen["step"] == want_s, f"the grafted step's launches "
+              f"{seen['step']}, phase 6's step {want_s}")
+        check(all(map(math.isfinite, seen["losses"].values())),
+              f"the grafted step's losses {seen['losses']}")
+        for split in ("val", "test"):
+            # one lower-jaw scan: the maxillary metrics are NaN
+            bad = {k: v for k, v in res_f[split].items()
+                   if k.startswith("whole_")
+                   and not (math.isfinite(v) and 0.0 <= v <= 1.0)}
+            check(not bad, f"grafted finetune: {split} metrics {bad}")
+        log(f"graft: {len(enc_sd)} trunk entries of {os.path.basename(best)}"
+            f" in the student and the teacher, nothing skipped; one semi "
+            f"step of 2 + 2 + 2: launches {seen['step']}, losses "
+            f"{seen['losses']}; the run {ft_s:.1f} s")
+        out.update(run_s=run_s, resume_s=resume_s, disk_s=disk_s, ft_s=ft_s,
+                   finetune_losses=seen["losses"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{total}")
+    out.update(kernels={"fps_pretrain": dict(row, launches=at_shape)},
+               launches=total, params=n_params, step_ms=step_ms,
+               step_median_ms=step_med, val_ms=val_ms,
+               val_median_ms=val_med, peak_mb=peak_mb,
+               profile_wall_ms=wall, profile_busy_ms=busy,
+               card_vs_cpu={"loss_rel": d_loss, "recon_abs": d_rec})
+    return out
+
+
 def resume_check(root: str) -> int:
     """``--resume-check ROOT`` (phase 8 runs it in a child process with
     ``CUBLAS_WORKSPACE_CONFIG`` set): with deterministic algorithms on, the
@@ -3991,6 +4421,7 @@ def main() -> int:
     zoo = phase_zoo(Bound(limit_w))
     files = phase_files(Bound(limit_w))
     export_dp = phase_export_dp(Bound(limit_w))
+    pretrain = phase_pretrain(Bound(limit_w), smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
     # launches on the main paths: 3 served scans, the train run (2 cm
@@ -4007,7 +4438,8 @@ def main() -> int:
         f"trainer {fast_trainer['launches']}, semi-step branches "
         f"{branches['launches']}, supervised zoo {zoo['launches']}, files "
         f"and the serving CLI {files['launches']}, export and data "
-        f"parallel {export_dp['launches']}")
+        f"parallel {export_dp['launches']}, pretraining and the graft "
+        f"{pretrain['launches']}")
 
     def entry(name, replaces, source=None):
         return {"name": name, "route": "cuda",
@@ -4020,7 +4452,8 @@ def main() -> int:
                              + branches["launches"][name]
                              + zoo["launches"][name]
                              + files["launches"].get(name, 0)
-                             + export_dp["launches"][name]),
+                             + export_dp["launches"][name]
+                             + pretrain["launches"][name]),
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
                 "launches_trainer_run": trainer["launches"][name],
@@ -4031,6 +4464,7 @@ def main() -> int:
                 "launches_supervised_zoo": zoo["launches"][name],
                 "launches_files_and_cli": files["launches"].get(name, 0),
                 "launches_export_and_dp": export_dp["launches"][name],
+                "launches_pretrain_and_graft": pretrain["launches"][name],
                 "library_ms": None, **recs[name]}
 
     kernels = [
@@ -4105,6 +4539,13 @@ def main() -> int:
          "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
          "launches": export_dp["launches"]["knn_split"],
          **export_dp["kernels"]["knn_split"]},
+        # kernel 1 at the pretraining stage's tokenizer, (2, 16000) -> 512
+        # (phase 15): a launch per pretraining step, validation batch and
+        # forward
+        {"name": "fps_cluster_pretrain_2x16000_512", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/fps_cluster.cu",
+         "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
+         **pretrain["kernels"]["fps_pretrain"]},
     ]
     # every kernel of the paths ran in this run
     for kname in ("fps_cluster", "knn_split", *UPSAMPLE):

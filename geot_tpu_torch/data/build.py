@@ -13,6 +13,7 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .tooth_pretrain import Tooth6000, Tooth6000PCA
 from .tooth_semi import TeethSegSemiLDataset, TeethSegSemiUDataset
 from .transforms import build_transforms_from_cfg
 
@@ -23,7 +24,8 @@ SEMI_KEYS = ("pos_w", "x_w", "cls_w", "pos_s", "x_s", "cls_s", "raw_pos",
              "y")
 
 DATASETS = {"TeethSegSemiLDataset": TeethSegSemiLDataset,
-            "TeethSegSemiUDataset": TeethSegSemiUDataset}
+            "TeethSegSemiUDataset": TeethSegSemiUDataset,
+            "tooth_6000": Tooth6000, "tooth_6000_pca": Tooth6000PCA}
 
 
 def default_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:

@@ -16,7 +16,9 @@ its content, never by its name: a port checkpoint holds ``state.model``.
 ``WholePartSeg`` state_dict of it (the port's parameter names are the
 reference's), ``graft_state_dict`` merges weights by name as the trainer's
 finetune loads do, and ``convert_cli`` writes a state_dict file that
-``engine.predict.read_weights`` reads.
+``engine.predict.read_weights`` reads. ``load_pretrain_encoder`` grafts
+the encoder trunk of a pretraining checkpoint (``engine.pretrain``) into
+a segmentation model.
 """
 from __future__ import annotations
 
@@ -341,6 +343,72 @@ def graft_state_dict(model_sd: Dict[str, torch.Tensor],
     skipped += [f"{k} (missing from checkpoint)" for k in model_sd
                 if k not in loaded
                 and (only_subtree is None or only_subtree in k)]
+    return merged, skipped
+
+
+def _pretrain_checkpoint(path: str) -> str:
+    """The checkpoint file that ``pretrain_encoder_path`` names: the file
+    itself, or ``discover_checkpoint``'s pick (``best`` first) of a run
+    directory of the port."""
+    if os.path.isfile(path):
+        return path
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"pretrain_encoder_path={path} does not "
+                                f"exist")
+    ckdir = os.path.join(path, "checkpoint")
+    if os.path.isdir(ckdir) and any(f.endswith(".pth")
+                                    for f in os.listdir(ckdir)):
+        return discover_checkpoint(path)
+    raise ValueError(
+        f"pretrain_encoder_path={path} is a directory but not a run "
+        f"directory of geot_tpu_torch (no <run>/checkpoint/*.pth): the "
+        f"port reads its own pretraining checkpoints, not geot_tpu's orbax "
+        f"directories")
+
+
+def load_pretrain_encoder(model_sd: Dict[str, torch.Tensor],
+                          pretrain_path: str,
+                          segmentor_key: str = "segmentor"
+                          ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """Graft the point-encoder trunk of a pretraining checkpoint into a
+    segmentation model's ``state_dict`` (``geot_tpu/engine/checkpoint.py:
+    302-360``): the checkpoint's ``encoder.*`` entries (weights and
+    BatchNorm statistics) go into ``segmentor.*`` of a ``WholePartSeg``, or
+    into ``encoder.*`` of a zoo ``BaseSeg``; the rest of the model keeps
+    its values. ``pretrain_path`` is a checkpoint file that
+    ``engine.pretrain`` wrote, or its run directory. Returns
+    ``(state_dict, skipped)``: ``skipped`` lists the checkpoint's encoder
+    entries that the model lacks or holds in another shape (never the
+    model's entries the checkpoint lacks: the decoder and head keep their
+    fresh values by design). A model with neither top-level module, a
+    checkpoint without ``encoder`` entries, or one none of whose entries
+    match raises ``ValueError``."""
+    path = _pretrain_checkpoint(str(pretrain_path))
+    payload = read_weights_file(path)
+    if not is_port_checkpoint(payload):
+        raise ValueError(f"{path}: not a checkpoint of geot_tpu_torch's "
+                         f"trainer")
+    loaded = variables_of(payload, prefer_ema=False)
+    tops = {k.split(".", 1)[0] for k in model_sd}
+    target = (segmentor_key if segmentor_key in tops
+              else "encoder" if "encoder" in tops else None)
+    if target is None:
+        raise ValueError(f"model has neither a '{segmentor_key}' nor an "
+                         f"'encoder' top-level module to graft {path} into "
+                         f"(modules: {sorted(tops)})")
+    trunk = {f"{target}.{k[len('encoder.'):]}": v for k, v in loaded.items()
+             if k.startswith("encoder.")}
+    if not trunk:
+        raise ValueError(f"{path}: checkpoint has no 'encoder' module to "
+                         f"transfer (a geot_tpu_torch.engine.pretrain "
+                         f"checkpoint is expected)")
+    merged, skipped = graft_state_dict(model_sd, trunk)
+    skipped = [k for k in skipped if not k.endswith("(missing from "
+                                                    "checkpoint)")]
+    if all(merged[k] is model_sd[k] for k in model_sd):
+        raise ValueError(f"{path}: no pretrain-encoder entry matched the "
+                         f"model (first skips: {skipped[:3]}): another "
+                         f"encoder family than this segmentor's?")
     return merged, skipped
 
 

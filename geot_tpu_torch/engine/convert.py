@@ -1,16 +1,17 @@
 """Weights and train state from ``geot_tpu`` to the port.
 
 ``params_from_jax`` takes the JAX package's ``{"params", "batch_stats"}``
-tree of a ``WholePartSeg``, ``BaseSeg`` or ``PointMLPPartSegmentor``
-(nested dicts of numpy arrays; no JAX needed) and returns the port's
-``state_dict``, running statistics included. ``t_params_from_jax`` does
-the same for the ``Ins_T_mean`` T-predictor; ``state_from_jax`` for a
-supervised ``TrainState``: the weights, the EMA shadow and, from a
-full-state checkpoint, the optax AdamW state and ``step``; and
-``semi_state_from_jax`` for a ``SemiTrainState``: all of that for the
-student, and the teacher, the T-predictor and its AdamW state, ``ema_t``,
-``cm`` and the contrast bank. Dense kernels (in, out) become Linear
-weights (out, in); flax BatchNorm ``scale``/``bias`` + ``mean``/``var``
+tree of a ``WholePartSeg``, ``BaseSeg``, ``PointMLPPartSegmentor`` or
+``ViewGenBase`` (nested dicts of numpy arrays; no JAX needed) and returns
+the port's ``state_dict``, running statistics included.
+``t_params_from_jax`` does the same for the ``Ins_T_mean`` T-predictor;
+``state_from_jax`` for a supervised or pretraining ``TrainState``: the
+weights, the EMA shadow and, from a full-state checkpoint, the optax AdamW
+state and ``step``; and ``semi_state_from_jax`` for a ``SemiTrainState``:
+all of that for the student, and the teacher, the T-predictor and its
+AdamW state, ``ema_t``, ``cm`` and the contrast bank. Dense kernels (in,
+out) become Linear weights (out, in) and convolution kernels (H, W, in,
+out) OIHW weights; flax BatchNorm ``scale``/``bias`` + ``mean``/``var``
 become ``weight``/``bias`` + ``running_mean``/``running_var``; LayerNorm
 and GroupNorm ``scale`` becomes ``weight``; other parameters keep their
 names.
@@ -53,16 +54,20 @@ _SHARED_MLP = ((r"(^|/)convs/dense_(\d+)$", r"\1convs/layer\2/conv"),
                (r"(^|/)convs/bn_(\d+)$", r"\1convs/layer\2/bn/bn"))
 
 
-def _module_name(path: str) -> str:
-    """The port's module name of a flax module path: below ``segmentor``
-    the flagship's renames, everywhere else the flax path with dots."""
-    if path.startswith("segmentor/"):
-        sub = path[len("segmentor/"):]
-        if sub in _RENAME:
-            return "segmentor." + _RENAME[sub]
-        for pat, rep in _PATTERNS:
-            sub = re.sub(pat, rep, sub)
-        path = "segmentor/" + sub
+def _module_name(path: str, trunks=("segmentor/",)) -> str:
+    """The port's module name of a flax module path: below a trunk root
+    (``segmentor/``; ``encoder/`` of a ``ViewGenBase`` whose encoder is the
+    transformer trunk; ``""`` for that encoder alone) the flagship's
+    renames, everywhere else the flax path with dots."""
+    for root in trunks:
+        if path.startswith(root):
+            sub = path[len(root):]
+            if sub in _RENAME:
+                return (root + _RENAME[sub]).replace("/", ".")
+            for pat, rep in _PATTERNS:
+                sub = re.sub(pat, rep, sub)
+            path = root + sub
+            break
     for pat, rep in _SHARED_MLP:
         path = re.sub(pat, rep, path)
     return path.replace("/", ".")
@@ -89,23 +94,32 @@ def _float(a) -> torch.Tensor:
 def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``geot_tpu`` model variables -> port ``state_dict``, in float32
     (float64 leaves stay float64). The model is a ``WholePartSeg`` (the
-    flagship or ``PointTransformer_seg``), a ``BaseSeg`` or a
-    ``PointMLPPartSegmentor``; their port modules carry the flax names."""
+    flagship or ``PointTransformer_seg``), a ``BaseSeg``, a
+    ``PointMLPPartSegmentor``, a ``ViewGenBase`` (any encoder, generator
+    and decoder) or a generation encoder; their port modules carry the
+    flax names, but for the transformer trunk's renames. Convolution
+    kernels (H, W, in, out) become OIHW weights."""
+    params = variables["params"]
+    trunks = (("",) if "pos_embed" in params else ("segmentor/",) + (
+        ("encoder/",) if "pos_embed" in (params.get("encoder") or {})
+        else ()))
     stats_by_path = dict(_walk(variables.get("batch_stats", {})))
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, arr):
         sd[key] = _float(arr)
 
-    for path, leaves in _walk(variables["params"]):
+    for path, leaves in _walk(params):
         if path == "segmentor":   # T_linear / T_revision / sigma
             for name, arr in leaves.items():
                 put(f"segmentor.{name}" if name == "sigma"
                     else f"segmentor.{name}.weight", arr)
             continue
-        mod = _module_name(path)
-        if "kernel" in leaves:    # Dense
-            put(f"{mod}.weight", np.asarray(leaves["kernel"]).T)
+        mod = _module_name(path, trunks)
+        if "kernel" in leaves:    # Dense, Conv, ConvTranspose
+            kernel = np.asarray(leaves["kernel"])
+            put(f"{mod}.weight", kernel.transpose(3, 2, 0, 1)
+                if kernel.ndim == 4 else kernel.T)
             if "bias" in leaves:
                 put(f"{mod}.bias", leaves["bias"])
         elif "scale" in leaves:   # a normalisation

@@ -14,10 +14,16 @@ line runs on the CPU; the default is the card, and without one it raises.
 
 A config with ``dataset_u`` and ``criterion_u_args`` runs semi-supervised
 (``semi_mode``, ``geot_tpu/engine/train.py:177``): a ``SemiTrainState``
-of a ``WholePartSeg`` student. Any other trains supervised: a
-``TrainState`` of ``cfg.model`` (``WholePartSeg``, ``BaseSeg`` or
+of a ``WholePartSeg`` student. A model with ``generator_args`` (a
+``ViewGenBase``, ``cfgs/tooth_pretrain/viewgen.yaml``) runs GeoT's
+pretraining stage, ``engine.pretrain.main``. Any other trains supervised:
+a ``TrainState`` of ``cfg.model`` (``WholePartSeg``, ``BaseSeg`` or
 ``PointMLPPartSegmentor``), no teacher, T-predictor, NTM or ``cm``, and
-every epoch supervised.
+every epoch supervised. ``pretrain_encoder_path`` (a pretraining
+checkpoint or its run directory) grafts the pretrained encoder trunk into
+the model before training (``engine.checkpoint.load_pretrain_encoder``);
+in semi mode the teacher starts from the grafted student. A ``plateau``
+schedule is fed each validation's selected ``whole_miou``.
 
 Data parallelism: ``python -m geot_tpu_torch.engine.launch --nprocs N --
 --cfg ...`` starts N ranks (``engine.launch``), or a config's
@@ -94,9 +100,9 @@ from ..ops import LAUNCHES
 from ..optim import build_scheduler_from_cfg
 from ..parallel import dist
 from .checkpoint import (ckpt_path, graft_state_dict, is_port_checkpoint,
-                         load_checkpoint, load_variables, read_weights_file,
-                         save_checkpoint, seg_t_depth, seg_t_weights,
-                         variables_of)
+                         load_checkpoint, load_pretrain_encoder,
+                         load_variables, read_weights_file, save_checkpoint,
+                         seg_t_depth, seg_t_weights, variables_of)
 from .eval import validate
 from .profiler import StepTimer
 from .state import SemiTrainState, TrainState
@@ -106,7 +112,8 @@ from .writer import SummaryWriter
 
 EVAL_MODES = ("val", "test", "eval", "testing", "evaluation")
 # the model NAMEs the trainer builds (cfg.model.NAME)
-TRAINED_MODELS = ("WholePartSeg", "BaseSeg", "PointMLPPartSegmentor")
+TRAINED_MODELS = ("WholePartSeg", "BaseSeg", "PointMLPPartSegmentor",
+                  "ViewGenBase")
 
 # epoch scalars under the reference's tags (geot_tpu/engine/train.py:418-433)
 # -> the step's metric
@@ -234,9 +241,7 @@ def refuse_unported(cfg) -> None:
         "fsdp": bool(cfg.get("fsdp")),
         "step_per_update": int(cfg.get("step_per_update", 1) or 1) > 1,
         "eval_device_cache": cfg.get("eval_device_cache", True) is False,
-        "pretrain_encoder_path": bool(cfg.get("pretrain_encoder_path")),
         "task": cfg.get("task") in ("partseg", "cls"),
-        "model.generator_args": "generator_args" in model,
         "model.NAME": (model.get("NAME") not in TRAINED_MODELS
                        or (semi_mode(cfg)
                            and model.get("NAME") != "WholePartSeg")),
@@ -361,6 +366,10 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     refuse_unported(cfg)
     if cfg.get("distributed", "auto") is not False:
         dist.init(cfg, device)
+    if "generator_args" in (cfg.get("model") or {}):
+        # the pretraining stage (geot_tpu/engine/train.py:763-766)
+        from .pretrain import main as pretrain_main
+        return pretrain_main(cfg, device)
     device = dist.rank_device(device)
     primary = dist.is_primary()
     world, rank = dist.world(), dist.rank()
@@ -452,15 +461,27 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
                                          if model_t else None))
     else:
         state = TrainState.create(cfg, cfg.model, seed=seed, device=device)
+    pep = cfg.get("pretrain_encoder_path")
+    if pep:
+        # the pretraining stage's encoder trunk, grafted before the
+        # teacher takes the student's weights, so both start from it
+        # (geot_tpu/engine/train.py:226-246, 335-346)
+        merged, pep_skipped = load_pretrain_encoder(
+            state.model.state_dict(), str(pep))
+        state.model.load_state_dict(merged, strict=True)
+        logger.info(f"grafted pretrain encoder from {pep}"
+                    + (f" ({len(pep_skipped)} anomalies: "
+                       f"{pep_skipped[:3]})" if pep_skipped else ""))
     if weights is not None:
         _load_pretrained(state.model, weights, str(pretrained), mode,
                          eval_only, logger)
+        logger.info(f"loaded weights from {pretrained}")
+    if pep or weights is not None:
         if semi:
             state.teacher.load_state_dict(state.model.state_dict(),
                                           strict=True)
         if state.ema_params:
             state.seed_ema()
-        logger.info(f"loaded weights from {pretrained}")
     logger.info(f"model params: "
                 f"{cal_model_parm_nums(state.model) / 1e6:.3f} M")
     # a semi run's warm-up trains the student without the shadow, as
@@ -645,6 +666,10 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
                             writer.add_scalar(f"val_raw_{k}", v, epoch)
                     if res_raw["whole_miou"] > sel["whole_miou"]:
                         sel, sel_tree = res_raw, "raw"
+                if hasattr(schedule, "note_metric"):
+                    # the plateau schedule's feedback
+                    # (geot_tpu/engine/train.py:622-623)
+                    schedule.note_metric(sel["whole_miou"])
                 is_best = (sel["whole_miou"] >= best["miou"]
                            or np.isnan(best["miou"]))
                 if is_best and not np.isnan(sel["whole_miou"]):

@@ -1,12 +1,20 @@
 """Models; importing this package registers them for
 ``core.config.build_model_from_cfg``."""
-from .backbone.dgcnn import DGCNN
-from .backbone.pointmlp import PointMLPPartSegmentor
-from .backbone.pointnetv2 import PointNet2Decoder, PointNet2Encoder
-from .backbone.transformer import (PointTransformerSeg, PointTransformerSegT,
+from .backbone.dgcnn import DGCNN, DGCNNGenEncoder
+from .backbone.pointmlp import PointMLPGenEncoder, PointMLPPartSegmentor
+from .backbone.pointnetv2 import (PointNet2Decoder, PointNet2Encoder,
+                                  PointNet2GenEncoder)
+from .backbone.transformer import (PointTransformerGenEncoder,
+                                   PointTransformerSeg, PointTransformerSegT,
                                    SigTMean)
+from .generation.view_gen import (ViewDecoder, ViewDecoderBig, ViewDecoderDS,
+                                  ViewGenBase, ViewTransformer)
 from .segmentation.base_seg import BaseSeg, InsTMean, SegHead, WholePartSeg
 
-__all__ = ["BaseSeg", "DGCNN", "InsTMean", "PointMLPPartSegmentor",
-           "PointNet2Decoder", "PointNet2Encoder", "PointTransformerSeg",
-           "PointTransformerSegT", "SegHead", "SigTMean", "WholePartSeg"]
+__all__ = ["BaseSeg", "DGCNN", "DGCNNGenEncoder", "InsTMean",
+           "PointMLPGenEncoder", "PointMLPPartSegmentor", "PointNet2Decoder",
+           "PointNet2Encoder", "PointNet2GenEncoder",
+           "PointTransformerGenEncoder", "PointTransformerSeg",
+           "PointTransformerSegT", "SegHead", "SigTMean", "ViewDecoder",
+           "ViewDecoderBig", "ViewDecoderDS", "ViewGenBase",
+           "ViewTransformer", "WholePartSeg"]

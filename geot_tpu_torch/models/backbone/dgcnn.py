@@ -9,6 +9,8 @@ follow the flax tree.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -70,3 +72,17 @@ class DGCNN(nn.Module):
 
     def forward_seg_feat(self, pts, features=None):
         return pts, self(pts, features)
+
+
+@register_model("DGCNNGenEncoder")
+class DGCNNGenEncoder(DGCNN):
+    """DGCNN for the pretraining stage's generator
+    (``geot_tpu/models/backbone/dgcnn.py:74``): ``forward_cls_feat``
+    returns the per-point features and the points. It also takes the batch
+    dict (``pos``, ``x``) that ``ViewGenBase`` passes."""
+
+    def forward_cls_feat(self, pts, features: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None):
+        if isinstance(pts, dict):
+            pts, features = pts["pos"], pts.get("x")
+        return self(pts, features), pts

@@ -132,6 +132,60 @@ class PosExtraction(nn.Module):
         return x
 
 
+@register_model("PointMLPGenEncoder")
+class PointMLPGenEncoder(nn.Module):
+    """PointMLP's encoder keeping its per-group tokens, for the
+    pretraining stage's generator (``geot_tpu/models/backbone/pointmlp.py:
+    276-350``): ``forward`` (and ``forward_cls_feat``) takes a batch dict
+    (``pos``, ``x``) or arrays and returns (tokens (B, G, C), centers (B,
+    G, 3)) of the last stage. ``in_channels`` is the width of ``x``."""
+
+    def __init__(self, in_channels: int = 3, embed_dim: int = 64,
+                 res_expansion: float = 1.0, bias: bool = False,
+                 use_xyz: bool = False, normalize: str = "anchor",
+                 dim_expansion: Sequence[int] = (2, 2, 2, 2),
+                 pre_blocks: Sequence[int] = (2, 2, 2, 2),
+                 pos_blocks: Sequence[int] = (2, 2, 2, 2),
+                 k_neighbors: Sequence[int] = (24, 24, 24, 24),
+                 reducers: Sequence[int] = (2, 2, 2, 2)):
+        super().__init__()
+        self.in_channels = in_channels
+        self.n_stages = len(pre_blocks)
+        self.embedding = ConvBNReLU(in_channels, embed_dim, bias)
+        last = embed_dim
+        for i in range(self.n_stages):
+            out = last * dim_expansion[i]
+            self.add_module(f"grouper_{i}", LocalGrouper(
+                last, reducers[i], k_neighbors[i], use_xyz, normalize))
+            self.add_module(f"pre_{i}", PreExtraction(
+                2 * last + (3 if use_xyz else 0), out, pre_blocks[i],
+                res_expansion, bias))
+            self.add_module(f"pos_{i}", PosExtraction(
+                out, pos_blocks[i], res_expansion, bias))
+            last = out
+        self.out_channels = last
+
+    def forward(self, xyz, features: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        if isinstance(xyz, dict):
+            xyz, features = xyz["pos"], xyz.get("x")
+        if features is None:
+            features = xyz
+        if features.shape[-1] != self.in_channels:
+            raise ValueError(f"PointMLPGenEncoder: features have "
+                             f"{features.shape[-1]} channels, in_channels "
+                             f"is {self.in_channels}")
+        x = self.embedding(features)
+        for i in range(self.n_stages):
+            xyz, grouped = getattr(self, f"grouper_{i}")(xyz, x)
+            x = getattr(self, f"pos_{i}")(getattr(self, f"pre_{i}")(grouped))
+        return x, xyz
+
+    def forward_cls_feat(self, xyz, features: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None):
+        return self(xyz, features)
+
+
 @register_model("PointMLPPartSegmentor")
 class PointMLPPartSegmentor(nn.Module):
     """``forward`` takes a batch dict (``pos``, ``x``, ``cls``) or arrays

@@ -161,6 +161,21 @@ class PointNet2Encoder(nn.Module):
         return l_xyz, l_feats
 
 
+@register_model("PointNet2GenEncoder")
+class PointNet2GenEncoder(PointNet2Encoder):
+    """The encoder for the pretraining stage's generator
+    (``geot_tpu/models/backbone/pointnetv2.py:273``): ``forward_cls_feat``
+    returns the coarsest level's features and points. It also takes the
+    batch dict (``pos``, ``x``) that ``ViewGenBase`` passes."""
+
+    def forward_cls_feat(self, xyz, features: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None):
+        if isinstance(xyz, dict):
+            xyz, features = xyz["pos"], xyz.get("x")
+        l_xyz, l_feats = self.forward_seg_feat(xyz, features)
+        return l_feats[-1], l_xyz[-1]
+
+
 @register_model("PointNet2Decoder")
 class PointNet2Decoder(nn.Module):
     """Feature propagation back up the pyramid, coarsest first. Returns

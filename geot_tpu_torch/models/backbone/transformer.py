@@ -4,7 +4,8 @@ transition-matrix predictor ``SigTMean``.
 Counterpart of ``geot_tpu/models/backbone/transformer.py:33-469``
 (``_PointTransformerSegBase`` with ``with_T`` on or off, head mode "plain",
 the exact or the serving topology, float32 or bfloat16 compute) and
-``:651`` (``SigTMean``). In training mode
+``:651`` (``SigTMean``), and the pretraining stage's encoder
+``PointTransformer_genencoder`` (``:517-552``). In training mode
 (``module.train()``) BatchNorm uses batch statistics and updates its
 running ones as flax does, and stochastic depth (rate ``drop_path_rate *
 i / (depth - 1)`` in block i) and the seg head's dropout draw their masks
@@ -141,6 +142,25 @@ class PosEmbed(nn.Sequential):
 
     def __init__(self, dim: int):
         super().__init__(Dense(3, 128), GELU(), Dense(128, dim))
+
+
+def group_tokens(pts: torch.Tensor, npoint: int, num_group: int,
+                 group_size: int, fps_pts: Optional[torch.Tensor] = None):
+    """The tokenizer's groups: FPS of ``npoint`` points of ``pts`` (unless
+    ``fps_pts`` gives them), whose first ``num_group`` are the centers,
+    and each center's ``group_size`` nearest points less the center.
+    Returns ``(fps_pts (B, npoint, 3), center (B, num_group, 3),
+    neighborhood (B, num_group, group_size, 3))``. The flagship takes
+    ``npoint`` = its largest pyramid level, so one FPS run gives the
+    centers and the pyramid; the generation encoder takes ``num_group``
+    (``geot_tpu/models/layers/group_embed.py:60-65``)."""
+    if fps_pts is None:
+        # the FPS kernel reads float32 coordinates whatever the dtype
+        fps_pts = gather_points(pts, fps(pts.float().contiguous(), npoint))
+    center = fps_pts[:, :num_group]
+    _, knn_idx = knn(center, pts, group_size)
+    neighborhood = grouping_operation(pts, knn_idx) - center[:, :, None, :]
+    return fps_pts, center, neighborhood
 
 
 class FeaturePropagation(nn.Module):
@@ -288,12 +308,9 @@ class PointTransformerSegT(nn.Module):
             # the tokenizer centers and the decoder pyramid are prefixes of
             # ONE FPS run (greedy selections are incremental)
             max_n = max(max(self.downsample_targets), self.num_group)
-            # the FPS kernel reads float32 coordinates whatever the dtype
-            fps_pts = gather_points(pts, fps(pts.float().contiguous(),
-                                             max_n))
-        center = fps_pts[:, :self.num_group]
-        _, knn_idx = knn(center, pts, self.group_size)
-        neighborhood = grouping_operation(pts, knn_idx) - center[:, :, None, :]
+            fps_pts = None
+        fps_pts, center, neighborhood = group_tokens(
+            pts, max_n, self.num_group, self.group_size, fps_pts)
         tokens = self.encoder(neighborhood)
         if self.reduce_dim is not None:
             tokens = self.reduce_dim(tokens)
@@ -341,6 +358,53 @@ def PointTransformerSeg(**kwargs) -> PointTransformerSegT:
     ``T_revision`` or ``sigma``; ``geot_tpu/models/backbone/transformer.py:
     489-492``): ``forward`` returns ``(logit, None, None, f_l0)``."""
     return PointTransformerSegT(with_T=False, **kwargs)
+
+
+@register_model("PointTransformer_genencoder")
+class PointTransformerGenEncoder(nn.Module):
+    """The flagship's trunk as the pretraining stage's point encoder
+    (``geot_tpu/models/backbone/transformer.py:517-552``): FPS to
+    ``num_group`` centers, kNN groups, the mini-PointNet, the block stack;
+    ``forward_cls_feat`` returns (the normed last tap (B, G, D), the
+    centers (B, G, 3)). Its modules carry the flagship trunk's names
+    (``encoder``, ``reduce_dim``, ``pos_embed``, ``blocks``, ``norm``), so
+    a pretraining checkpoint's ``encoder.*`` grafts into ``segmentor.*``
+    (``engine.checkpoint.load_pretrain_encoder``). The arguments the trunk
+    does not read (``nclasses``, ``downsample_targets``) are taken, as in
+    ``geot_tpu``."""
+
+    def __init__(self, trans_dim: int = 384, depth: int = 12,
+                 drop_path_rate: float = 0.1, num_heads: int = 4,
+                 group_size: int = 32, num_group: int = 512,
+                 encoder_dims: int = 256,
+                 extract_layers: Sequence[int] = (4, 8, 12),
+                 nclasses: int = 17,
+                 downsample_targets: Sequence[int] = (8192, 4096, 2048)):
+        super().__init__()
+        self.num_group = num_group
+        self.group_size = group_size
+        self.encoder = MiniPointNetEncoder(encoder_dims)
+        self.reduce_dim = (Dense(encoder_dims, trans_dim)
+                           if encoder_dims != trans_dim else None)
+        self.pos_embed = PosEmbed(trans_dim)
+        self.blocks = TransformerStack(trans_dim, depth, num_heads,
+                                       drop_path_rate, extract_layers)
+        self.norm = LayerNorm(trans_dim, eps=1e-5)
+
+    def forward(self, p, f0: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        pts = (p["pos"] if isinstance(p, dict) else p).contiguous()
+        _, center, neighborhood = group_tokens(
+            pts, self.num_group, self.num_group, self.group_size)
+        tokens = self.encoder(neighborhood)
+        if self.reduce_dim is not None:
+            tokens = self.reduce_dim(tokens)
+        taps = self.blocks(tokens, self.pos_embed(center), generator)
+        return self.norm(taps[-1]), center
+
+    def forward_cls_feat(self, p, f0: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None):
+        return self(p, f0, generator)
 
 
 @register_model("sig_t_mean")

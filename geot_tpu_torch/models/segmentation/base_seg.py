@@ -12,6 +12,7 @@ from torch import nn
 
 from ...core.config import build_model_from_cfg, register_model
 from ..backbone.transformer import SigTMean
+from ..generation.view_gen import Conv, ConvTranspose
 from ..layers import BatchNorm, Dense, Dropout
 
 
@@ -155,7 +156,8 @@ class SegHead(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialisation: xavier-uniform weights and zero biases for
     every Linear (the reference ``_init_weights``), unit/zero norms, the
-    per-class xavier of ``SigTMean``. The zero-initialised
+    per-class xavier of ``SigTMean``, xavier-uniform kernels and zero
+    biases for the generation stack's convolutions. The zero-initialised
     ``T_linear``/``T_revision`` and ``sigma`` = 0.4 keep their values."""
     with torch.no_grad():
         for name, m in model.named_modules():
@@ -170,4 +172,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 nn.init.zeros_(m.bias)
             elif isinstance(m, SigTMean):
                 m.reset_parameters(generator)
+            elif isinstance(m, (Conv, ConvTranspose)):
+                nn.init.xavier_uniform_(m.weight, generator=generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
     return model

@@ -921,3 +921,92 @@ def test_two_rank_gloo_step_on_one_card(cuda, tmp_path):
         scale = max(float(ref.abs().max()), 1e-3 * gmax)
         err = float((r0["exp_avg"][n] - ref).abs().max()) / scale
         assert err <= 5e-2, (n, err)
+
+
+# --- the pretraining stage ---------------------------------------------------
+
+PRETRAIN_TINY = {
+    "NAME": "ViewGenBase",
+    "encoder_args": {"NAME": "PointTransformer_genencoder", "trans_dim": 48,
+                     "depth": 3, "num_heads": 4, "group_size": 8,
+                     "num_group": 32, "encoder_dims": 32,
+                     "extract_layers": [1, 2, 3]},
+    "generator_args": {"NAME": "ViewTransformer", "in_channels": 48,
+                       "feat_channels": 48, "depth": 1,
+                       "channels_per_head": 16, "obj_size": 56,
+                       "img_size": 64, "img_ds_ratio": 16},
+    "decoder_args": {"NAME": "ViewDecoder", "in_channels": 48,
+                     "out_channels": 3},
+    "loss_args": {"weight_fg": 1.0, "weight_bg": 0.1}}
+
+
+def _pretrain_batch(num_points=2048):
+    from geot_tpu_torch.data.build import build_dataloader_from_cfg
+
+    loader = build_dataloader_from_cfg(2, {"common": {
+        "NAME": "tooth_6000_pca", "data_root": "", "num_points": num_points,
+        "n_views": 2, "img_size": 128}}, None, split="train", seed=0)
+    loader.set_epoch(1)
+    return next(iter(loader))
+
+
+def test_pretrain_forward_on_the_card_matches_the_cpu(cuda):
+    """The generation stack in eval mode, same weights and batch: loss
+    within 1e-4 relative, recon within 1e-3, one FPS launch (the
+    genencoder's tokenizer) and no other kernel."""
+    from geot_tpu_torch.core.config import build_model_from_cfg
+    from geot_tpu_torch.engine.pretrain import pretrain_batch
+    from geot_tpu_torch.models.segmentation.base_seg import init_weights
+
+    model = build_model_from_cfg(PRETRAIN_TINY)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.eval()
+    batch = _pretrain_batch()
+    with torch.no_grad():
+        loss_c, rec_c = model(pretrain_batch(batch, "cpu"))
+        model.to(cuda)
+        ops.reset_launches()
+        loss_g, rec_g = model(pretrain_batch(batch, cuda))
+        torch.cuda.synchronize()
+    route = ops.fps_plan(2048, card_cluster_size(cuda, 2)).route
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {route: 1}
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-4 * abs(float(loss_c))
+    assert float((rec_g.cpu() - rec_c).abs().max()) <= 1e-3
+
+
+def test_pretrain_then_graft_on_the_card(cuda, tmp_path):
+    """Two pretraining steps and a checkpoint on the card, then
+    ``load_pretrain_encoder`` into the small flagship: every trunk entry
+    equals the checkpoint's ``encoder`` entry, nothing is skipped, and the
+    grafted model forwards on the card."""
+    from geot_tpu_torch.engine.checkpoint import (load_pretrain_encoder,
+                                                  load_variables,
+                                                  save_checkpoint)
+    from geot_tpu_torch.engine.pretrain import (make_pretrain_step,
+                                                pretrain_batch)
+    from geot_tpu_torch.engine.state import TrainState
+
+    cfg = {"lr": 5e-4, "optimizer": {"NAME": "adamw", "weight_decay": 0.05},
+           "grad_norm_clip": 10}
+    state = TrainState.create(cfg, PRETRAIN_TINY, device=cuda)
+    step = make_pretrain_step(cfg)
+    batch = pretrain_batch(_pretrain_batch(), cuda)
+    losses = [float(step(state, batch, 5e-4)["loss"]) for _ in range(2)]
+    assert all(np.isfinite(losses))
+    path = save_checkpoint({"ckpt_dir": str(tmp_path), "run_name": "pt"},
+                           state, 1, is_best=True)
+    seg = load_model(SMALL_ARGS, seed=0, device=cuda)
+    merged, skipped = load_pretrain_encoder(seg.state_dict(), path)
+    assert skipped == []
+    seg.load_state_dict(merged)
+    enc = {k[len("encoder."):]: v for k, v in
+           load_variables(path, False).items() if k.startswith("encoder.")}
+    sd = seg.state_dict()
+    for k, v in enc.items():
+        assert torch.equal(sd["segmentor." + k].cpu(), v), k
+    pos = batch["pos"][:, :256].contiguous()
+    with torch.no_grad():
+        logit = seg({"pos": pos, "x": pos,
+                     "cls": torch.zeros((2, 1), dtype=torch.long,
+                                        device=cuda)})[0]
+    assert torch.isfinite(logit).all()

@@ -16,6 +16,7 @@ from geot_tpu_torch.data.build import SEMI_KEYS, semi_keys
 from geot_tpu_torch.engine import checkpoint as ckpt
 from geot_tpu_torch.engine import train as ttrain
 from geot_tpu_torch.engine.steps import make_semi_step
+from geot_tpu_torch.optim import build_scheduler_from_cfg
 
 from test_torch_semi_branches import CFG, batches
 from test_torch_ema import _state, _tensors
@@ -63,18 +64,29 @@ def test_trainer_with_every_flag(tmp_path, criterion_u):
 
 
 @pytest.mark.parametrize("opt,key", [
-    ("warmup_epochs=5", "warmup"), ("optimizer.NAME=adahessian",
-                                    "adahessian"),
+    # ported since it was listed: the case keeps the id it was listed with
+    pytest.param("warmup_epochs=5", None, id="warmup_epochs=5-warmup"),
+    ("optimizer.NAME=adahessian", "adahessian"),
     ("optimizer.NAME=sgd", "sgd"), ("step_per_update=4", "step_per_update"),
     ("profile_epoch=1", "profile_epoch"),
     ("eval_device_cache=False", "eval_device_cache"),
     ("wandb.use_wandb=True", "wandb.use_wandb")])
 def test_switches_still_unported_are_refused(opt, key):
     """The other half of the trainer's switches: each raises
-    ``NotImplementedError`` naming its key, before any step."""
+    ``NotImplementedError`` naming its key, before any step. The case with
+    no key (warmup) is ported: the trainer takes it and the schedule
+    warms up from ``warmup_lr`` to the config's lr
+    (``tests/test_torch_pretrain.py`` holds every schedule against
+    ``geot_tpu``)."""
     cfg = EasyConfig()
     cfg.load(SMOKE, recursive=True)
     cfg.update([opt])
+    if key is None:
+        ttrain.refuse_unported(cfg)
+        sched = build_scheduler_from_cfg(cfg)
+        assert sched(1) == 1e-6 and sched(6) == float(cfg.lr)
+        assert 1e-6 < sched(3) < float(cfg.lr)
+        return
     with pytest.raises(NotImplementedError, match=key):
         ttrain.main(cfg, device="cpu")
 

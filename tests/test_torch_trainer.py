@@ -329,10 +329,10 @@ def _ported(opt, key):
     ("sp=2", "sp"),
     ("fsdp=True", "fsdp"), ("step_per_update=2", "step_per_update"),
     ("eval_device_cache=False", "eval_device_cache"),
-    ("pretrain_encoder_path=/x", "pretrain_encoder_path"),
+    _ported("pretrain_encoder_path=/x", "pretrain_encoder_path"),
     _ported("mode=finetune_encoder", "mode"), ("task=partseg", "task"),
-    ("task=cls", "task"), ("model.generator_args={}",
-                           "model.generator_args"),
+    ("task=cls", "task"), _ported("model.generator_args={}",
+                                  "model.generator_args"),
     ("model.segmentor_args.depth=2", None),
     ("model.segmentor_args.dtype=bfloat16", "model.segmentor_args.dtype"),
     ("model_t.segmentor_args.dtype=bfloat16",
@@ -347,13 +347,15 @@ def _ported(opt, key):
     _ported("criterion_u_args.NAME=Poly1FocalLoss_U",
             "Poly1FocalLoss_U_corr"),
     ("optimizer.NAME=adahessian", "adahessian"),
-    ("sched=cosine", "cosine")])
+    _ported("sched=cosine", "cosine")])
 def test_unported_switches_are_refused(opt, key):
     """Each switch whose branch the port lacks is refused, naming its key;
     the cases with no key (votes, a teacher of another topology, the semi
-    step's branches and ``ema_eval``) are ported now and pass both checks;
-    ``tests/test_torch_fast_train.py``, ``tests/test_torch_semi_trainer.py``
-    and ``tests/test_torch_ema.py`` train with them."""
+    step's branches, ``ema_eval``, the pretraining graft and stage, the
+    cosine schedule) are ported now and pass both checks;
+    ``tests/test_torch_fast_train.py``, ``tests/test_torch_semi_trainer.py``,
+    ``tests/test_torch_ema.py`` and ``tests/test_torch_pretrain.py`` train
+    with them."""
     cfg = EasyConfig()
     cfg.load(SMOKE, recursive=True)
     cfg.update([opt])
@@ -367,7 +369,7 @@ def test_unported_switches_are_refused(opt, key):
 
 def test_other_configs_and_reference_files_are_refused(tmp_path):
     for path, key in (("cfgs/shapenetpart/pointnet2part.yaml", "task"),
-                      ("cfgs/tooth_pretrain/viewgen.yaml", "generator"),
+                      ("cfgs/shapenetpart/pointmlppart.yaml", "task"),
                       ("cfgs/scanobjectnn/dgcnncls.yaml", "task")):
         with pytest.raises(NotImplementedError, match=key):
             ttrain.parse_and_run(["--cfg", os.path.join(ROOT, path),
@@ -424,13 +426,13 @@ def test_missing_paths_and_a_missing_card_raise(tmp_path, monkeypatch):
 
 def test_every_module_imports_without_jax_yaml_or_geot_tpu(tmp_path):
     """Every module of the package imports with jax, flax, optax, orbax,
-    yaml and geot_tpu blocked, and in the same process ``parse_and_run``
-    trains one smoke epoch on the CPU: the entry point reads its YAML with
-    the port's own reader."""
+    yaml, geot_tpu and PIL blocked, and in the same process
+    ``parse_and_run`` trains one smoke epoch on the CPU: the entry point
+    reads its YAML with the port's own reader."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
-                   "geot_tpu")
+                   "geot_tpu", "PIL")
 
         class Block:
             def find_spec(self, name, path=None, target=None):

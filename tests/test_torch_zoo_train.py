@@ -371,7 +371,7 @@ def test_checkpoint_round_trip_and_bit_exact_resume(tmp_path):
      "model.decoder_args.NAME"),
     ("pointnet2.yaml", "model.cls_args.NAME=VariableSegHead",
      "model.cls_args.NAME"),
-    ("dgcnn.yaml", "model.encoder_args.NAME=DGCNNGenEncoder",
+    ("dgcnn.yaml", "model.encoder_args.NAME=PointMLPEncoder",
      "model.encoder_args.NAME"),
     ("transformer.yaml",
      "model.segmentor_args.NAME=PointTransformer_seg_cluster",
