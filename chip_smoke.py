@@ -3,6 +3,11 @@
 check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dp-step-ms <checkout> [<checkout> ...]
+
+The second form times phase 14's two-rank flagship step (8 steps, gloo,
+both ranks on one card) in each checkout given, in that order: one JSON
+line of step milliseconds a run (``dp_step_ms``).
 
 Phases, each printed with the seconds elapsed when it starts:
 1. device: the card's name and power limit; TF32 off.
@@ -185,8 +190,9 @@ Phases, each printed with the seconds elapsed when it starts:
    tensor by tensor within ``DP_MOMENT_TOL``, the second step's loss
    terms within ``DP_SECOND_LOSS_RTOL``, the weights after step 2 within
    ``DP_WEIGHT_RMS_LR`` learning rates (root mean square); step ms of
-   both. A control run whose ranks take rank 0's gradient in place of
-   the sum must land past the last three bounds.
+   both. A control run whose ranks take rank 0's part of the gradient
+   (times the world) in place of the sum must land past the last three
+   bounds.
 15. pretraining: ``cfgs/tooth_pretrain/viewgen.yaml`` at its width
    (trans_dim 384, depth 12, 512 groups of 32, 16,000 points, batch 2, 2
    views, ``ViewTransformer`` depth 2, 128 x 128 renders, cosine with 5
@@ -205,6 +211,28 @@ Phases, each printed with the seconds elapsed when it starts:
    on a Teeth3DS tree for one semi step of 2 + 2 + 2: the student's and the
    teacher's trunk equal to the checkpoint's encoder, nothing skipped,
    finite losses, phase 6's launches for the step.
+16. the trainer's other switches at full width. (a) Every optimizer name
+   of the factory, ``lookahead_adamw`` and ``layer_decay=0.75``: 3 updates
+   from phase 6's gradients on the card and on the CPU, the weights within
+   ``SW_OPT_TOL`` of each tensor's largest entry, then one full-width semi
+   step each (losses finite, weights moved, phase 6's launches). (b)
+   AdaHessian: 3 flagship steps at 2 + 2 + 2 x 16,000 points (ms beside
+   phase 6's AdamW step, peak memory, 2 ``fps_cluster`` + 14 ``knn_split``
+   a step), and its Hessian diagonal on the card against the CPU's (a
+   child process, ``--hessian-cpu``) at 1 + 1 + 1 clouds in float64 from
+   the same z, within ``SW_HESS_TOL``. (c) ``parse_and_run`` on the
+   flagship YAML with ``SW_TRAINER`` (lookahead AdamW, layer decay, an
+   update every 2 steps, a profiled epoch, uncached validation, wandb)
+   on a Teeth3DS tree of 6 scans, 2 epochs of 3 steps: launches as the
+   code implies, the trace names ``fps_cluster`` and ``knn_split``; then
+   the deterministic child resumes from E1, one gradient into a group:
+   every epoch-2 scalar bit-equal. (d) ``viewgen.yaml`` at its width on a
+   manifest tree of 4 train clouds (2 steps), two ranks through
+   ``engine.launch`` against one process (phase 14's bounds on the first
+   step's loss and the weights after step 2, one ``fps_cluster`` a step
+   a rank) and a control whose ranks reduce nothing, past both bounds.
+   (e) ``TeethSegFinetuneDataset`` through ``cfgs/tooth_sup/
+   transformer.yaml`` for 1 epoch on the tree.
 Phase 3 also holds ``fps_cluster`` at the serving topology's prefix,
 (1|6, 16000) -> 1024 and a duplicate-heavy cloud, and ``knn_split`` at a
 fast scan's 6 searches, against their plain versions, with times and
@@ -1289,6 +1317,9 @@ def phase_train():
     check(changed > 0.9 * len(before), f"only {changed}/{len(before)} "
           f"parameter tensors changed")
     check(state.step == 3, "step counter")
+    # the last step's (clipped) gradients, for phase 16's optimizers
+    grads = {n: p.grad.detach().clone()
+             for n, p in state.model.named_parameters()}
     log(f"3 steps: {', '.join(f'{x:.1f}' for x in step_ms)} ms; peak memory "
         f"{peak_mb:.0f} MiB; {changed}/{len(before)} parameter tensors "
         f"changed; ema_t rows sum to 1")
@@ -1357,6 +1388,7 @@ def phase_train():
         compare[str(dt)[6:]] = {"loss_rel": max(rel.values()),
                                 "grad_rel": worst[0][1]}
     return {"step_ms": step_ms, "peak_mb": peak_mb, "per_step": per_step,
+            "grads": grads,
             "compare": compare,
             "cm_batches": counted, "state": state, "pairs": pairs}
 
@@ -3292,29 +3324,20 @@ _DP_NO_DROPOUT = ("model.segmentor_args.drop_path_rate=0.0",
                   "model_t.segmentor_args.drop_path_rate=0.0",
                   "model.segmentor_args.head_dropout=0.0",
                   "model_t.segmentor_args.head_dropout=0.0")
-# one rank of the control run: the trainer with rank 0's model gradient
-# in place of the ranks' sum; the T-predictor's keep their sound average
+# one rank of the control run: the trainer with rank 0's part of each
+# gradient, times the world, in place of the ranks' sum: the T-predictor's,
+# whose parts are equal, stay sound
 _DP_CONTROL = r"""
 import sys
 from geot_tpu_torch.engine import train
 from geot_tpu_torch.parallel import dist
 
-real_sum = dist.sum_gradients
-
-
-def average(params):
-    params = list(params)
-    real_sum(params)
-    for p in params:
-        p.grad.div_(dist.world())
-
-
 def rank0_only(params):
     for p in params:
         dist.broadcast_(p.grad)
+        p.grad.mul_(dist.world())
 
 
-dist.average_gradients = average
 dist.sum_gradients = rank0_only
 train.parse_and_run(sys.argv[1:])
 dist.shutdown()
@@ -4290,11 +4313,589 @@ def phase_pretrain(bound: Bound, smi: str):
     return out
 
 
-def resume_check(root: str) -> int:
-    """``--resume-check ROOT`` (phase 8 runs it in a child process with
-    ``CUBLAS_WORKSPACE_CONFIG`` set): with deterministic algorithms on, the
-    flagship for 2 epochs, then a resume from its epoch-1 checkpoint;
-    prints the epoch-2 scalars of both as one ``RESUME_CHECK`` JSON line."""
+# phase 16: the trainer's other switches at full width. (a) every
+# registered optimizer, lookahead and layer decay: 3 updates on the card
+# and on the CPU from phase 6's gradients, the weights within SW_OPT_TOL of
+# each tensor's largest entry, then a full-width semi step each
+SW_OPT_TOL = 1e-5
+SW_EXTRA = (("lookahead_adamw", {"lookahead_k": 2}),
+            ("adamw", {"layer_decay": 0.75}))
+# (b) the Hessian diagonal, card against CPU in float64 at 1 + 1 + 1 clouds
+# from the same z: phase 6's float64 gradient bound
+SW_HESS_TOL = 1e-3
+# (c) the trainer with the switches, on phase 13's Teeth3DS tree: 3 steps of
+# 2 + 2 + 2 an epoch (6 labelled scans), an update every 2 steps, so the
+# epoch ends one gradient into a group
+SW_TRAINER = ("optimizer.NAME=lookahead_adamw", "optimizer.layer_decay=0.75",
+              "step_per_update=2", "profile_epoch=1",
+              "eval_device_cache=False", "wandb.use_wandb=True")
+_SW_SPLITS = {"semi_l_train_0.2.txt": (0, 1, 2, 3, 4, 5),
+              "semi_u_train_0.2.txt": (0, 1, 2, 3, 4, 5),
+              "testing.txt": (0, 5),
+              "full_train_finetune_0.1.txt": (0, 1, 2, 3, 4, 5),
+              "full_val_finetune.txt": (0, 5),
+              "full_test_finetune.txt": (0, 5)}
+# (d) pretraining over two ranks against one process: phase 14's bounds on
+# the first step's loss and the weights after step 2; stochastic depth off,
+# as in phase 14 (a rank draws its own block's masks, one process the
+# global batch's: on the card they are other numbers)
+SW_PRETRAIN_CUTS = ("epochs=1", "val_freq=1", "warmup_epochs=0",
+                    "model.encoder_args.drop_path_rate=0.0")
+# the control's ranks reduce nothing: each takes its own rows' loss sums
+# and BatchNorm statistics, and rank 0's gradient (times the world) stands
+# for the sum
+_PRETRAIN_CONTROL = r"""
+import sys
+from geot_tpu_torch.engine import train
+from geot_tpu_torch.parallel import dist
+
+
+def rank0_only(params):
+    for p in params:
+        dist.broadcast_(p.grad)
+        p.grad.mul_(dist.world())
+
+
+dist.all_reduce_sum = lambda x: x
+dist.gather = lambda x: x
+dist.sum_gradients = rank0_only
+train.parse_and_run(sys.argv[1:])
+dist.shutdown()
+"""
+
+
+def _hessian_cpu_case():
+    """The float64 AdaHessian semi step's inputs, the same in every process:
+    a seeded state at 1 + 1 + 1 clouds (dropout off), its batch, and ``z``
+    from a seeded CPU generator by parameter name."""
+    import torch
+
+    from geot_tpu_torch import FLAGSHIP_SEG_ARGS, FLAGSHIP_SEMI_CFG
+    from geot_tpu_torch.data.build import build_semi_loaders, semi_pairs
+    from geot_tpu_torch.optim import rademacher
+
+    cfg = dict(FLAGSHIP_SEMI_CFG, batch_size_l=1, batch_size_u=1,
+               optimizer=dict(FLAGSHIP_SEMI_CFG["optimizer"],
+                              NAME="adahessian"))
+    seg = dict(FLAGSHIP_SEG_ARGS, drop_path_rate=0.0, head_dropout=0.0)
+    loaders = build_semi_loaders(cfg)
+    for loader in loaders:
+        loader.set_epoch(1)
+    batch = next(semi_pairs(*loaders, limit=1))
+    return cfg, seg, batch, rademacher
+
+
+def _hessian_step(device):
+    """``_hessian_cpu_case``'s step on ``device`` in float64: (loss terms,
+    name -> |Hessian diagonal|, name -> first moment), on the host."""
+    import torch
+
+    from geot_tpu_torch.data.build import MODEL_KEYS, SEMI_KEYS, to_device
+    from geot_tpu_torch.engine.state import SemiTrainState
+    from geot_tpu_torch.engine.steps import make_semi_step
+
+    cfg, seg, (bl, bu), rademacher = _hessian_cpu_case()
+    st = SemiTrainState.create(cfg, seg_args=seg, seed=1, device=device)
+    for mod in (st.model, st.teacher, st.t_predictor):
+        mod.double()
+    st.ema_t, st.cm = st.ema_t.double(), st.cm.double()
+    named = list(st.model.named_parameters()) + list(
+        st.t_predictor.named_parameters())
+    gen = torch.Generator().manual_seed(16)
+    zs = dict(zip([n for n, _ in named], rademacher(
+        [p.detach().cpu() for _, p in named], gen)))
+    batches = [{k: (v.double() if v.is_floating_point() else v)
+                for k, v in to_device(b, keys, device).items()}
+               for b, keys in ((bl, MODEL_KEYS), (bu, SEMI_KEYS))]
+    m = make_semi_step(cfg)(st, *batches, 1e-3, True,
+                            draws={"hessian": zs})
+    b2 = float(dict(cfg["optimizer"]).get("betas", (0.9, 0.999))[1])
+    diag, mu = {}, {}
+    for n, p in named:
+        opt = st.t_opt if n.startswith("T_predictor.") else st.opt
+        s = opt.state[p]
+        diag[n] = (s["exp_hessian_diag_sq"].cpu() / (1 - b2)).sqrt()
+        mu[n] = s["exp_avg"].cpu()
+    return ({k: float(m[k]) for k in ("loss", "sup_loss", "unsup_loss",
+                                      "threed_loss")}, diag, mu)
+
+
+def hessian_cpu(path: str) -> int:
+    """``--hessian-cpu PATH`` (phase 16 runs it in a child process, beside
+    the card's work): ``_hessian_step`` on the CPU, saved to PATH."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    t = time.perf_counter()
+    out = _hessian_step("cpu")
+    torch.save({"out": out, "seconds": time.perf_counter() - t}, path)
+    return 0
+
+
+def _rel_max(got, ref, skip=()):
+    """The worst tensor's max |got - ref| over the tensor's largest |ref|,
+    and its name; the tensors ``skip`` names must vanish instead (at most
+    1e-4 of the largest entry of all, in both)."""
+    gmax = max(float(v.abs().max()) for v in ref.values())
+    worst = (0.0, "")
+    for k in skip:
+        check(float(got[k].abs().max()) <= 1e-4 * gmax
+              and float(ref[k].abs().max()) <= 1e-4 * gmax,
+              f"{k} should vanish")
+    for k, v in ref.items():
+        if k in skip:
+            continue
+        scale = max(float(v.abs().max()), 1e-300)
+        worst = max(worst, (float((got[k].double().cpu()
+                                   - v.double()).abs().max()) / scale, k))
+    return worst
+
+
+def _pretrain_steplosses(text):
+    """The ``steploss`` lines of a pretraining log: the losses and the
+    steps' milliseconds."""
+    rows = [line.split(" steploss ")[1].split()
+            for line in text.splitlines() if " steploss " in line]
+    return [float(r[1]) for r in rows], [float(r[3]) for r in rows]
+
+
+def phase_switches(bound: Bound, train):
+    """Phase 16: the trainer's other switches at full width (a)-(e)."""
+    import contextlib
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    from geot_tpu_torch import FLAGSHIP_SEMI_CFG, ops
+    from geot_tpu_torch.data.build import MODEL_KEYS, SEMI_KEYS, to_device
+    from geot_tpu_torch.data.tooth_semi import _synthetic_scan
+    from geot_tpu_torch.engine import train as train_mod
+    from geot_tpu_torch.engine.checkpoint import ckpt_path
+    from geot_tpu_torch.engine.state import SemiTrainState
+    from geot_tpu_torch.engine.steps import make_semi_step
+    from geot_tpu_torch.engine.writer import Wandb
+    from geot_tpu_torch.optim import build_optimizer_from_cfg
+    from geot_tpu_torch.optim.factory import _OPTIMIZERS
+
+    log("phase 16: the trainer's other switches at full width")
+    t_phase = time.perf_counter()
+    # the card's machine has a wandb package and no network: blocked, so
+    # that wandb.use_wandb takes the facade's no-op path (the real package
+    # would try to reach its servers)
+    sys.modules["wandb"] = None
+    here = os.path.dirname(os.path.abspath(__file__))
+    flagship = os.path.join(here, "cfgs", "tooth_semi",
+                            "transformer_finetune_fixmatch_ntm.yaml")
+    viewgen = os.path.join(here, "cfgs", "tooth_pretrain", "viewgen.yaml")
+    sup = os.path.join(here, "cfgs", "tooth_sup", "transformer.yaml")
+    root = tempfile.mkdtemp(prefix="geot_switches_")
+    dev = torch.device("cuda")
+    cfg = FLAGSHIP_SEMI_CFG
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    out = {}
+    children = []
+
+    def counted():
+        for k, v in ops.LAUNCHES.items():
+            total[k] += v
+        ops.reset_launches()
+
+    try:
+        # (b)'s CPU side, in a child beside the card's work
+        hess_path = os.path.join(root, "hessian_cpu.pt")
+        hess_out = open(os.path.join(root, "hessian_cpu.out"), "w")
+        hess_child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--hessian-cpu",
+             hess_path], cwd=here, stdout=hess_out, stderr=subprocess.STDOUT,
+            env=dict(os.environ, OMP_NUM_THREADS="4"))
+        children.append(hess_child)
+
+        # (a) the optimizer family from phase 6's gradients
+        model = train["state"].model
+        grads = train["grads"]
+        w0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        mc = copy.deepcopy(model)
+        mp = copy.deepcopy(model).cpu()
+        gc = [grads[n] for n, _ in mc.named_parameters()]
+        gp = [grads[n].cpu() for n, _ in mp.named_parameters()]
+        lr = float(cfg["lr"])
+        lrs = (lr, lr, lr / 2)
+        base = {k: v for k, v in cfg["optimizer"].items() if k != "NAME"}
+        cases = [(n, {}) for n in sorted(_OPTIMIZERS)] + list(SW_EXTRA)
+        opt_rows = {}
+        for name, extra in cases:
+            label = name + "".join(f" {k}={v}" for k, v in extra.items())
+            ms = []
+            for m, g in ((mc, gc), (mp, gp)):
+                with torch.no_grad():
+                    for n, p in m.named_parameters():
+                        p.copy_(w0[n])
+                opt = build_optimizer_from_cfg(m, lr, NAME=name,
+                                               **base, **extra)
+                order = {id(p): i for i, p in enumerate(m.parameters())}
+                hess = [g[order[id(p)]] for p in opt.params()]
+                for p, gi in zip(m.parameters(), g):
+                    p.grad = gi
+                for step_lr in lrs:
+                    for grp in opt.param_groups:
+                        grp["lr"] = step_lr
+                    if m is mc:
+                        torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    opt.step(hessian=hess if opt.needs_hessian else None)
+                    if m is mc:
+                        torch.cuda.synchronize()
+                        ms.append((time.perf_counter() - t) * 1e3)
+            cpu = dict(mp.named_parameters())
+            err, at = _rel_max({n: p.detach()
+                                for n, p in mc.named_parameters()},
+                               {n: p.detach() for n, p in cpu.items()})
+            moved = sum(not torch.equal(p.detach().cpu(), w0[n].cpu())
+                        for n, p in mc.named_parameters())
+            opt_rows[label] = {"max_rel_err": err, "update_ms": ms}
+            log(f"(a) {label}: 3 updates card vs CPU, worst tensor "
+                f"{err:.2e} ({at}); {moved}/{len(w0)} tensors moved; card "
+                f"update ms " + ", ".join(f"{x:.2f}" for x in ms))
+            check(err <= SW_OPT_TOL, f"(a) {label}: card and CPU weights "
+                  f"differ by {err:.3e} of a tensor's scale ({at})")
+            check(moved > 0.5 * len(w0), f"(a) {label}: {moved} tensors "
+                  f"moved")
+        del mc, mp
+        # one full-width semi step each, 2 + 2 + 2 clouds
+        st = SemiTrainState.create(cfg, seed=0, device=dev)
+        st.cm = train["state"].cm.clone()
+        bl, bu = train["pairs"][0]
+        bl, bu = to_device(bl, MODEL_KEYS, dev), to_device(bu, SEMI_KEYS, dev)
+        for name, extra in cases:
+            label = name + "".join(f" {k}={v}" for k, v in extra.items())
+            ocfg = dict(cfg, optimizer=dict(cfg["optimizer"], NAME=name,
+                                            **extra))
+            st.opt = build_optimizer_from_cfg(st.model, lr,
+                                              **ocfg["optimizer"])
+            st.t_opt = build_optimizer_from_cfg(st.t_predictor, lr,
+                                                **ocfg["optimizer"])
+            before = {n: p.detach().clone()
+                      for n, p in st.model.named_parameters()}
+            counted()
+            m = make_semi_step(ocfg)(st, bl, bu, lr, True)
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            counted()
+            terms = {k: float(m[k]) for k in ("loss", "sup_loss",
+                                              "unsup_loss", "threed_loss")}
+            moved = sum(not torch.equal(before[n], p)
+                        for n, p in st.model.named_parameters())
+            check(all(math.isfinite(v) for v in terms.values()),
+                  f"(a) {label} semi step: a loss is not finite {terms}")
+            check(moved > 0.5 * len(before), f"(a) {label} semi step: "
+                  f"{moved}/{len(before)} tensors moved")
+            check(launches == _launch_counts(**_PER_STEP),
+                  f"(a) {label} semi step launches {launches}")
+            opt_rows[label]["semi_step_loss"] = terms["loss"]
+        log(f"(a) one full-width semi step with each of {len(cases)} "
+            f"optimizers: losses finite, weights moved, phase 6's launches")
+        out["optimizers"] = opt_rows
+
+        # (b) AdaHessian: 3 flagship steps at 2 + 2 + 2 x 16,000 points
+        hcfg = dict(cfg, optimizer=dict(cfg["optimizer"], NAME="adahessian"))
+        st.opt = build_optimizer_from_cfg(st.model, lr, **hcfg["optimizer"])
+        st.t_opt = build_optimizer_from_cfg(st.t_predictor, lr,
+                                            **hcfg["optimizer"])
+        hstep = make_semi_step(hcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        h_ms, h_launch = [], []
+        for pair in train["pairs"]:
+            b_l = to_device(pair[0], MODEL_KEYS, dev)
+            b_u = to_device(pair[1], SEMI_KEYS, dev)
+            counted()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = hstep(st, b_l, b_u, lr, True)
+            torch.cuda.synchronize()
+            h_ms.append((time.perf_counter() - t) * 1e3)
+            h_launch.append(dict(ops.LAUNCHES))
+            counted()
+            check(math.isfinite(float(m["loss"])), "(b) loss not finite")
+        h_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        adamw_ms = statistics.median(train["step_ms"])
+        log(f"(b) AdaHessian flagship steps: "
+            f"{', '.join(f'{x:.1f}' for x in h_ms)} ms (median {statistics.median(h_ms):.1f}) against phase 6's "
+            f"AdamW {adamw_ms:.1f}; peak memory {h_peak:.0f} MiB against "
+            f"{train['peak_mb']:.0f}; launches a step {h_launch}")
+        for c in h_launch:
+            check(c == _launch_counts(**_PER_STEP), f"(b) launches {c}, "
+                  f"expected phase 6's {_PER_STEP}")
+        del st
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        card_terms, card_diag, card_mu = _hessian_step(dev)
+        card_s = time.perf_counter() - t
+        counted()
+        out["adahessian"] = {"step_ms": h_ms, "peak_mb": h_peak,
+                             "adamw_step_ms": adamw_ms,
+                             "float64_card_s": card_s}
+
+        # (c) the trainer with the switches, then the deterministic resume
+        tree = os.path.join(root, "teeth3ds")
+        os.makedirs(tree)
+        _write_teeth3ds(tree, [(i, jaw, *_synthetic_scan(seed, n))
+                               for i, jaw, seed, n in _FILES_SCANS[:6]],
+                        _SW_SPLITS)
+        data = [f"dataset_l.common.data_root={tree}",
+                f"dataset_u.common.data_root={tree}"]
+        common = [f"root_dir={os.path.join(root, 'trainer')}", "epochs=2",
+                  "val_freq=1", "test_freq=2", "save_freq=1", *data,
+                  *SW_TRAINER]
+        counted()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = train_mod.parse_and_run(["--cfg", flagship, *common])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches_c = dict(ops.LAUNCHES)
+        counted()
+        run_dir = os.path.join(root, "trainer", "tooth_semi", os.listdir(
+            os.path.join(root, "trainer", "tooth_semi"))[0])
+        traces = os.listdir(os.path.join(run_dir, "trace"))
+        text = open(os.path.join(run_dir, "trace", traces[0])).read()
+        names = {k: k in text for k in ("fps_cluster", "knn_split")}
+        want = _expected(steps=6, cm_batches=3, eval_batches=3)
+        log(f"(c) trainer with {list(SW_TRAINER)}: {wall:.1f} s, val whole "
+            f"miou {res['val']['whole_miou']:.4f}; trace {traces} "
+            f"({len(text)} bytes) names {names}; wandb run "
+            f"{Wandb.run}; launches {launches_c}")
+        check(traces == ["epoch1.json"] and all(names.values()),
+              f"(c) the trace {traces} does not name the kernels: {names}")
+        check(launches_c == want, f"(c) launches {launches_c}, expected "
+              f"{want} (6 steps, 3 cm batches, 3 eval batches)")
+        check(Wandb.run is None, "(c) wandb should be a no-op here")
+        det = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--resume-check",
+             os.path.join(root, "deterministic"), *data, *SW_TRAINER],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(os.environ,
+                                CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+        children.append(det)
+
+        # (d) pretraining: two ranks through engine.launch, one process,
+        # and the control, on a manifest tree of 4 train clouds (2 steps)
+        ptree = os.path.join(root, "pretrain_tree")
+        os.makedirs(ptree)
+        _write_pretrain_tree(ptree, 128)
+        popts = ["--cfg", viewgen, f"dataset.common.data_root={ptree}",
+                 *SW_PRETRAIN_CUTS]
+        # the ranks' cuDNN convolutions without TF32, as in this process
+        env = dict(_rank_env(here), NVIDIA_TF32_OVERRIDE="0")
+        ctrl_run = os.path.join(root, "pretrain_control")
+        os.makedirs(ctrl_run)
+        ctrl = []
+        for r in range(2):
+            f = open(os.path.join(ctrl_run, f"rank{r}.out"), "w")
+            ctrl.append((subprocess.Popen(
+                [sys.executable, "-c", _PRETRAIN_CONTROL, *popts,
+                 f"run_dir={ctrl_run}", "run_name=control"], cwd=here,
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=f,
+                stderr=subprocess.STDOUT), f))
+            children.append(ctrl[-1][0])
+        one = os.path.join(root, "pretrain_one")
+        counted()
+        os.environ["GEOT_LOG_STEP_LOSS"] = "1"
+        log_buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(log_buf):
+                train_mod.parse_and_run([*popts, f"run_dir={one}",
+                                         "run_name=one"])
+        finally:
+            del os.environ["GEOT_LOG_STEP_LOSS"]
+        launches_one = dict(ops.LAUNCHES)
+        counted()
+        two = os.path.join(root, "pretrain_two")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "geot_tpu_torch.engine.launch",
+             "--nprocs", "2", "--run-dir", two, "--", *popts], cwd=here,
+            env=dict(os.environ, GEOT_LOG_STEP_LOSS="1", PYTHONPATH=here,
+                     NVIDIA_TF32_OVERRIDE="0"),
+            capture_output=True, text=True, timeout=600)
+        two_s = time.perf_counter() - t
+        check(proc.returncode == 0, "(d) two-rank pretraining failed: "
+              + proc.stdout[-3000:] + proc.stderr[-3000:])
+        _, ctrl_text = _wait_control(ctrl_run, ctrl)
+        rank0 = open(os.path.join(two, "rank0.log")).read()
+        l_one, ms_one = _pretrain_steplosses(log_buf.getvalue())
+        l_two, ms_two = _pretrain_steplosses(rank0)
+        l_ctrl, _ = _pretrain_steplosses(ctrl_text)
+        rank_launches = _step_launches(rank0)
+        check(len(l_one) == len(l_two) == len(l_ctrl) == 2,
+              f"(d) step losses {l_one} {l_two} {l_ctrl}")
+        w_one = _dp_state(one, "latest")["model"]
+        plr = 5e-4
+        loss_rel = abs(l_two[0] - l_one[0]) / abs(l_one[0])
+        ctrl_rel = abs(l_ctrl[0] - l_one[0]) / abs(l_one[0])
+        w_rms, w_top = _weight_rms_lr(_dp_state(two, "latest")["model"],
+                                      w_one, plr)
+        c_rms, c_top = _weight_rms_lr(_dp_state(ctrl_run, "latest")["model"],
+                                      w_one, plr)
+        log(f"(d) two-rank pretraining (launch, {two_s:.1f} s) vs one "
+            f"process: first-step loss {loss_rel:.3e} relative (control "
+            f"{ctrl_rel:.3e}), weights after step 2 {w_rms:.4f} lr rms, max "
+            f"{w_top:.4f} (control {c_rms:.4f}, {c_top:.4f}); step ms two "
+            f"ranks {ms_two}, one process {ms_one}; one process launches "
+            f"{launches_one}; ranks' launches a step {rank_launches}")
+        check(loss_rel <= DP_FIRST_LOSS_RTOL and w_rms <= DP_WEIGHT_RMS_LR,
+              "(d) two ranks differ from one process")
+        check(ctrl_rel > DP_FIRST_LOSS_RTOL and c_rms > DP_WEIGHT_RMS_LR,
+              "(d) the control passed a bound")
+        check(all(r == _launch_counts(fps_cluster=1)
+                  for step_ in rank_launches for r in step_),
+              f"(d) each rank launches one fps_cluster a step: "
+              f"{rank_launches}")
+        out["pretrain_dp"] = {"loss_rel": loss_rel, "weight_rms_lr": w_rms,
+                              "control_loss_rel": ctrl_rel,
+                              "control_weight_rms_lr": c_rms,
+                              "launch_s": two_s, "step_ms_two": ms_two,
+                              "step_ms_one": ms_one}
+
+        # (e) TeethSegFinetuneDataset through the supervised transformer
+        t = time.perf_counter()
+        res_e = train_mod.parse_and_run([
+            "--cfg", sup, f"root_dir={os.path.join(root, 'finetune')}",
+            "epochs=1", "dataset_l.common.NAME=TeethSegFinetuneDataset",
+            f"dataset_l.common.data_root={tree}"])
+        launches_e = dict(ops.LAUNCHES)
+        counted()
+        bad = {k: v for k, v in res_e["val"].items()
+               if not (math.isfinite(v) and 0.0 <= v <= 1.0)}
+        log(f"(e) TeethSegFinetuneDataset through cfgs/tooth_sup/"
+            f"transformer.yaml: {time.perf_counter() - t:.1f} s, val whole "
+            f"miou {res_e['val']['whole_miou']:.4f}; launches {launches_e}")
+        check(not bad, f"(e) metrics outside [0, 1]: {bad}")
+
+        # the children: the deterministic resume and the CPU's Hessian
+        det_out, det_err = det.communicate(timeout=600)
+        check(det.returncode == 0, "(c) the deterministic resume failed: "
+              + det_err[-3000:])
+        pair = json.loads([line for line in det_out.splitlines()
+                           if line.startswith("RESUME_CHECK ")][-1][13:])
+        tags = [k for k in pair["a"] if k not in ("epoch_seconds",
+                                                  "data_seconds")]
+        unequal = {k: (pair["a"][k], pair["b"].get(k)) for k in tags
+                   if pair["b"].get(k) != pair["a"][k]}
+        log(f"(c) deterministic resume from E1, one gradient into a group: "
+            f"{len(tags) - len(unequal)}/{len(tags)} epoch-2 scalars "
+            f"bit-equal")
+        check(len(tags) >= 40 and not unequal, f"(c) the resume differs: "
+              f"{unequal}")
+        t = time.perf_counter()
+        hess_child.wait(timeout=900)
+        hess_out.close()
+        check(hess_child.returncode == 0, "(b) the CPU's Hessian step "
+              "failed: " + open(hess_out.name).read()[-3000:])
+        saved = torch.load(hess_path, weights_only=False)
+        cpu_terms, cpu_diag, cpu_mu = saved["out"]
+        rel = {k: abs(card_terms[k] - v) / max(abs(v), 1e-30)
+               for k, v in cpu_terms.items()}
+        # a bias before BatchNorm: no gradient, no curvature (phase 6)
+        d_err, d_at = _rel_max(card_diag, cpu_diag, _ZERO_GRAD)
+        g_err, g_at = _rel_max(card_mu, cpu_mu, _ZERO_GRAD)
+        log(f"(b) float64, 1 + 1 + 1 clouds, the same z: card {card_s:.1f} "
+            f"s, CPU {saved['seconds']:.1f} s in its child (waited "
+            f"{time.perf_counter() - t:.1f} s); loss terms relative "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+            + f"; |diag| worst tensor {d_err:.3e} ({d_at}); first moment "
+            f"{g_err:.3e} ({g_at})")
+        check(all(v <= 1e-4 for v in rel.values()), f"(b) loss terms {rel}")
+        check(d_err <= SW_HESS_TOL and g_err <= SW_HESS_TOL,
+              f"(b) the card's Hessian diagonal differs from the CPU's: "
+              f"{d_err:.3e} ({d_at}), first moment {g_err:.3e}")
+        out["adahessian"].update(diag_rel=d_err, grad_rel=g_err,
+                                 float64_cpu_s=saved["seconds"])
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    counted()
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16: {out['seconds']:.1f} s; launches {total}")
+    return out
+
+
+# --dp-step-ms: phase 14's two-rank flagship trainer (gloo, both ranks on
+# one card, the global batch 2 + 2 + 2 at 16,000 points) for 8 steps, in
+# each checkout given, in the order given: to compare two commits on one
+# card, run parent, change, change, parent
+DP_MS_SPLITS = {"semi_l_train_0.2.txt": tuple(range(16)),
+                "semi_u_train_0.2.txt": tuple(range(16, 32)),
+                "testing.txt": (0,)}
+
+
+def dp_step_ms(dirs) -> int:
+    """Each step's milliseconds on rank 0 (to the losses on the host, the
+    trainer's ``GEOT_LOG_STEP_LOSS`` lines) of the two-rank trainer run
+    from each checkout in ``dirs``; one JSON line a run, then the card's
+    ``nvidia-smi`` name and power limit."""
+    import shutil
+    import statistics
+    import tempfile
+
+    _, smi, _ = phase_device()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from geot_tpu_torch.data.tooth_semi import _synthetic_scan
+
+    dirs = [os.path.abspath(d) for d in dirs]
+    root = tempfile.mkdtemp(prefix="geot_dp_ms_")
+    try:
+        tree = os.path.join(root, "teeth3ds")
+        os.makedirs(tree)
+        _write_teeth3ds(tree, [(f"P{i:03d}", i % 2,
+                                *_synthetic_scan(500 + i, 40000))
+                               for i in range(32)], DP_MS_SPLITS)
+        # every checkout's kernels, built before its ranks start
+        builds = [subprocess.Popen(
+            [sys.executable, "-c",
+             "from geot_tpu_torch.ops import _build; _build.build_info()"],
+            cwd=d, env=dict(os.environ, PYTHONPATH=d))
+            for d in dict.fromkeys(dirs)]
+        codes = [p.wait(timeout=900) for p in builds]
+        check(codes == [0] * len(codes), f"kernel builds: {codes}")
+        for i, d in enumerate(dirs):
+            run = os.path.join(root, f"run{i}")
+            proc = subprocess.run(
+                [sys.executable, "-m", "geot_tpu_torch.engine.launch",
+                 "--nprocs", "2", "--run-dir", run, "--", "--cfg",
+                 os.path.join(d, "cfgs", "tooth_semi",
+                              "transformer_finetune_fixmatch_ntm.yaml"),
+                 f"dataset_l.common.data_root={tree}",
+                 f"dataset_u.common.data_root={tree}", "epochs=1",
+                 "seed=3", "test_freq=100", "save_freq=100",
+                 *_DP_NO_DROPOUT],
+                cwd=d, env=_rank_env(d), timeout=600, capture_output=True,
+                text=True)
+            check(proc.returncode == 0, f"{d}: two-rank launch failed:\n"
+                  f"{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}")
+            _, ms = _steplosses(open(os.path.join(run, "rank0.log")).read())
+            check(len(ms) == 8, f"{d}: step ms {ms}")
+            print(json.dumps({"checkout": d, "step_ms": ms,
+                              "median_after_first": statistics.median(
+                                  ms[1:])}), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(smi, flush=True)
+    return 0
+
+
+def resume_check(root: str, extra=()) -> int:
+    """``--resume-check ROOT [k=v ...]`` (phases 8 and 16 run it in a child
+    process with ``CUBLAS_WORKSPACE_CONFIG`` set): with deterministic
+    algorithms on, the flagship for 2 epochs (with the overrides), then a
+    resume from its epoch-1 checkpoint; prints the epoch-2 scalars of both
+    as one ``RESUME_CHECK`` JSON line."""
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4304,10 +4905,12 @@ def resume_check(root: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.use_deterministic_algorithms(True)
+    sys.modules["wandb"] = None      # see phase_switches
     cfg_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "cfgs", "tooth_semi",
                             "transformer_finetune_fixmatch_ntm.yaml")
-    common = [f"root_dir={root}", "val_freq=1", "test_freq=2", "save_freq=1"]
+    common = [f"root_dir={root}", "val_freq=1", "test_freq=2", "save_freq=1",
+              *extra]
     train_mod.parse_and_run(["--cfg", cfg_path, "epochs=2", *common])
     run_dir = os.path.join(root, "tooth_semi",
                            os.listdir(os.path.join(root, "tooth_semi"))[0])
@@ -4400,7 +5003,12 @@ def resume_spread(pairs: int) -> int:
 
 def main() -> int:
     if "--resume-check" in sys.argv[1:]:
-        return resume_check(sys.argv[sys.argv.index("--resume-check") + 1])
+        at = sys.argv.index("--resume-check")
+        return resume_check(sys.argv[at + 1], sys.argv[at + 2:])
+    if "--hessian-cpu" in sys.argv[1:]:
+        return hessian_cpu(sys.argv[sys.argv.index("--hessian-cpu") + 1])
+    if "--dp-step-ms" in sys.argv[1:]:
+        return dp_step_ms(sys.argv[sys.argv.index("--dp-step-ms") + 1:])
     if "--resume-spread" in sys.argv[1:]:
         return resume_spread(int(
             sys.argv[sys.argv.index("--resume-spread") + 1]))
@@ -4422,6 +5030,7 @@ def main() -> int:
     files = phase_files(Bound(limit_w))
     export_dp = phase_export_dp(Bound(limit_w))
     pretrain = phase_pretrain(Bound(limit_w), smi)
+    switches = phase_switches(Bound(limit_w), train)
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
     # launches on the main paths: 3 served scans, the train run (2 cm
@@ -4439,7 +5048,8 @@ def main() -> int:
         f"{branches['launches']}, supervised zoo {zoo['launches']}, files "
         f"and the serving CLI {files['launches']}, export and data "
         f"parallel {export_dp['launches']}, pretraining and the graft "
-        f"{pretrain['launches']}")
+        f"{pretrain['launches']}, the trainer's other switches "
+        f"{switches['launches']}")
 
     def entry(name, replaces, source=None):
         return {"name": name, "route": "cuda",
@@ -4453,7 +5063,8 @@ def main() -> int:
                              + zoo["launches"][name]
                              + files["launches"].get(name, 0)
                              + export_dp["launches"][name]
-                             + pretrain["launches"][name]),
+                             + pretrain["launches"][name]
+                             + switches["launches"][name]),
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
                 "launches_trainer_run": trainer["launches"][name],
@@ -4465,6 +5076,7 @@ def main() -> int:
                 "launches_files_and_cli": files["launches"].get(name, 0),
                 "launches_export_and_dp": export_dp["launches"][name],
                 "launches_pretrain_and_graft": pretrain["launches"][name],
+                "launches_trainer_switches": switches["launches"][name],
                 "library_ms": None, **recs[name]}
 
     kernels = [

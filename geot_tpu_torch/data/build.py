@@ -13,7 +13,8 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .tooth_pretrain import Tooth6000, Tooth6000PCA
+from .tooth_pretrain import (TeethClsDataset, TeethSegFinetuneDataset,
+                             Tooth6000, Tooth6000PCA)
 from .tooth_semi import TeethSegSemiLDataset, TeethSegSemiUDataset
 from .transforms import build_transforms_from_cfg
 
@@ -25,6 +26,8 @@ SEMI_KEYS = ("pos_w", "x_w", "cls_w", "pos_s", "x_s", "cls_s", "raw_pos",
 
 DATASETS = {"TeethSegSemiLDataset": TeethSegSemiLDataset,
             "TeethSegSemiUDataset": TeethSegSemiUDataset,
+            "TeethSegFinetuneDataset": TeethSegFinetuneDataset,
+            "TeethClsDataset": TeethClsDataset,
             "tooth_6000": Tooth6000, "tooth_6000_pca": Tooth6000PCA}
 
 

@@ -1,7 +1,9 @@
 """The multi-view pretraining datasets, ``tooth_6000`` and
-``tooth_6000_pca`` (``geot_tpu/data/tooth_pretrain.py:40-279``), on the
-port's ``_TeethBase`` with the same numpy draws: an item is bit-equal to
-``geot_tpu``'s for the same ``(seed, epoch, idx)``.
+``tooth_6000_pca`` (``geot_tpu/data/tooth_pretrain.py:40-279``), and the
+finetune and jaw-classification sets, ``TeethSegFinetuneDataset`` and
+``TeethClsDataset`` (``:281-349``), on the port's ``_TeethBase`` with the
+same numpy draws: an item is bit-equal to ``geot_tpu``'s for the same
+``(seed, epoch, idx)``.
 
 An item holds ``pos`` (the unit-sphere normalised cloud sampled to
 ``num_points``), ``x`` (``tooth_6000``: ``pos`` and the height above the
@@ -249,4 +251,74 @@ class Tooth6000PCA(_PretrainBase):
         gray = imgs @ np.array([0.299, 0.587, 0.114], dtype=np.float32)
         data["weight"] = np.stack([_sobel_weight(g_) for g_ in gray])
         data["cls"] = np.asarray([sample["location"]], dtype=np.int64)
+        return data
+
+
+class TeethSegFinetuneDataset(_TeethBase):
+    """The fully supervised finetune split
+    (``geot_tpu/data/tooth_pretrain.py:281-312``): ``train`` reads the
+    10 % label budget ``full_train_finetune_0.1.txt``, ``val`` and
+    ``test`` ``full_<split>_finetune.txt``. An item is
+    ``TeethSegSemiLDataset``'s: ``pos``, ``x``, ``y``, ``cls`` and
+    ``class_weights``, and for ``val`` and ``test`` the full scan with its
+    normalisation."""
+
+    def __init__(self, data_root="", num_points=16000, split="train",
+                 transform=None, **kwargs):
+        list_name = (f"full_{split}_finetune_0.1.txt" if split == "train"
+                     else f"full_{split}_finetune.txt")
+        super().__init__(data_root, num_points, split, list_name, **kwargs)
+        self.transform = transform
+
+    def __getitem__(self, idx):
+        sample = self.file_list[idx]
+        rng = self._rng(idx)
+        points, labels = self._load(sample)
+        points_norm, center, scale = pc_norm(points)
+        spts, slab = self._sample(points_norm, labels, rng)
+        data = {"pos": spts, "x": spts, "y": slab,
+                "cls": np.asarray([sample["location"]], dtype=np.int64),
+                "class_weights": self._class_weights(slab)}
+        if self.split in ("val", "test"):
+            data.update(points=points.astype(np.float32),
+                        labels=labels.astype(np.int64),
+                        center=center.astype(np.float32),
+                        scale=np.float32(scale))
+        if self.transform is not None:
+            data = self.transform(data, rng)
+        return data
+
+
+class TeethClsDataset(_TeethBase):
+    """Jaw classification (``geot_tpu/data/tooth_pretrain.py:315-349``):
+    ``y`` is the jaw (0 lower, 1 upper); the scan's axes are rolled
+    (``points[:, [2, 0, 1]]``, the one tooth dataset that rolls them)
+    before the unit-sphere normalisation; ``num_points`` drawn with
+    replacement; ``x`` is ``pos`` and its height above the lowest point
+    along axis 2. Lists ``full_<split>_finetune.txt``."""
+
+    classes = ["lower", "upper"]
+    gravity_dim = 2
+
+    def __init__(self, data_root="", num_points=16000, split="train",
+                 transform=None, **kwargs):
+        super().__init__(data_root, num_points, split,
+                         f"full_{split}_finetune.txt", **kwargs)
+        self.num_classes = 2
+        self.transform = transform
+
+    def __getitem__(self, idx):
+        sample = self.file_list[idx]
+        rng = self._rng(idx)
+        points, _ = self._load(sample)
+        points_norm, _, _ = pc_norm(points[:, [2, 0, 1]])
+        sel = rng.choice(len(points_norm), self.num_points, replace=True)
+        spts = points_norm[sel].astype(np.float32)
+        g = self.gravity_dim
+        h = spts[:, g:g + 1] - spts[:, g:g + 1].min()
+        data = {"pos": spts,
+                "y": np.asarray([sample["location"]], dtype=np.int64),
+                "x": np.concatenate([spts, h], axis=1)}
+        if self.transform is not None:
+            data = self.transform(data, rng)
         return data

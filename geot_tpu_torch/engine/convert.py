@@ -6,10 +6,11 @@ tree of a ``WholePartSeg``, ``BaseSeg``, ``PointMLPPartSegmentor`` or
 the port's ``state_dict``, running statistics included.
 ``t_params_from_jax`` does the same for the ``Ins_T_mean`` T-predictor;
 ``state_from_jax`` for a supervised or pretraining ``TrainState``: the
-weights, the EMA shadow and, from a full-state checkpoint, the optax AdamW
-state and ``step``; and ``semi_state_from_jax`` for a ``SemiTrainState``:
-all of that for the student, and the teacher, the T-predictor and its
-AdamW state, ``ema_t``, ``cm`` and the contrast bank. Dense kernels (in,
+weights, the EMA shadow and, from a full-state checkpoint, the optax
+optimizer state (``opt_state_from_jax``) and ``step``; and
+``semi_state_from_jax`` for a ``SemiTrainState``: all of that for the
+student, and the teacher, the T-predictor and its optimizer state,
+``ema_t``, ``cm`` and the contrast bank. Dense kernels (in,
 out) become Linear weights (out, in) and convolution kernels (H, W, in,
 out) OIHW weights; flax BatchNorm ``scale``/``bias`` + ``mean``/``var``
 become ``weight``/``bias`` + ``running_mean``/``running_var``; LayerNorm
@@ -141,29 +142,103 @@ def t_params_from_jax(t_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return {"T_predictor.fc": _float(t_params["T_predictor"]["fc"])}
 
 
-def _adam_state(opt_state: Dict[str, Any]) -> Dict[str, Any]:
-    """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an
-    optax state written as nested dicts (``flax.serialization``)."""
-    if {"count", "mu", "nu"} <= set(opt_state):
-        return opt_state
-    found = [_adam_state(v) for v in opt_state.values()
-             if isinstance(v, dict)]
-    found = [f for f in found if f is not None]
-    if len(found) > 1:
-        raise ValueError("more than one Adam state in the optimizer state")
-    return found[0] if found else None
+# per-parameter trees of the optax states the port converts: field ->
+# the port's state entry (``optim.factory.ChainOptimizer``)
+_PER_PARAM = {
+    "ScaleByAdamState": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+    "TraceState": {"trace": "momentum_buffer"},
+    "LookaheadState": {"slow": "slow"},
+    "AdahessianState": {"exp_avg": "exp_avg",
+                        "exp_hessian_diag_sq": "exp_hessian_diag_sq"},
+}
+# the field sets of optax states written as dicts (flax.serialization),
+# which lose their type's name
+_FIELDS = {
+    frozenset({"count", "mu", "nu"}): "ScaleByAdamState",
+    frozenset({"trace"}): "TraceState",
+    frozenset({"count", "slow"}): "LookaheadState",
+    frozenset({"count", "exp_avg", "exp_hessian_diag_sq"}):
+        "AdahessianState",
+    frozenset({"mini_step", "gradient_step", "inner_opt_state",
+               "acc_grads", "skip_state"}): "MultiStepsState",
+    frozenset({"count", "hyperparams", "inner_state"}):
+        "InjectHyperparamsState",
+    frozenset({"count", "hyperparams", "hyperparams_states",
+               "inner_state"}): "InjectStatefulHyperparamsState",
+    frozenset({"inner_state"}): "MaskedState",
+    frozenset({"nu"}): "ScaleByRmsState",
+    frozenset({"count", "v_row", "v_col", "v"}): "FactoredState",
+    frozenset({"count", "momentum"}): "ScaleBySGDPState",
+    frozenset({"count", "grad_sum", "grad_sum_sq", "x0"}): "MadgradState",
+}
 
 
-def _moments(opt_state: Dict[str, Any], convert) -> Dict[str, Any]:
-    """optax Adam moments -> ``{"step", "exp_avg", "exp_avg_sq"}`` keyed by
-    the port's parameter names, through the weights' own converter."""
-    adam = _adam_state(opt_state)
-    if adam is None:
-        raise ValueError("no Adam state (count, mu, nu) in the optimizer "
-                         "state")
-    return {"step": int(np.asarray(adam["count"])),
-            "exp_avg": convert(adam["mu"]),
-            "exp_avg_sq": convert(adam["nu"])}
+def _fields(node) -> "tuple[str, Dict[str, Any]] | None":
+    """(type name, fields) of an optax state node: a NamedTuple, or a dict
+    whose keys are a known state's fields; None for a chain's container
+    (a tuple, or a dict keyed ``"0"``, ``"1"``, ...)."""
+    if hasattr(node, "_asdict"):
+        return type(node).__name__, node._asdict()
+    if isinstance(node, dict) and node and not all(
+            k.isdigit() for k in node):
+        name = _FIELDS.get(frozenset(node))
+        if name is None:
+            raise ValueError(f"optimizer state with fields {sorted(node)} "
+                             f"does not convert to the port")
+        return name, node
+    return None
+
+
+def opt_state_from_jax(opt_state, convert) -> Dict[str, Any]:
+    """A ``geot_tpu`` optax state (objects, or dicts as a checkpoint holds
+    it) -> the port's optimizer state by parameter name: ``step`` (the
+    updates applied: ``inject_hyperparams``'s count), each per-parameter
+    entry as ``{name: tensor}`` through ``convert`` (the weights' own
+    converter), and under ``MultiSteps`` ``mini_step`` and ``acc``. The
+    states converted: ``ScaleByAdamState``, ``TraceState``,
+    ``MultiStepsState``, ``LookaheadState`` and ``AdahessianState`` (with
+    the wrappers ``inject_hyperparams``, ``chain`` and ``masked``); any
+    other raises ``ValueError`` naming its type."""
+    out: Dict[str, Any] = {}
+
+    def walk(node):
+        found = _fields(node)
+        if found is None:
+            children = (node.values() if isinstance(node, dict)
+                        else node if isinstance(node, (tuple, list)) else ())
+            for child in children:
+                walk(child)
+            return
+        name, f = found
+        if not f:                     # EmptyState
+            return
+        if name == "MultiStepsState":
+            out["mini_step"] = int(np.asarray(f["mini_step"]))
+            out["acc"] = convert(f["acc_grads"])
+            walk(f["inner_opt_state"])
+        elif name.startswith("Inject"):
+            out["step"] = int(np.asarray(f["count"]))
+            walk(f["inner_state"])
+        elif name == "MaskedState":
+            walk(f["inner_state"])
+        elif name in _PER_PARAM:
+            for field, key in _PER_PARAM[name].items():
+                if key in out:
+                    raise ValueError(f"more than one {name} in the "
+                                     f"optimizer state")
+                out[key] = convert(f[field])
+            if "count" in f:
+                out.setdefault("step", int(np.asarray(f["count"])))
+        else:
+            raise ValueError(f"optimizer state {name} does not convert to "
+                             f"the port (converted: ScaleByAdamState, "
+                             f"TraceState, MultiStepsState, LookaheadState, "
+                             f"AdahessianState)")
+
+    walk(opt_state)
+    if "step" not in out:
+        raise ValueError("no update count in the optimizer state")
+    return out
 
 
 def state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
@@ -171,15 +246,17 @@ def state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
     ``params``, ``batch_stats``, and where present ``ema_params`` (empty
     when the run kept no shadow), ``opt_state`` and ``step``) -> what
     ``engine.state.TrainState.load`` takes: ``model``, and ``ema_params``,
-    the AdamW moments ``opt`` and ``step`` where the state has them. The
-    optimizer moments are matched to parameters by name, never by
-    position: torch keeps them in param-group order, optax in tree order.
+    the optimizer state ``opt`` and ``step`` where the state has them. The
+    optimizer's entries are matched to parameters by name, never by
+    position: the port keeps them in param-group order, optax in tree
+    order.
     Floating leaves come as float32, or float64 where they are float64."""
     out = {"model": params_from_jax({"params": state["params"],
                                      "batch_stats": state["batch_stats"]})}
     if "opt_state" in state:
-        out["opt"] = _moments(state["opt_state"], lambda tree: params_from_jax(
-            {"params": tree, "batch_stats": {}}))
+        out["opt"] = opt_state_from_jax(
+            state["opt_state"], lambda tree: params_from_jax(
+                {"params": tree, "batch_stats": {}}))
     if "step" in state:
         out["step"] = int(np.asarray(state["step"]))
     if state.get("ema_params"):
@@ -206,7 +283,8 @@ def semi_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
         "cm": _float(state["cm"]),
     })
     if "t_opt_state" in state:
-        out["t_opt"] = _moments(state["t_opt_state"], t_params_from_jax)
+        out["t_opt"] = opt_state_from_jax(state["t_opt_state"],
+                                          t_params_from_jax)
     if "contrast" in state:
         c = state["contrast"]
         queue, ptr = ((c["queue"], c["ptr"]) if isinstance(c, dict)

@@ -125,14 +125,17 @@ def _metrics_from_cm(cm: np.ndarray):
     return acc, miou, mdsc
 
 
-def _eval_cache(loader, device: torch.device, bucket: int) -> List[Dict]:
+def _eval_cache(loader, device: torch.device, bucket: int,
+                keep: bool = True) -> List[Dict]:
     """The loader's batches as device tensors: each batch's model inputs
     and sampled labels, and per scan the padded full-resolution points and
-    labels with their normalisation. Built on the first call and kept on
-    the loader, keyed by device: val and test batches are the same every
-    epoch (no ``set_epoch``, deterministic transforms)."""
+    labels with their normalisation. With ``keep`` (``eval_device_cache``,
+    the default) built on the first call and kept on the loader, keyed by
+    device: val and test batches are the same every epoch (no
+    ``set_epoch``, deterministic transforms); without, loaded and copied
+    to the device on every call (``geot_tpu/engine/eval.py:174``)."""
     stored = getattr(loader, "_geot_eval_cache", None)
-    if stored is not None and stored[0] == device:
+    if keep and stored is not None and stored[0] == device:
         return stored[1]
 
     def put(a):
@@ -156,7 +159,8 @@ def _eval_cache(loader, device: torch.device, bucket: int) -> List[Dict]:
                 "n_valid": len(full),
                 "side": int(np.asarray(batch["cls"][i]).reshape(-1)[0])})
         cache.append(entry)
-    loader._geot_eval_cache = (device, cache)
+    if keep:
+        loader._geot_eval_cache = (device, cache)
     return cache
 
 
@@ -194,7 +198,8 @@ def validate(eval_step: Callable, model: torch.nn.Module, val_loader,
                 for k, v in batch.items()}
 
     cms, sides, accs = [], [], []
-    for entry in _eval_cache(val_loader, param.device, bucket):
+    for entry in _eval_cache(val_loader, param.device, bucket,
+                             bool(cfg.get("eval_device_cache", True))):
         pos = entry["model_batch"]["pos"]
         logits = eval_step(model, model_batch(entry["model_batch"]))
         if num_votes:

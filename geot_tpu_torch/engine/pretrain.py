@@ -6,8 +6,10 @@ point encoder (``geot_tpu/engine/pretrain.py:44-214``):
 (the trainer dispatches here when ``model`` has ``generator_args``). It
 trains a ``ViewGenBase`` (point encoder -> cross-attention view generator
 -> convolutional decoder, foreground-weighted MSE against the renders of
-``cfg.dataset``) with AdamW under ``cfg.sched``, validates the mean
-reconstruction loss every ``val_freq`` epochs and at the last, and writes
+``cfg.dataset``) with ``cfg.optimizer`` under ``cfg.sched`` (AdaHessian
+refused: ``geot_tpu``'s pretraining step passes no Hessian diagonal, and
+no ``step_per_update``, as there), validates the mean reconstruction
+loss every ``val_freq`` epochs and at the last, and writes
 ``latest``, ``best`` (the lowest validation loss) and ``E<epoch>`` every
 ``save_freq`` through ``engine.checkpoint``. ``mode=resume`` continues
 the run of ``pretrained_path`` (a checkpoint file) with its best loss.
@@ -15,11 +17,22 @@ The encoder trunk of such a checkpoint grafts into the flagship:
 ``pretrain_encoder_path=<checkpoint or run directory>`` on the flagship
 recipe (``engine.checkpoint.load_pretrain_encoder``).
 
-One process, one device: under a launched world of several ranks ``main``
-raises ``NotImplementedError``.
+Data parallelism (``python -m geot_tpu_torch.engine.launch --nprocs N --
+--cfg cfgs/tooth_pretrain/viewgen.yaml``; ``geot_tpu``'s dp mesh,
+``engine/pretrain.py:119-171``): each rank loads ``batch_size / N`` rows of
+every global train batch; BatchNorm takes the global batch's statistics
+(SyncBN, ``models/layers/common.py``) and the step gathers the ranks'
+sums of ``ViewGenBase.forward_sums``, so every rank holds the global
+batch's loss;
+the ranks' gradients are summed; validation scores the whole split on
+every rank, and rank 0's value decides; only rank 0 writes scalars, logs
+and checkpoints.
+``GEOT_LOG_STEP_LOSS=1`` logs each step's loss at full precision, its
+milliseconds and each rank's kernel launches in it.
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 import time
@@ -31,11 +44,13 @@ from ..core.config import resolve_device
 from ..core.logger import setup_logger_dist
 from ..core.metrics import cal_model_parm_nums
 from ..data.build import build_dataloader_from_cfg, to_device
-from ..optim import build_scheduler_from_cfg, set_learning_rate
+from ..ops import LAUNCHES
+from ..optim import build_scheduler_from_cfg, needs_hessian, set_learning_rate
 from ..parallel import dist
 from .checkpoint import load_checkpoint, save_checkpoint
 from .state import TrainState
-from .steps import _zero_missing_grads
+from .steps import _backward
+from .train import _launches_by_rank
 from .writer import SummaryWriter
 
 BATCH_KEYS = ("pos", "x", "views", "imgs", "weight")
@@ -53,18 +68,26 @@ def make_pretrain_step(cfg: Dict[str, Any]) -> Callable:
     ``TrainState`` of a ``ViewGenBase`` in place (``pretrain.py:44-83``):
     the model's own loss in training mode (BatchNorm on batch statistics,
     which update the running ones; dropout and stochastic depth from the
-    state's generator), gradients scaled by ``min(1, grad_norm_clip /
-    (norm + 1e-6))`` of their global norm, then AdamW at ``lr``."""
+    state's generator), over the global batch under data parallelism,
+    gradients scaled by ``min(1, grad_norm_clip / (norm + 1e-6))`` of
+    their global norm, then the optimizer at ``lr``. AdaHessian raises
+    ``ValueError``: this step computes no Hessian diagonal."""
+    if needs_hessian((cfg.get("optimizer") or {}).get("NAME", "adamw")):
+        raise ValueError(
+            f"optimizer.NAME={cfg['optimizer']['NAME']!r} needs the Hessian "
+            f"diagonal, which the pretraining step does not compute (as in "
+            f"geot_tpu/engine/pretrain.py:47-83)")
     clip = cfg.get("grad_norm_clip")
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              lr: float) -> Dict[str, torch.Tensor]:
         model = state.model
         model.train()
-        loss, _ = model(batch, generator=state.generator)
+        sums, _ = model.forward_sums(batch, generator=state.generator)
+        # the global batch's sums, and so its loss, on every rank
+        loss = model.loss_of_sums(dist.gather(sums[None]).sum(0))
         state.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        _zero_missing_grads([model])
+        _backward(loss, [state.opt], state.generator)
         if clip is not None:
             torch.nn.utils.clip_grad_norm_(model.parameters(), float(clip))
         set_learning_rate(state.opt, lr)
@@ -104,30 +127,35 @@ def validate_pretrain(eval_step: Callable, model: torch.nn.Module,
 def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     """Pretrain ``cfg.model`` on ``device``; returns the last ``val_loss``
     and ``best`` (``loss``, ``epoch``)."""
-    device = resolve_device(device)
-    if dist.world() > 1:
-        raise NotImplementedError(
-            f"not ported: distributed pretraining ({dist.world()} ranks); "
-            f"the pretraining stage runs in one process on one device")
-    setup_logger_dist(cfg.get("log_path"))
+    device = dist.rank_device(resolve_device(device))
+    world, rank = dist.world(), dist.rank()
+    setup_logger_dist(cfg.get("log_path"), rank)
     logger = logging.getLogger()
-    writer = SummaryWriter(cfg.run_dir) if cfg.get("run_dir") else None
+    writer = (SummaryWriter(cfg.run_dir) if cfg.get("run_dir")
+              and dist.is_primary() else None)
     seed = int(cfg.get("seed", 0))
     tf = cfg.get("datatransforms")
     bs = int(cfg.get("batch_size", 2))
+    # the train loader is sharded over the ranks, val is not
     train_loader = build_dataloader_from_cfg(bs, cfg.dataset, tf,
-                                             split="train", seed=seed)
+                                             split="train", seed=seed,
+                                             num_shards=world,
+                                             shard_index=rank)
     val_loader = build_dataloader_from_cfg(
         int(cfg.get("batch_size_val", bs)), cfg.dataset, tf, split="val",
         seed=seed)
     logger.info(f"datasets: train={len(train_loader.dataset)} "
-                f"val={len(val_loader.dataset)}; device {device}")
+                f"val={len(val_loader.dataset)}; device {device}"
+                + (f"; rank {rank} of {world} ({dist.backend()})"
+                   if world > 1 else ""))
 
-    state = TrainState.create(cfg, cfg.model, seed=seed, device=device)
+    step = make_pretrain_step(cfg)
+    # no step_per_update, as in geot_tpu's pretraining
+    state = TrainState.create(dict(cfg, step_per_update=1), cfg.model,
+                              seed=seed, device=device)
     logger.info(f"model params: "
                 f"{cal_model_parm_nums(state.model) / 1e6:.3f} M")
     schedule = build_scheduler_from_cfg(cfg)
-    step = make_pretrain_step(cfg)
     eval_step = make_pretrain_eval_step()
 
     start_epoch = int(cfg.get("start_epoch", 1))
@@ -149,13 +177,24 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
 
     epochs = int(cfg.epochs)
     val_freq = int(cfg.get("val_freq", 10))
+    step_log = bool(os.environ.get("GEOT_LOG_STEP_LOSS"))
     results: Dict[str, Any] = {}
     for epoch in range(start_epoch, epochs + 1):
         train_loader.set_epoch(epoch)
         lr = schedule(epoch)
         total, n, t0 = None, 0, time.time()
         for batch in train_loader:
+            if step_log:
+                before = dict(LAUNCHES)
+                t_step = time.perf_counter()
             loss = step(state, pretrain_batch(batch, device), lr)["loss"]
+            if step_log:
+                # a host sync per step: the step's ms to it, and each
+                # rank's kernel launches in it (the trainer's debug knob)
+                logger.info(f"steploss {epoch}/{n + 1} {float(loss):.9f} "
+                            f"ms {(time.perf_counter() - t_step) * 1e3:.3f}")
+                logger.info(f"launches step {state.step} " + json.dumps(
+                    _launches_by_rank(before, device)))
             # on the device: one fetch an epoch
             total = loss.double() if total is None else total + loss
             n += 1
@@ -167,8 +206,8 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
             writer.add_scalar("lr", lr, epoch)
             writer.add_scalar("train_loss", train_loss, epoch)
         if epoch % val_freq == 0 or epoch == epochs:
-            val_loss = validate_pretrain(eval_step, state.model, val_loader,
-                                         device, logger)
+            val_loss = dist.broadcast_object(validate_pretrain(
+                eval_step, state.model, val_loader, device, logger), device)
             results["val_loss"] = val_loss
             is_best = val_loss <= best["loss"]
             if is_best:

@@ -2,7 +2,7 @@
 (``geot_tpu/engine/state.py:29-60``), and ``SemiTrainState``, the
 semi-supervised one (``:63-124``).
 
-``TrainState`` holds the model, its AdamW, the step counter, the
+``TrainState`` holds the model, its optimizer, the step counter, the
 ``torch.Generator`` of the dropout and stochastic-depth masks and, under
 ``ema_eval``, the EMA shadow ``ema_params`` with its evaluation view
 ``eval_model()``; ``state_dict`` / ``load_state_dict`` carry all of it.
@@ -12,7 +12,9 @@ state is a set of modules and tensors that the step updates in place.
 ``SemiTrainState`` holds the student, the frozen teacher (built from its
 own arguments, ``model_t``, and given the initial student's weights, as in
 ``geot_tpu``, where ``steps.py`` never replaces it), the T-predictor, an
-AdamW optimizer for each of student and T-predictor, the NTM matrix
+optimizer for each of student and T-predictor (``cfg.optimizer``; the
+student's accumulates ``step_per_update`` gradients an update, the
+T-predictor's updates every step, as in ``geot_tpu``), the NTM matrix
 ``ema_t`` and the class-mean matrix ``cm`` (both identity at creation), the
 step counter, the ``torch.Generator`` that draws the dropout and
 stochastic-depth masks (and the contrast and anchor draws), the
@@ -87,16 +89,18 @@ class TrainState(_Shadowed):
                seed: int = 0, device: "str | torch.device" = "cuda"
                ) -> "TrainState":
         """The model of ``model_args`` with weights drawn from ``seed``,
-        AdamW from ``cfg["optimizer"]`` at ``cfg["lr"]``, the masks'
-        generator seeded with ``seed``, and under ``cfg["ema_eval"]`` the
-        shadow, a copy of the initial weights; all on ``device``."""
+        the optimizer of ``cfg["optimizer"]`` at ``cfg["lr"]``
+        accumulating ``cfg["step_per_update"]`` gradients an update, the
+        masks' generator seeded with ``seed``, and under ``cfg["ema_eval"]``
+        the shadow, a copy of the initial weights; all on ``device``."""
         device = resolve_device(device)
         model = build_model_from_cfg(model_args)
         init_weights(model, torch.Generator().manual_seed(seed))
         model = model.to(device)
         state = cls(model=model,
-                    opt=build_optimizer_from_cfg(model, float(cfg["lr"]),
-                                                 **dict(cfg["optimizer"])),
+                    opt=build_optimizer_from_cfg(
+                        model, float(cfg["lr"]), every_k=_every_k(cfg),
+                        **dict(cfg["optimizer"])),
                     generator=torch.Generator(device=device).manual_seed(
                         seed))
         if cfg.get("ema_eval"):
@@ -106,19 +110,19 @@ class TrainState(_Shadowed):
     def load(self, tensors: Dict[str, Any]) -> "TrainState":
         """Take the weights from a dict with the keys of
         ``engine.convert.state_from_jax``: ``model``, and where present
-        the AdamW moments by parameter name (``opt``), ``step`` and the
+        the optimizer's state by parameter name (``opt``), ``step`` and the
         EMA shadow (``ema_params``, only into a state that keeps one);
         each tensor keeps the device and dtype it has in the state."""
         self.model.load_state_dict(tensors["model"], strict=True)
         if "opt" in tensors:
-            _load_moments(self.opt, self.model, tensors["opt"])
+            _load_opt(self.opt, self.model, tensors["opt"])
         if "step" in tensors:
             self.step = int(tensors["step"])
         self._load_shadow(tensors.get("ema_params"))
         return self
 
     def state_dict(self) -> Dict[str, Any]:
-        """The model's weights and buffers, AdamW's state, the mask
+        """The model's weights and buffers, the optimizer's state, the mask
         generator's state, ``step`` and the EMA shadow."""
         return {"model": self.model.state_dict(),
                 "opt": self.opt.state_dict(),
@@ -188,7 +192,8 @@ class SemiTrainState(_Shadowed):
                                     dim=int(seg_args.get("trans_dim", 384)))
         state = cls(
             model=model, teacher=teacher, t_predictor=t_predictor,
-            opt=build_optimizer_from_cfg(model, float(cfg["lr"]), **opt_cfg),
+            opt=build_optimizer_from_cfg(model, float(cfg["lr"]),
+                                         every_k=_every_k(cfg), **opt_cfg),
             t_opt=build_optimizer_from_cfg(t_predictor, float(cfg["lr"]),
                                            **opt_cfg),
             ema_t=eye.clone(), cm=eye.clone(),
@@ -204,9 +209,9 @@ class SemiTrainState(_Shadowed):
         ``engine.convert.semi_state_from_jax``: ``model``, ``teacher`` and
         ``t_predictor`` state_dicts, ``ema_t`` and ``cm``; each keeps the
         device and dtype it has in the state. Converted from a full-state
-        checkpoint, the dict also holds both optimizers' moments by
-        parameter name (``opt``, ``t_opt``: ``{"step", "exp_avg",
-        "exp_avg_sq"}``) and ``step``, which are taken too, and the bank
+        checkpoint, the dict also holds both optimizers' states by
+        parameter name (``opt``, ``t_opt``: ``opt_state_from_jax``'s
+        dicts) and ``step``, which are taken too, and the bank
         (``contrast``: ``queue``, ``ptr``) and the EMA shadow
         (``ema_params``) when it has them (the shadow only into a state
         that keeps one)."""
@@ -218,7 +223,7 @@ class SemiTrainState(_Shadowed):
         for key, opt, module in (("opt", self.opt, self.model),
                                  ("t_opt", self.t_opt, self.t_predictor)):
             if key in tensors:
-                _load_moments(opt, module, tensors[key])
+                _load_opt(opt, module, tensors[key])
         if "step" in tensors:
             self.step = int(tensors["step"])
         if "contrast" in tensors:
@@ -230,7 +235,7 @@ class SemiTrainState(_Shadowed):
 
     def state_dict(self) -> Dict[str, Any]:
         """Everything a step reads or updates: the three modules' weights
-        and buffers, both AdamW states, ``ema_t``, ``cm``, the mask
+        and buffers, both optimizers' states, ``ema_t``, ``cm``, the mask
         generator's state, ``step``, the bank and the EMA shadow."""
         return {"model": self.model.state_dict(),
                 "teacher": self.teacher.state_dict(),
@@ -265,6 +270,12 @@ class SemiTrainState(_Shadowed):
         return self
 
 
+def _every_k(cfg: Dict[str, Any]) -> int:
+    """The gradients an update of the trained model accumulates
+    (``step_per_update``, ``geot_tpu/engine/train.py:241-244``)."""
+    return int(cfg.get("step_per_update", 1) or 1)
+
+
 def _copy_into(dst: Dict[str, torch.Tensor],
                src: Dict[str, torch.Tensor]) -> None:
     """Copy every tensor of ``src`` into ``dst``'s tensor of that name; the
@@ -277,17 +288,21 @@ def _copy_into(dst: Dict[str, torch.Tensor],
             v.copy_(src[k])
 
 
-def _load_moments(opt: torch.optim.Optimizer, module: torch.nn.Module,
-                  moments: Dict[str, Any]) -> None:
-    """Set AdamW's per-parameter state from moments keyed by parameter
-    name; every trainable parameter must have both."""
+def _load_opt(opt, module: torch.nn.Module, conv: Dict[str, Any]) -> None:
+    """Set a ``ChainOptimizer``'s per-parameter state from
+    ``engine.convert.opt_state_from_jax``'s dict (entries keyed by
+    parameter name); every trainable parameter must have every entry the
+    optimizer's chain keeps."""
     names = {id(p): n for n, p in module.named_parameters()}
-    for group in opt.param_groups:
-        for p in group["params"]:
-            name = names[id(p)]
-            if name not in moments["exp_avg"]:
-                raise KeyError(f"no optimizer moments for {name!r}")
-            opt.state[p] = {
-                "step": torch.tensor(float(moments["step"])),
-                "exp_avg": moments["exp_avg"][name].to(p),
-                "exp_avg_sq": moments["exp_avg_sq"][name].to(p)}
+    for p in opt.params():
+        name = names[id(p)]
+        st = {"step": torch.tensor(float(conv["step"]))}
+        for key in (k for tx in opt.chain for k in tx.init(p)):
+            if name not in conv.get(key, {}):
+                raise KeyError(f"no optimizer state {key!r} for {name!r}")
+            st[key] = conv[key][name].to(p)
+        if opt.every_k > 1:
+            st["mini_step"] = int(conv.get("mini_step", 0))
+            st["acc"] = (conv["acc"][name].to(p) if "acc" in conv
+                         else torch.zeros_like(p))
+        opt.state[p] = st

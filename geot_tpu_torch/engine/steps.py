@@ -14,12 +14,21 @@ stacked; the NTM state machine and the T-predictor correct the strong
 logits; the loss is the supervised criterion on the labelled part + the
 ``criterion_u`` branch on the strong part, scaled by the masked share +
 the feature-space, identity, 3D manifold and teacher-contrast terms that
-the config turns on; AdamW updates the student (gradients clipped to a
-global norm) and the T-predictor with one learning rate, and the EMA
+the config turns on; ``cfg.optimizer`` updates the student (gradients
+clipped to a global norm) and the T-predictor with one learning rate
+(``step_per_update`` gradients an update of the student), and the EMA
 shadow follows the student (``ema_eval``).
 
+``optimizer.NAME: adahessian`` (alone or under lookahead): the step also
+takes the Hutchinson estimate of the Hessian's diagonal, ``z * (H z)`` with
+Rademacher ``z`` drawn from the state's generator after the forward, by a
+second backward through the first one's graph (``optim.adahessian``); the
+semi step takes one joint pass over the student's and the T-predictor's
+parameters (``geot_tpu/engine/steps.py:352-364``). ``grad_norm_clip``
+scales the gradients, not the diagonal.
+
 ``skip_nonfinite_updates``: when the loss or a gradient (unclipped) is not
-finite, the step leaves the weights, both AdamW states, the BatchNorm
+finite, the step leaves the weights, both optimizers' states, the BatchNorm
 statistics, ``ema_t``, the bank and the EMA shadow as they were; ``step``
 advances and the reported loss is 0. Its decision is the step's one host
 synchronisation, and there is none without the switch.
@@ -30,10 +39,10 @@ them (BatchNorm takes the global batch's statistics); the logits and the
 batch are then gathered into the global batch on every rank, and each rank
 computes the whole loss, the NTM update, the pseudo-label statistics and
 the random draws on it, as ``geot_tpu``'s step does over its dp-sharded
-batch. A rank's backward gives the gradient through its own rows;
-``sum_gradients`` adds them up to the global batch's gradient, and the
-T-predictor's (computed whole by every rank) is averaged. ``ema_t`` and the
-bank are broadcast from rank 0, so the ranks stay bit-equal.
+batch. A rank back-propagates its share of the loss (``dist``'s
+convention), and ``sum_gradients`` adds the ranks' parts up to the global
+batch's gradient (and Hessian diagonal). ``ema_t`` and the bank are
+broadcast from rank 0, so the ranks stay bit-equal.
 
 The eval, confusion and bootstrap steps run the model in eval mode (running
 BatchNorm statistics, no dropout) under ``no_grad``; the two train steps
@@ -48,7 +57,7 @@ import torch.nn.functional as F
 
 from ..losses import (build_criterion_from_cfg, contrast_loss_t,
                       feature_space_loss, identity_loss, threed_space_loss)
-from ..optim import set_learning_rate
+from ..optim import hutchinson_diag, rademacher, set_learning_rate
 from ..parallel import dist
 from .pseudo_mask import pseudo_label_refine
 from .semi import apply_T, combine_T, ntm_update, pseudo_stats
@@ -62,13 +71,6 @@ def _logits_of(out):
     return out[0] if isinstance(out, (tuple, list)) else out
 
 
-def _refuse_unported(cfg: Dict[str, Any]) -> None:
-    name = str((cfg.get("optimizer") or {}).get("NAME", ""))
-    if "adahessian" in name.lower():
-        raise NotImplementedError(f"not ported: optimizer.NAME={name!r} "
-                                  f"(the Hessian-diagonal steps)")
-
-
 def _sup_loss_fn(criterion, criterion_name: str, logits: torch.Tensor,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The supervised criterion as the reference dispatches it
@@ -80,13 +82,45 @@ def _sup_loss_fn(criterion, criterion_name: str, logits: torch.Tensor,
     return criterion(logits, batch["y"])
 
 
-def _zero_missing_grads(modules) -> None:
-    """A parameter the loss does not reach (T_linear, T_revision) gets a
-    zero gradient, as under ``jax.grad``, so weight decay still applies."""
-    for m in modules:
-        for p in m.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+def _backward(loss: torch.Tensor, opts: List[torch.optim.Optimizer],
+              generator: torch.Generator,
+              zs: Optional[Dict[str, torch.Tensor]] = None
+              ) -> Optional[List[List[torch.Tensor]]]:
+    """Back-propagate this rank's share of ``loss`` into the ``.grad`` of
+    the parameters of ``opts``, summed over the ranks (a zero gradient
+    where the loss does not reach a parameter, as under ``jax.grad``).
+    When an optimizer takes the Hessian diagonal (AdaHessian, the
+    optimizers' ``needs_hessian``), one joint pass over all of them gives the
+    Hutchinson diagonal, per optimizer in its ``params()`` order: ``z``
+    from ``generator`` in that order, or ``zs`` by parameter name."""
+    params = [p for o in opts for p in o.params()]
+    hessian = any(o.needs_hessian for o in opts)
+    share = dist.backward_share(loss)
+    if not hessian:
+        share.backward()
+        grads = [p.grad for p in params]
+    else:
+        grads = torch.autograd.grad(share, params, create_graph=True,
+                                    allow_unused=True)
+        if zs is None:
+            z = rademacher(params, generator)
+        else:
+            names = [n for o in opts for g in o.param_groups
+                     for n in g["names"]]
+            z = [zs[n].to(p) for n, p in zip(names, params)]
+        diag = hutchinson_diag(grads, params, z)
+    for p, g in zip(params, grads):
+        p.grad = torch.zeros_like(p) if g is None else g.detach()
+    dist.sum_gradients(params)
+    if not hessian:
+        return None
+    dist.sum_(diag)
+    out, at = [], 0
+    for o in opts:
+        n = len(o.params())
+        out.append(diag[at:at + n])
+        at += n
+    return out
 
 
 def _finite(loss: torch.Tensor, modules) -> torch.Tensor:
@@ -130,15 +164,15 @@ def _ema_update(state: SemiTrainState, decay: float) -> None:
 
 def make_supervised_step(cfg: Dict[str, Any]) -> Callable:
     """``step(state, batch_l, lr) -> metrics``: one supervised update of
-    the model and its AdamW (``steps.py:83``): every step of a supervised
+    the model and its optimizer (``steps.py:83``): every step of a supervised
     run (a ``TrainState``), and the warm-up phase ``epoch <=
     supervised_epochs`` of a semi one (a ``SemiTrainState``, whose student
     it trains). ``batch_l`` holds ``pos, x, cls, y``
     (and ``class_weights`` for ``Weight_CELoss``); the loss is the
     supervised criterion on the labelled forward; gradients are clipped to
     a global norm as in the semi step; the EMA shadow follows
-    (``ema_eval``) and ``skip_nonfinite_updates`` guards the update."""
-    _refuse_unported(cfg)
+    (``ema_eval``) and ``skip_nonfinite_updates`` guards the update.
+    ``draws = {"hessian": {name: z}}`` feeds AdaHessian's ``z``."""
     criterion = build_criterion_from_cfg(cfg["criterion_args"])
     criterion_name = cfg["criterion_args"]["NAME"]
     clip = cfg.get("grad_norm_clip")
@@ -146,8 +180,9 @@ def make_supervised_step(cfg: Dict[str, Any]) -> Callable:
     ema_decay = float(cfg.get("ema_eval") or 0.0)
 
     def step(state: "TrainState | SemiTrainState",
-             batch_l: Dict[str, torch.Tensor],
-             lr: float) -> Dict[str, torch.Tensor]:
+             batch_l: Dict[str, torch.Tensor], lr: float,
+             draws: Optional[Dict[str, Any]] = None
+             ) -> Dict[str, torch.Tensor]:
         model = state.model
         model.train()
         saved = ([b.clone() for b in _buffers(model)] if skip_nonfinite
@@ -157,9 +192,8 @@ def make_supervised_step(cfg: Dict[str, Any]) -> Callable:
         loss = _sup_loss_fn(criterion, criterion_name, logits,
                             _gathered(batch_l))
         state.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        _zero_missing_grads([model])
-        dist.sum_gradients(model.parameters())
+        diag = _backward(loss, [state.opt], state.generator,
+                         (draws or {}).get("hessian"))
         loss = loss.detach()
         metrics = {"loss": loss, "sup_loss": loss,
                    "unsup_loss": torch.zeros_like(loss)}
@@ -175,7 +209,7 @@ def make_supervised_step(cfg: Dict[str, Any]) -> Callable:
         if clip is not None:
             torch.nn.utils.clip_grad_norm_(model.parameters(), float(clip))
         set_learning_rate(state.opt, lr)
-        state.opt.step()
+        state.opt.step(hessian=diag[0] if diag else None)
         _ema_update(state, ema_decay)
         state.step += 1
         return metrics
@@ -193,9 +227,8 @@ def make_semi_step(cfg: Dict[str, Any]) -> Callable:
 
     The contrast keys and permutation and the 3D-loss anchors come from
     the state's generator; ``draws = {"contrast": (keys (B_u, N), perm),
-    "anchors": (B_u, M)}`` feeds given ones (a test seam: ``geot_tpu``'s
-    draws, or the same draws on two devices)."""
-    _refuse_unported(cfg)
+    "anchors": (B_u, M), "hessian": {name: z}}`` feeds given ones (a test
+    seam: ``geot_tpu``'s draws, or the same draws on two devices)."""
     criterion = build_criterion_from_cfg(cfg["criterion_args"])
     criterion_name = cfg["criterion_args"]["NAME"]
     criterion_u = build_criterion_from_cfg(cfg["criterion_u_args"])
@@ -301,7 +334,6 @@ def make_semi_step(cfg: Dict[str, Any]) -> Callable:
         pred_l = dist.gather(logits[:bl])
         pred_u_strong = dist.gather(logits[bl:bl + bu])
         pred_u_weak = dist.gather(logits[bl + bu:])
-        corr, sigma = dist.replicated(corr), dist.replicated(sigma)
         batch_l, batch_u = _gathered(batch_l), _gathered(batch_u)
         probs_w = (teacher_probs if use_teacher else
                    torch.softmax(pred_u_weak, dim=-1).detach())
@@ -357,10 +389,8 @@ def make_semi_step(cfg: Dict[str, Any]) -> Callable:
 
         state.opt.zero_grad(set_to_none=True)
         state.t_opt.zero_grad(set_to_none=True)
-        loss.backward()
-        _zero_missing_grads([model, t_pred])
-        dist.sum_gradients(model.parameters())
-        dist.average_gradients(t_pred.parameters())
+        diags = _backward(loss, [state.opt, state.t_opt], state.generator,
+                          draws.get("hessian"))
         loss = loss.detach()
 
         with torch.no_grad():
@@ -386,8 +416,8 @@ def make_semi_step(cfg: Dict[str, Any]) -> Callable:
             torch.nn.utils.clip_grad_norm_(model.parameters(), float(clip))
         set_learning_rate(state.opt, lr)
         set_learning_rate(state.t_opt, lr)
-        state.opt.step()
-        state.t_opt.step()
+        state.opt.step(hessian=diags[0] if diags else None)
+        state.t_opt.step(hessian=diags[1] if diags else None)
         _ema_update(state, ema_decay)
         # every rank computed them from the same global tensors; rank 0's
         # bits make them equal whatever the kernels' summation order

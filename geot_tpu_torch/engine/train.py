@@ -68,10 +68,21 @@ that ``val`` / ``test`` / ``finetune`` load (``auto``: the run's own
 selection for the eval modes, the raw weights for finetune). Steps skipped
 by ``skip_nonfinite_updates`` are counted per epoch (``skipped_steps``).
 
+``cfg.optimizer`` is any optimizer of ``geot_tpu``'s factory, with the
+``lookahead`` prefix and ``layer_decay`` (``optim.factory``);
+``step_per_update: k`` accumulates k gradients an update of the trained
+model (the T-predictor updates every step); ``profile_epoch: N`` writes a
+``torch.profiler`` Chrome trace of epoch N (the host's operators and the
+card's kernels) to ``<run_dir>/trace/`` on rank 0; ``wandb.use_wandb``
+starts the tracker on rank 0 (``engine.writer.Wandb``: a no-op without
+``wandb``); ``eval_device_cache: False`` copies the validation and test
+batches to the device on every pass instead of once.
+
 SIGTERM or SIGINT during training means: finish the epoch, checkpoint, stop
 (a second one stops at once). Metrics accumulate on the device and are
-fetched once an epoch. Switches whose branch the port lacks raise
-``NotImplementedError`` naming the key.
+fetched once an epoch. What the port does not train (a training
+``dtype``, ``tp``, ``sp``, ``fsdp``, ``task: cls|partseg`` and model names
+its registry lacks) raises ``NotImplementedError`` naming the key.
 """
 from __future__ import annotations
 
@@ -108,7 +119,7 @@ from .profiler import StepTimer
 from .state import SemiTrainState, TrainState
 from .steps import (make_cm_step, make_confusion_step, make_eval_step,
                     make_semi_step, make_supervised_step)
-from .writer import SummaryWriter
+from .writer import SummaryWriter, Wandb
 
 EVAL_MODES = ("val", "test", "eval", "testing", "evaluation")
 # the model NAMEs the trainer builds (cfg.model.NAME)
@@ -234,13 +245,9 @@ def refuse_unported(cfg) -> None:
     refused = {
         "model.segmentor_args.dtype": training and reduced(model),
         "model_t.segmentor_args.dtype": training and reduced(model_t),
-        "profile_epoch": int(cfg.get("profile_epoch", 0) or 0) > 0,
-        "wandb.use_wandb": bool((cfg.get("wandb") or {}).get("use_wandb")),
         "tp": int(cfg.get("tp", 1) or 1) > 1,
         "sp": int(cfg.get("sp", 1) or 1) > 1,
         "fsdp": bool(cfg.get("fsdp")),
-        "step_per_update": int(cfg.get("step_per_update", 1) or 1) > 1,
-        "eval_device_cache": cfg.get("eval_device_cache", True) is False,
         "task": cfg.get("task") in ("partseg", "cls"),
         "model.NAME": (model.get("NAME") not in TRAINED_MODELS
                        or (semi_mode(cfg)
@@ -359,6 +366,31 @@ class _Timed:
             self.seconds += time.perf_counter() - t
 
 
+def _start_profile(cfg, device: torch.device, logger, epoch: int):
+    """A started ``torch.profiler`` of the host's operators and, on the
+    card, its kernels (``geot_tpu/engine/train.py:468-478``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if device.type == "cuda" else [])
+    prof = profile(activities=acts)
+    prof.start()
+    logger.info(f"profiling epoch {epoch}")
+    return prof
+
+
+def _stop_profile(prof, cfg, logger, epoch: int) -> str:
+    """Stop ``prof`` and write its Chrome trace to
+    ``<run_dir>/trace/epoch<N>.json``; returns the path."""
+    prof.stop()
+    trace_dir = os.path.join(cfg.get("run_dir") or ".", "trace")
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"epoch{epoch}.json")
+    prof.export_chrome_trace(path)
+    logger.info(f"profile of epoch {epoch} -> {path}")
+    return path
+
+
 def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     """Run ``cfg``'s mode on ``device``; returns the last ``val`` and
     ``test`` metrics, ``best`` and, after a signal, ``preempted_at``."""
@@ -385,6 +417,9 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     # one writer: the scalars are rank 0's
     writer = (SummaryWriter(cfg.run_dir) if cfg.get("run_dir") and primary
               else None)
+    if primary:
+        # geot_tpu/engine/train.py:172-174
+        Wandb.launch(cfg, bool((cfg.get("wandb") or {}).get("use_wandb")))
     num_classes = int(cfg.num_classes)
     tf = cfg.get("datatransforms")
     num_votes = int(cfg.get("num_votes", 0) or 0)
@@ -537,6 +572,7 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     # that every rank holds the same state after each step
     step_log = bool(os.environ.get("GEOT_LOG_STEP_LOSS"))
     print_freq = int(cfg.get("print_freq", 0) or 0)
+    profile_epoch = int(cfg.get("profile_epoch", 0) or 0)
     test_model = None
 
     preempted = {"sig": None}
@@ -561,6 +597,8 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
 
     try:
         for epoch in range(start_epoch, epochs + 1):
+            prof = (_start_profile(cfg, device, logger, epoch)
+                    if profile_epoch == epoch and primary else None)
             train_loader_l.set_epoch(epoch)
             lr = schedule(epoch)
             sums: Dict[str, torch.Tensor] = {}
@@ -616,6 +654,9 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
                 size = sums[k].numel()
                 ep_mean[k] = flat[at:at + size].reshape(sums[k].shape) / n
                 at += size
+            if prof is not None:
+                # the fetch above waited for the epoch's last kernel
+                _stop_profile(prof, cfg, logger, epoch)
             wall = time.time() - t0
             meters = {k: AverageMeter() for k in ("loss", "sup_loss",
                                                   "unsup_loss")}

@@ -42,6 +42,9 @@ class Conv(nn.Module):
     """Flax ``nn.Conv`` on NHWC input, stride 1, symmetric ``padding``
     (flax's default "SAME" is ``kernel // 2`` for an odd kernel)."""
 
+    # ``weight.permute(flax_kernel_axes)`` is the flax kernel (H, W, in, out)
+    flax_kernel_axes = (2, 3, 1, 0)
+
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  padding: int = 0, bias: bool = True):
         super().__init__()
@@ -71,6 +74,8 @@ class ConvTranspose(nn.Module):
     pixels), padded as ``lax.conv_transpose`` pads, and convolved (a
     cross-correlation, the kernel not flipped) at stride 1; (B, H, W, C) ->
     (B, H * stride, W * stride, out_channels)."""
+
+    flax_kernel_axes = (2, 3, 1, 0)
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  stride: int):
@@ -360,7 +365,9 @@ class ViewGenBase(nn.Module):
     times ``weight`` where given, over 3 x the foreground's pixels, times
     ``loss_args.weight_fg``, plus the background's over 3 x its pixels
     times ``weight_bg``. Dropout and stochastic depth draw from
-    ``generator`` in training mode."""
+    ``generator`` in training mode. ``forward_sums`` returns the loss's
+    four sums in its place and ``loss_of_sums`` the loss of them: under
+    data parallelism the pretraining step sums them over the ranks."""
 
     def __init__(self, encoder_args: Dict[str, Any],
                  generator_args: Dict[str, Any],
@@ -377,6 +384,15 @@ class ViewGenBase(nn.Module):
     def forward(self, p0: Dict[str, torch.Tensor],
                 f0: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
+        sums, recon = self.forward_sums(p0, f0, generator)
+        return self.loss_of_sums(sums), recon
+
+    def forward_sums(self, p0: Dict[str, torch.Tensor],
+                     f0: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None):
+        """``(sums (4,), recon)``: the foreground's (weighted) squared
+        error, its pixels, the background's squared error and its
+        pixels."""
         feats_pc, coords_pc = self.encoder.forward_cls_feat(
             p0, f0, generator=generator)
         feats_img = self.generator(feats_pc, coords_pc, p0["pos"],
@@ -392,7 +408,10 @@ class ViewGenBase(nn.Module):
             fg_sum = (se * fg * w).sum()
         else:
             fg_sum = (se * fg).sum()
-        fg_loss = fg_sum / torch.clamp(fg.sum() * 3, min=1.0)
-        bg_loss = (se * (1 - fg)).sum() / torch.clamp((1 - fg).sum() * 3,
-                                                       min=1.0)
-        return fg_loss * self.w_fg + bg_loss * self.w_bg, recon
+        return torch.stack([fg_sum, fg.sum(), (se * (1 - fg)).sum(),
+                            (1 - fg).sum()]), recon
+
+    def loss_of_sums(self, sums: torch.Tensor) -> torch.Tensor:
+        fg_loss = sums[0] / torch.clamp(sums[1] * 3, min=1.0)
+        bg_loss = sums[2] / torch.clamp(sums[3] * 3, min=1.0)
+        return fg_loss * self.w_fg + bg_loss * self.w_bg

@@ -114,6 +114,9 @@ def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 class Dense(nn.Linear):
     """``nn.Linear`` that computes as flax ``nn.Dense(dtype=dtype)``."""
 
+    # ``weight.permute(flax_kernel_axes)`` is the flax kernel (in, out)
+    flax_kernel_axes = (1, 0)
+
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: DtypeArg = None):
         super().__init__(in_features, out_features, bias=bias)

@@ -5,19 +5,30 @@
 and the gradient all-reduce and BatchNorm's global batch statistics (which
 is SyncBN) fall out of GSPMD. Here every rank runs the step on its block of
 each global batch (``data/build.py``'s ``num_shards``/``shard_index``) and
-the few collectives the step needs are explicit:
+the few collectives the step needs are explicit.
+
+Every rank computes the same global loss, and back-propagates its share,
+``loss / world`` (``backward_share``): a rank's gradient is its part of the
+global one, and the parts add up to it. The collectives' backward follows
+that convention in both orders of differentiation:
 
 - ``gather`` puts the ranks' blocks of a tensor back into the global batch,
   in rank order, on every rank: the losses, the NTM estimate, the pseudo
   label statistics and the random draws then see the global batch, as in
-  ``geot_tpu``. Its backward hands each rank the gradient of its own block;
-- ``replicated`` marks a tensor that every rank holds whole (a parameter
-  read by the loss); its backward divides the gradient by the world size,
-  so that the sum of the ranks' gradients is the global one;
+  ``geot_tpu``. Its backward hands each rank the sum of the ranks'
+  gradients of its block: in a first backward, where every rank holds the
+  same gradient of the global tensor (the same loss of it), that sum is
+  ``world`` times its own, and no collective runs; under ``create_graph``
+  it is an all-reduce;
 - ``all_reduce_sum`` is BatchNorm's reduction of count, sum and sum of
   squares, with an all-reduce backward;
-- ``sum_gradients`` / ``average_gradients`` / ``broadcast_`` after the
-  backward.
+- ``sum_gradients`` and ``broadcast_`` after the backward.
+
+Each backward is itself made of these differentiable collectives, so a
+second backward through the first one's graph (AdaHessian's
+``create_graph=True`` pass, ``optim.adahessian``) sends every rank's part
+of ``H z`` where it belongs: a rank's gradient of ``g . z`` with respect to
+another rank's rows reaches that rank through the gather's backward.
 
 Only ``all_reduce`` and ``broadcast`` are used: gloo runs no other
 collective on CUDA tensors, and two ranks on one card go through gloo
@@ -162,9 +173,9 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        tdist.all_reduce(g)
-        return g
+        # the ranks' parts of the gradient, summed; differentiable, for a
+        # second backward
+        return _AllReduceSum.apply(g)
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
@@ -186,60 +197,48 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         lo, hi = ctx.block
-        return g[lo:hi]
+        if not torch.is_grad_enabled():
+            # a first backward: the ranks' gradients of the global tensor
+            # are equal, so their sum is this rank's times the world
+            return g[lo:hi] * world()
+        # for a second backward, whose gradients of the result differ
+        # over the ranks: the sum itself, differentiable
+        return _AllReduceSum.apply(g)[lo:hi]
 
 
 def gather(x: torch.Tensor) -> torch.Tensor:
     """The ranks' blocks of ``x`` (equal first axes) stacked in rank order
     along the first axis, on every rank. Every rank must compute the same
-    function of the result: the gradient that reaches a rank's ``x`` is
-    the result's gradient on its own block."""
+    function of the result. The gradient that reaches a rank's ``x`` is
+    the sum over the ranks of their gradients of the result on its
+    block."""
     return _Gather.apply(x) if world() > 1 else x
 
 
-class _Replicated(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g / world()
+def backward_share(loss: torch.Tensor) -> torch.Tensor:
+    """The share of the global ``loss`` (equal on every rank) that this
+    rank back-propagates: ``loss / world``."""
+    return loss / world() if world() > 1 else loss
 
 
-def replicated(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """``x``, held whole and equal by every rank, with its gradient divided
-    by the world size: every rank computes the full gradient of the
-    global loss through it, and the ranks' gradients are summed."""
-    if x is None or world() == 1:
-        return x
-    return _Replicated.apply(x)
+def sum_(tensors: Iterable[torch.Tensor]) -> None:
+    """Each tensor summed over the ranks, in place, in one flat
+    all-reduce."""
+    if world() == 1:
+        return
+    tensors = list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    tdist.all_reduce(flat)
+    at = 0
+    for t in tensors:
+        t.copy_(flat[at:at + t.numel()].view_as(t))
+        at += t.numel()
 
 
 def sum_gradients(params: Iterable[torch.Tensor]) -> None:
     """Each parameter's gradient summed over the ranks, in one flat
     all-reduce (every gradient must exist)."""
-    if world() == 1:
-        return
-    grads = [p.grad for p in params]
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    tdist.all_reduce(flat)
-    at = 0
-    for g in grads:
-        g.copy_(flat[at:at + g.numel()].view_as(g))
-        at += g.numel()
-
-
-def average_gradients(params: Iterable[torch.Tensor]) -> None:
-    """Each parameter's gradient averaged over the ranks: for a module
-    whose full gradient every rank computed, so that the ranks hold the
-    same bits."""
-    params = list(params)
-    if world() == 1:
-        return
-    sum_gradients(params)
-    for p in params:
-        p.grad.div_(world())
+    sum_(p.grad for p in params)
 
 
 def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:

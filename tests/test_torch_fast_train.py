@@ -24,6 +24,7 @@ from geot_tpu.models import build_model_from_cfg as jbuild
 from geot_tpu.optim import build_optimizer_from_cfg as joptimizer
 
 from geot_tpu_torch.data import build as tdata_build
+from geot_tpu_torch.engine import eval as teval
 from geot_tpu_torch.engine import train as ttrain
 from geot_tpu_torch.engine.convert import (params_from_jax,
                                            semi_state_from_jax,
@@ -192,18 +193,53 @@ def _fast_opts(root):
     return opts
 
 
-def test_fast_recipe_trains_and_votes_through_parse_and_run(tmp_path):
+def test_fast_recipe_trains_and_votes_through_parse_and_run(tmp_path,
+                                                          monkeypatch):
     """One epoch of the small ``_fast.yaml`` (fast student, exact teacher)
-    with 2 votes: validation, the test pass and its ``test_voting`` pass;
-    then ``mode=test`` with 2 votes on the best checkpoint gives the
-    ``test_voting`` metrics again."""
-    res = ttrain.parse_and_run(["--cfg", FAST_YAML, "num_votes=2",
-                                *_fast_opts(tmp_path)])
+    with 2 votes: validation, the test pass and its ``test_voting`` pass,
+    whose voted logits differ from the single pass's, and whose metrics
+    differ from the test pass's and are those of the voted logits (the
+    single pass's logits give the ``test`` metrics); then ``mode=test``
+    with 2 votes on the best checkpoint gives the ``test_voting`` metrics
+    again. The learning rate is small: an epoch at the recipe's labels
+    every point of this data as gum, and no vote can change that."""
+    voted, vote_loader, loaders = [], [], []
+    real_vote, real_cache = teval.tta_vote_logits, teval._eval_cache
+
+    def recording_cache(loader, *args, **kwargs):
+        loaders.append(loader)
+        return real_cache(loader, *args, **kwargs)
+
+    def recording_vote(logits, *args, **kwargs):
+        out = real_vote(logits, *args, **kwargs)
+        if not voted:
+            vote_loader.append(loaders[-1])
+        voted.append((logits.clone(), out.clone()))
+        return out
+
+    monkeypatch.setattr(teval, "_eval_cache", recording_cache)
+    monkeypatch.setattr(teval, "tta_vote_logits", recording_vote)
+    opts = [*_fast_opts(tmp_path), "lr=1e-6"]
+    res = ttrain.parse_and_run(["--cfg", FAST_YAML, "num_votes=2", *opts])
     for split in ("val", "test", "test_voting"):
         assert set(res[split]) >= {"whole_miou", "sampled_acc"}
         assert all(np.isfinite(v) and 0 <= v <= 1
                    for v in res[split].values()), (split, res[split])
     assert res["test_voting"] != res["test"]
+    assert voted and all(float((b - a).abs().max()) > 0 for a, b in voted)
+    # the metrics of the test pass's loader scored from the recorded
+    # logits by validate without votes: the voted ones give test_voting's
+    probe = torch.nn.Linear(1, 1)
+    recorded = {"single": [a for a, _ in voted],
+                "voted": [b for _, b in voted]}
+    scored = {}
+    for kind, logits in recorded.items():
+        it = iter(logits)
+        scored[kind] = teval.validate(
+            lambda model, batch: next(it), probe, vote_loader[0],
+            {"num_classes": logits[0].shape[-1]})
+    assert scored["voted"] == res["test_voting"], (scored, res)
+    assert scored["single"] == res["test"], (scored, res)
     (run_dir,) = glob.glob(os.path.join(tmp_path, "tooth_semi", "*"))
     with open(os.path.join(run_dir, "scalars.jsonl")) as f:
         tags = {json.loads(line)["tag"] for line in f}
@@ -214,5 +250,5 @@ def test_fast_recipe_trains_and_votes_through_parse_and_run(tmp_path):
     assert set(sd["teacher"]) == set(sd["model"])
     test = ttrain.parse_and_run(["--cfg", FAST_YAML, "mode=test",
                                  "num_votes=2", f"pretrained_path={best[0]}",
-                                 *_fast_opts(tmp_path)])
+                                 *opts])
     assert test["test"] == res["test_voting"]

@@ -14,6 +14,7 @@ import torch
 
 from geot_tpu_torch import ops
 from geot_tpu_torch.engine.predict import load_model
+from geot_tpu_torch.optim.factory import _OPTIMIZERS
 from geot_tpu_torch.ops.fps import (BUCKET, CLUSTER_SIZES,
                                     card_bucket_max_active,
                                     card_cluster_size)
@@ -1010,3 +1011,93 @@ def test_pretrain_then_graft_on_the_card(cuda, tmp_path):
                      "cls": torch.zeros((2, 1), dtype=torch.long,
                                         device=cuda)})[0]
     assert torch.isfinite(logit).all()
+
+
+# --- the optimizer family and AdaHessian's diagonal -------------------------
+
+def _optimizer_params(device):
+    """A kernel, a bias and a 160 x 144 matrix (adafactor factors it), and
+    5 gradients of each, from seeded numpy."""
+    rng = np.random.default_rng(0)
+    shapes = {"kernel": (6, 5), "bias": (5,), "big": (160, 144)}
+    params = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for k, s in shapes.items()}
+    grads = [{k: torch.from_numpy((0.1 * rng.standard_normal(s)).astype(
+        np.float32)) for k, s in shapes.items()} for _ in range(5)]
+    return params, grads
+
+
+@pytest.mark.parametrize("name", sorted(_OPTIMIZERS) + ["lookahead_adamw"])
+def test_optimizer_on_the_card_matches_the_cpu(cuda, name):
+    """5 updates from the same gradients (the diagonal of AdaHessian: the
+    gradients), the weights within 1e-5 of each tensor's largest entry."""
+    from geot_tpu_torch.optim import build_optimizer_from_cfg
+
+    params, grads = _optimizer_params("cpu")
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        module = torch.nn.Module()
+        for k, v in params.items():
+            module.register_parameter(k, torch.nn.Parameter(
+                v.clone().to(device)))
+        opt = build_optimizer_from_cfg(module, 1e-2, NAME=name,
+                                       weight_decay=0.05, lookahead_k=2)
+        for g in grads:
+            for k, p in module.named_parameters():
+                p.grad = g[k].to(device)
+            opt.step(hessian=[p.grad for p in opt.params()]
+                     if opt.needs_hessian else None)
+        out.append({k: p.detach().cpu() for k, p in
+                    module.named_parameters()})
+    for k, ref in out[1].items():
+        err = float((out[0][k] - ref).abs().max() / ref.abs().max())
+        assert err <= 1e-5, (k, err)
+
+
+def test_adahessian_diagonal_on_the_card_matches_the_cpu(cuda):
+    """One semi step with AdaHessian at the small width in float64, the
+    same batch and z on the card and on the CPU: the squared diagonal's
+    second moment and the first moment within 1e-6 of each tensor's
+    largest entry (floored at 1e-6 of the largest)."""
+    from geot_tpu_torch import FLAGSHIP_SEMI_CFG
+    from geot_tpu_torch.data.build import (MODEL_KEYS, SEMI_KEYS,
+                                           build_semi_loaders, semi_pairs,
+                                           to_device)
+    from geot_tpu_torch.engine.state import SemiTrainState
+    from geot_tpu_torch.engine.steps import make_semi_step
+    from geot_tpu_torch.optim import rademacher
+
+    cfg = dict(FLAGSHIP_SEMI_CFG, num_points=256,
+               optimizer={"NAME": "adahessian", "weight_decay": 0.05})
+    seg = dict(SMALL_ARGS, drop_path_rate=0.0, head_dropout=0.0)
+    loaders = build_semi_loaders(cfg)
+    for loader in loaders:
+        loader.set_epoch(1)
+    bl, bu = next(semi_pairs(*loaders, limit=1))
+    res = []
+    for device in (cuda, torch.device("cpu")):
+        st = SemiTrainState.create(cfg, seg_args=seg, seed=2, device=device)
+        for m in (st.model, st.teacher, st.t_predictor):
+            m.double()
+        st.ema_t, st.cm = st.ema_t.double(), st.cm.double()
+        named = list(st.model.named_parameters()) + list(
+            st.t_predictor.named_parameters())
+        zs = dict(zip([n for n, _ in named], rademacher(
+            [p.detach().cpu() for _, p in named],
+            torch.Generator().manual_seed(5))))
+        batches = [{k: v.double() if v.is_floating_point() else v
+                    for k, v in to_device(b, keys, device).items()}
+                   for b, keys in ((bl, MODEL_KEYS), (bu, SEMI_KEYS))]
+        make_semi_step(cfg)(st, *batches, 1e-3, True,
+                            draws={"hessian": zs})
+        res.append({(n, key): (st.t_opt if n.startswith("T_predictor.")
+                               else st.opt).state[p][key].cpu()
+                    for n, p in named
+                    for key in ("exp_avg", "exp_hessian_diag_sq")})
+    for key in ("exp_avg", "exp_hessian_diag_sq"):
+        ref = {n: v for (n, k), v in res[1].items() if k == key}
+        gmax = max(float(v.abs().max()) for v in ref.values())
+        for n, v in ref.items():
+            err = float((res[0][(n, key)] - v).abs().max()) / max(
+                float(v.abs().max()), 1e-6 * gmax)
+            assert err <= 1e-6, (key, n, err)

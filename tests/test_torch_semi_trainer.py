@@ -63,32 +63,37 @@ def test_trainer_with_every_flag(tmp_path, criterion_u):
     assert res["best"]["ema_selected"] == saved["extra"]["ema_selected"]
 
 
+def _ported(opt, key):
+    """A switch ported since it was listed: the case keeps the id it was
+    listed with."""
+    return pytest.param(opt, None, id=f"{opt}-{key}")
+
+
 @pytest.mark.parametrize("opt,key", [
-    # ported since it was listed: the case keeps the id it was listed with
-    pytest.param("warmup_epochs=5", None, id="warmup_epochs=5-warmup"),
-    ("optimizer.NAME=adahessian", "adahessian"),
-    ("optimizer.NAME=sgd", "sgd"), ("step_per_update=4", "step_per_update"),
-    ("profile_epoch=1", "profile_epoch"),
-    ("eval_device_cache=False", "eval_device_cache"),
-    ("wandb.use_wandb=True", "wandb.use_wandb")])
+    _ported("warmup_epochs=5", "warmup"),
+    _ported("optimizer.NAME=adahessian", "adahessian"),
+    _ported("optimizer.NAME=sgd", "sgd"),
+    _ported("step_per_update=4", "step_per_update"),
+    _ported("profile_epoch=1", "profile_epoch"),
+    _ported("eval_device_cache=False", "eval_device_cache"),
+    _ported("wandb.use_wandb=True", "wandb.use_wandb")])
 def test_switches_still_unported_are_refused(opt, key):
-    """The other half of the trainer's switches: each raises
-    ``NotImplementedError`` naming its key, before any step. The case with
-    no key (warmup) is ported: the trainer takes it and the schedule
-    warms up from ``warmup_lr`` to the config's lr
-    (``tests/test_torch_pretrain.py`` holds every schedule against
-    ``geot_tpu``)."""
+    """The other half of the trainer's switches, all ported now: the
+    trainer takes each and builds its step (``tests/test_torch_optim.py``,
+    ``tests/test_torch_adahessian.py`` and
+    ``tests/test_torch_trainer_switches.py`` hold them against
+    ``geot_tpu``); with warmup the schedule rises from ``warmup_lr`` to the
+    config's lr (``tests/test_torch_pretrain.py`` holds every schedule)."""
     cfg = EasyConfig()
     cfg.load(SMOKE, recursive=True)
     cfg.update([opt])
-    if key is None:
-        ttrain.refuse_unported(cfg)
+    assert key is None
+    ttrain.refuse_unported(cfg)
+    make_semi_step(cfg)
+    if opt.startswith("warmup"):
         sched = build_scheduler_from_cfg(cfg)
         assert sched(1) == 1e-6 and sched(6) == float(cfg.lr)
         assert 1e-6 < sched(3) < float(cfg.lr)
-        return
-    with pytest.raises(NotImplementedError, match=key):
-        ttrain.main(cfg, device="cpu")
 
 
 def test_cur_gates_poly1focalloss_u_cur():

@@ -317,10 +317,13 @@ def test_state_refuses_a_missing_card_and_unported_branches(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SemiTrainState.create(CFG, seg_args=TRAIN_ARGS)
-    # the branches of geot_tpu's step that the port still lacks: the
-    # Hessian-diagonal optimizer; a loss neither package registers
-    with pytest.raises(NotImplementedError, match="adahessian"):
-        make_semi_step(dict(CFG, optimizer={"NAME": "adahessian"}))
+    # the Hessian-diagonal optimizer is ported (tests/test_torch_adahessian
+    # .py); the pretraining step, which geot_tpu gives no diagonal, refuses
+    # it by name; a loss neither package registers raises
+    make_semi_step(dict(CFG, optimizer={"NAME": "adahessian"}))
+    from geot_tpu_torch.engine.pretrain import make_pretrain_step
+    with pytest.raises(ValueError, match="adahessian"):
+        make_pretrain_step(dict(CFG, optimizer={"NAME": "adahessian"}))
     with pytest.raises(KeyError, match="Poly1FocalLoss_X"):
         make_semi_step(dict(CFG, criterion_u_args={"NAME":
                                                    "Poly1FocalLoss_X"}))

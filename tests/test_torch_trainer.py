@@ -322,13 +322,13 @@ def _ported(opt, key):
 
 @pytest.mark.parametrize("opt,key", [
     _ported("ema_eval=0.999", "ema_eval"), ("num_votes=2", None),
-    ("profile_epoch=1", "profile_epoch"),
-    ("wandb.use_wandb=True", "wandb.use_wandb"),
+    _ported("profile_epoch=1", "profile_epoch"),
+    _ported("wandb.use_wandb=True", "wandb.use_wandb"),
     _ported("jax_distributed=True", "jax_distributed"),
     _ported("distributed=True", "distributed"), ("tp=2", "tp"),
     ("sp=2", "sp"),
-    ("fsdp=True", "fsdp"), ("step_per_update=2", "step_per_update"),
-    ("eval_device_cache=False", "eval_device_cache"),
+    ("fsdp=True", "fsdp"), _ported("step_per_update=2", "step_per_update"),
+    _ported("eval_device_cache=False", "eval_device_cache"),
     _ported("pretrain_encoder_path=/x", "pretrain_encoder_path"),
     _ported("mode=finetune_encoder", "mode"), ("task=partseg", "task"),
     ("task=cls", "task"), _ported("model.generator_args={}",
@@ -346,7 +346,7 @@ def _ported(opt, key):
     _ported("use_identity_loss=True", "use_identity_loss"),
     _ported("criterion_u_args.NAME=Poly1FocalLoss_U",
             "Poly1FocalLoss_U_corr"),
-    ("optimizer.NAME=adahessian", "adahessian"),
+    _ported("optimizer.NAME=adahessian", "adahessian"),
     _ported("sched=cosine", "cosine")])
 def test_unported_switches_are_refused(opt, key):
     """Each switch whose branch the port lacks is refused, naming its key;
@@ -447,9 +447,16 @@ def test_every_module_imports_without_jax_yaml_or_geot_tpu(tmp_path):
         for name in names:
             importlib.import_module(name)
         assert "geot_tpu_torch.engine.train" in names, names
+        assert {{"geot_tpu_torch.optim.extra",
+                 "geot_tpu_torch.optim.adahessian"}} <= set(names), names
         from geot_tpu_torch.engine.train import parse_and_run
         res = parse_and_run(["--cfg", {SMOKE!r}, "epochs=1",
-                             "root_dir={tmp_path}", "device=cpu"])
+                             "root_dir={tmp_path}", "device=cpu",
+                             "optimizer.NAME=lookahead_sgdp",
+                             "optimizer.layer_decay=0.75",
+                             "step_per_update=2", "profile_epoch=1",
+                             "eval_device_cache=False",
+                             "wandb.use_wandb=True"])
         assert 0 <= res["val"]["whole_acc"] <= 1, res
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
