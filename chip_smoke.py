@@ -78,7 +78,8 @@ Phases, each printed with the seconds elapsed when it starts:
    steps non-deterministic, and B prints how far). Then, in a child
    process with deterministic algorithms (``--resume-check``), the same 2
    epochs and the same resume: every epoch-2 scalar bit-equal.
-   Prints epoch wall and data time, host
+   Prints epoch wall and host data time (with the YAML's
+   ``dataloader.num_workers`` loader threads), host
    ms between steps, validate ms per scan (first pass apart), checkpoint
    bytes and save/load ms, and peak memory.
 9. fast serving: the serving topology (``fast_pyramid=1024``,
@@ -233,6 +234,26 @@ Phases, each printed with the seconds elapsed when it starts:
    a rank) and a control whose ranks reduce nothing, past both bounds.
    (e) ``TeethSegFinetuneDataset`` through ``cfgs/tooth_sup/
    transformer.yaml`` for 1 epoch on the tree.
+17. the heritage tasks (``task: cls | partseg``). (a) Kernels 1 and 2 at
+   their shapes, bit-equal to their plain versions and timed kernel-only:
+   the FPS chains (32, 1024) -> 256 -> 64 -> 16 -> 4 (PointNet++
+   classification), (32, 1024) -> 512 -> 256 -> 128 -> 64 (PointMLP) and
+   (8, 2048) -> 512 -> 128 -> 32 -> 8 (part segmentation), clouds of 10 and
+   17 points on a 16-block cluster (blocks that own no point), 40 distinct
+   points sampled to 1024; the part decoders' k = 3 searches, (8, 32) x (8,
+   8) to (8, 2048) x (8, 512), and a support with duplicates. (b) Each of
+   ``cfgs/scanobjectnn/{pointnet2cls,dgcnncls,pointmlpcls}.yaml`` and
+   ``cfgs/shapenetpart/{pointnet2part,pointmlppart}.yaml`` at its published
+   width and batch on the synthetic sets: 1 warm and 2 timed supervised
+   steps with their launches checked and peak memory; one float64 step on
+   2 clouds on the card and on the CPU (``_ZOO_CMP_TOL`` of the encoder's
+   family); ``parse_and_run`` for 1 epoch with validation and checkpoints,
+   then ``mode=test`` on its best checkpoint (the same metrics, launches
+   checked); ``pointnet2part`` once more with ``eval_refine`` and
+   ``eval_category_mask``. (c) A ``ShapeNetPartNormal`` txt tree in a
+   temporary directory: ``presample`` on the card (rows at ``fps_ref``'s
+   indices), then ``pointnet2part.yaml`` on it for 1 epoch. Prints its
+   seconds.
 Phase 3 also holds ``fps_cluster`` at the serving topology's prefix,
 (1|6, 16000) -> 1024 and a duplicate-heavy cloud, and ``knn_split`` at a
 fast scan's 6 searches, against their plain versions, with times and
@@ -1618,11 +1639,17 @@ def phase_trainer():
             setattr(train_mod, k, fn)
         shutil.rmtree(root, ignore_errors=True)
 
+    from geot_tpu_torch.core.config import EasyConfig
+
+    workers_cfg = EasyConfig()
+    workers_cfg.load(cfg_path, recursive=True)
+    workers = int((workers_cfg.get("dataloader") or {}).get("num_workers",
+                                                            4))
     val_first = [ms / n for _, (_, n, first), ms in timed["validate"]
                  if first]
     val_later = [ms / n for _, (_, n, first), ms in timed["validate"]
                  if not first]
-    log(f"run A: {wall_a:.1f} s wall; epochs "
+    log(f"run A: {wall_a:.1f} s wall ({workers} loader threads); epochs "
         + ", ".join(f"{e}: {v['epoch_seconds']:.2f} s (data "
                     f"{v['data_seconds']:.2f} s)"
                     for e, v in sorted(epochs.items()) if e <= 2)
@@ -1639,6 +1666,7 @@ def phase_trainer():
         + "; ".join(f"{r} {what} {ms:.0f}" for r, what, ms in timed["load"]))
     log(f"launches: run A {launches_a}")
     return {"launches": launches_a, "epochs": epochs, "step_ms": step_ms,
+            "num_workers": workers,
             "validate_first_ms_per_scan": val_first,
             "validate_ms_per_scan": val_later, "ckpt_bytes": ckpt_bytes,
             "timed": timed, "peak_mb": peak_mb,
@@ -2407,10 +2435,14 @@ _ZOO_NO_DROPOUT = {
 
 
 def _zoo_cfg(name, *opts):
+    return _zoo_cfg_at(_zoo_path(name), *opts)
+
+
+def _zoo_cfg_at(path, *opts):
     from geot_tpu_torch.core.config import EasyConfig
 
     cfg = EasyConfig()
-    cfg.load(_zoo_path(name), recursive=True)
+    cfg.load(path, recursive=True)
     cfg.update(list(opts))
     return cfg
 
@@ -2420,10 +2452,10 @@ def _zoo_path(name):
                         "tooth_sup", f"{name}.yaml")
 
 
-def _zoo_chain(bound: Bound, xyz):
-    """The FPS chain of PointNet++ and PointMLP, 16000 -> 4000 -> 1000 ->
-    250 -> 62, on the clouds ``xyz`` (B, 16000, 3): each call bit-equal to
-    ``fps_ref`` and timed kernel-only (a CUDA graph) beside its plain
+def _zoo_chain(bound: Bound, xyz, npoints=(4000, 1000, 250, 62)):
+    """An FPS chain of PointNet++ and PointMLP (the zoo's: 16000 -> 4000 ->
+    1000 -> 250 -> 62) on the clouds ``xyz`` (B, N, 3): each call bit-equal
+    to ``fps_ref`` and timed kernel-only (a CUDA graph) beside its plain
     version and bound. Returns the chain's record and its levels."""
     import importlib
 
@@ -2437,7 +2469,7 @@ def _zoo_chain(bound: Bound, xyz):
     levels = [xyz]
     chain = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "calls": {}}
     ops_, bytes_ = 0.0, 0.0
-    for npoint in (4000, 1000, 250, 62):
+    for npoint in npoints:
         x = levels[-1]
         N = x.shape[1]
         plan = ops.fps_plan(N, C)
@@ -4826,6 +4858,461 @@ def phase_switches(bound: Bound, train):
     return out
 
 
+# phase 17: the heritage tasks (task: cls | partseg) at the published widths
+# and batches of cfgs/scanobjectnn and cfgs/shapenetpart on the synthetic
+# ScanObjectNN (64 clouds a split) and ShapeNetPart (32 shapes) sets
+HERITAGE = ("pointnet2cls", "dgcnncls", "pointmlpcls", "pointnet2part",
+            "pointmlppart")
+# (fps_cluster, knn_split) launches of one forward, from the code: one FPS
+# per PointNet++ stage or PointMLP grouper (4); one k = 3 search per decoder
+# level whose queries number 128 or more (ops.knn; the (8, 32) x (8, 8)
+# level takes the tiled search, as in geot_tpu): 3 in each part decoder;
+# DGCNN's k = 20 and PointMLP's k = 24 searches take the tiled path
+_HERITAGE_PER_FORWARD = {"pointnet2cls": (4, 0), "dgcnncls": (0, 0),
+                         "pointmlpcls": (4, 0), "pointnet2part": (4, 3),
+                         "pointmlppart": (4, 3)}
+# the card-vs-CPU float64 step's bounds: the zoo's, by encoder family
+_HERITAGE_CMP = {"pointnet2cls": "pointnet2", "dgcnncls": "dgcnn",
+                 "pointmlpcls": "pointmlp", "pointnet2part": "pointnet2",
+                 "pointmlppart": "pointmlp"}
+# the FPS chains: (B, N) and each stage's npoint
+_HERITAGE_CHAINS = {"pointnet2cls": (32, 1024, (256, 64, 16, 4)),
+                    "pointmlpcls": (32, 1024, (512, 256, 128, 64)),
+                    "part": (8, 2048, (512, 128, 32, 8))}
+
+
+def _heritage_path(name):
+    task = "scanobjectnn" if name.endswith("cls") else "shapenetpart"
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "cfgs",
+                        task, f"{name}.yaml")
+
+
+def _kernels_heritage(bound: Bound):
+    """Kernels 1 and 2 at the heritage tasks' shapes: the three FPS chains
+    ((32, 1024) for classification, (8, 2048) for part segmentation), the
+    part decoders' k = 3 searches ((8, 32) x (8, 8) up to (8, 2048) x (8,
+    512)) and a support with duplicates; clouds with fewer points than
+    their cluster has blocks, so that blocks own no point (10 and 17
+    points on 16 blocks); 40 distinct points sampled to 1024. Each call
+    bit-equal to its plain version and timed kernel-only."""
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+
+    dev = torch.device("cuda")
+    recs = {}
+    for key, (B, N, npoints) in _HERITAGE_CHAINS.items():
+        xyz = torch.from_numpy(np.random.default_rng(17).standard_normal(
+            (B, N, 3)).astype(np.float32)).to(dev)
+        recs[key], levels = _zoo_chain(bound, xyz, npoints)
+        if key == "part":
+            recs["knn_decoder"] = _zoo_decoders(bound, levels, dup=torch.cat(
+                [levels[2], levels[2][:, :64]], dim=1).contiguous())
+    chain = {k: sum(recs[c][k] for c in _HERITAGE_CHAINS)
+             for k in ("ms", "plain_ms", "bound_ms")}
+    chain.update(max_abs_err=0.0, calls={
+        f"{c}:{label}": v for c in _HERITAGE_CHAINS
+        for label, v in recs[c]["calls"].items()},
+        bound_by=recs["part"]["bound_by"])
+    for N, npoint in ((10, 4), (17, 8)):
+        plan = ops.fps_plan(N, 16)
+        empty = sum(1 for lo, hi in plan.ranges(N) if hi <= lo)
+        check(empty > 0, f"fps_plan({N}, 16) leaves no block empty: {plan}")
+        x = torch.from_numpy(np.random.default_rng(N).standard_normal(
+            (32, N, 3)).astype(np.float32)).to(dev)
+        got = ops.fps_cluster(x, npoint, plan)
+        check(torch.equal(got, ops.fps_ref(x, npoint)),
+              f"fps_cluster {N} points on {plan}: differs from fps_ref")
+        log(f"fps_cluster (32,{N})->{npoint} on {plan.C} blocks of "
+            f"{plan.per_cta}, {empty} of them empty: bit-equal to fps_ref")
+    few = torch.from_numpy(np.random.default_rng(40).standard_normal(
+        (32, 40, 3)).astype(np.float32))[:, np.random.default_rng(
+            41).choice(40, 1024)].contiguous().to(dev)
+    got = ops.fps(few, 256)
+    check(torch.equal(got, ops.fps_ref(few, 256)),
+          "fps on 40 distinct points sampled to 1024: differs")
+    zeros = int((got[:, 1:] == 0).sum())
+    check(zeros >= 32 * (256 - 40), f"fps on 40 distinct points repeats "
+          f"index 0 only {zeros} times")
+    log(f"fps (32,1024)->256 on 40 distinct points: bit-equal ({zeros} "
+        f"repeats of index 0); the three chains: kernel {chain['ms']:.4f} "
+        f"ms, plain {chain['plain_ms']:.1f} ms, bound "
+        f"{chain['bound_ms']:.5f} ms; the decoders' 4 searches: kernel "
+        f"{recs['knn_decoder']['ms']:.4f} ms, bound "
+        f"{recs['knn_decoder']['bound_ms']:.5f} ms")
+    return {"fps_chains": chain, "knn_decoder": recs["knn_decoder"]}
+
+
+def _heritage_batches(cfg, n, dev):
+    """``n`` training batches of the config's loader on ``dev`` (from as
+    many epochs as it takes) and the batch function of its task."""
+    from geot_tpu_torch.data.build import build_dataloader_from_cfg
+    from geot_tpu_torch.engine import cls as cls_mod
+    from geot_tpu_torch.engine import partseg as partseg_mod
+
+    fn = (cls_mod if cfg.task == "cls" else partseg_mod)._batch
+    loader = build_dataloader_from_cfg(
+        int(cfg.batch_size), cfg.dataset, cfg.get("datatransforms"),
+        split=cfg.dataset.get("train_split", "train"),
+        seed=int(cfg.seed), dataloader_cfg=cfg.get("dataloader"),
+        is_train=True, device=dev)
+    out, epoch = [], 0
+    while len(out) < n:
+        epoch += 1
+        loader.set_epoch(epoch)
+        out += [b for b, _ in zip(loader, range(n - len(out)))]
+    return out, fn, len(loader)
+
+
+def _heritage_card_vs_cpu(name, batch_np, batch_fn, lr, dev):
+    """One supervised step of the config on 2 clouds in float64 around the
+    float32 kernels, dropout off, on the card and on the CPU: loss and
+    per-tensor gradients (AdamW's first moment) within the zoo's
+    ``_ZOO_CMP_TOL`` of the encoder's family."""
+    import torch
+
+    from geot_tpu_torch.engine.state import TrainState
+    from geot_tpu_torch.engine.steps import make_supervised_step
+
+    opts = ([] if name == "pointmlppart"
+            else ["model.cls_args.dropout_ratio=0.0"])
+    cfg = _zoo_cfg_at(_heritage_path(name), "seed=0", *opts)
+    two = {k: v[:2] for k, v in batch_np.items()}
+    res = {}
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        st = TrainState.create(cfg, cfg.model, seed=1, device=d)
+        st.model.double()
+        if name == "pointmlppart":
+            st.model.dropout.rate = 0.0
+        b = {k: (v.double() if v.is_floating_point() else v)
+             for k, v in batch_fn(two, d).items()}
+        t = time.perf_counter()
+        loss = float(make_supervised_step(cfg)(st, b, lr)["loss"])
+        res[where] = (loss, {n: st.opt.state[p]["exp_avg"].detach().cpu()
+                             for n, p in st.model.named_parameters()},
+                      time.perf_counter() - t)
+    (lg, gg, sg), (lc, gc, sc) = res["card"], res["cpu"]
+    rel = abs(lg - lc) / abs(lc)
+    gmax = max(float(v.abs().max()) for v in gc.values())
+    errs = {k: float((gg[k] - ref).abs().max())
+            / max(float(ref.abs().max()), 1e-6 * gmax)
+            for k, ref in gc.items()}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    loss_tol, grad_tol = _ZOO_CMP_TOL[_HERITAGE_CMP[name]]
+    log(f"{name} card vs CPU float64 step (2 clouds; card {sg:.1f} s, CPU "
+        f"{sc:.1f} s): loss relative {rel:.2e} (bound {loss_tol}); worst "
+        f"per-tensor gradient {worst[0]} {worst[1]:.2e} (bound {grad_tol})")
+    check(rel <= loss_tol, f"{name} card vs CPU loss differs: {rel}")
+    check(worst[1] <= grad_tol, f"{name} card vs CPU gradients: {worst}")
+    return {"loss_rel": rel, "grad_rel": worst[1]}
+
+
+def _heritage_model(name, dev="cuda"):
+    """One heritage config at its published width and batch: 1 warm and 2
+    timed supervised steps (launches, peak memory), the float64 step card
+    vs CPU, then ``parse_and_run`` for 1 epoch with validation and
+    checkpoints and ``mode=test`` on its best checkpoint (the same
+    metrics); ``pointnet2part`` once more with ``eval_refine`` and
+    ``eval_category_mask``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.engine import train as train_mod
+    from geot_tpu_torch.engine.checkpoint import ckpt_path
+    from geot_tpu_torch.engine.state import TrainState
+    from geot_tpu_torch.engine.steps import make_supervised_step
+    from geot_tpu_torch.optim import build_scheduler_from_cfg
+
+    dev = torch.device(dev)
+    cfg = _zoo_cfg_at(_heritage_path(name), "seed=0")
+    f, k = _HERITAGE_PER_FORWARD[name]
+    t = time.perf_counter()
+    state = TrainState.create(cfg, cfg.model, seed=0, device=dev)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    batches, batch_fn, steps = _heritage_batches(cfg, 3, dev)
+    B, N = batches[0]["pos"].shape[:2]
+    log(f"{name}: {cfg.model.NAME}, {n_params} parameters, batch {B} x {N} "
+        f"points; built in {time.perf_counter() - t:.1f} s")
+    step = make_supervised_step(cfg)
+    lr = build_scheduler_from_cfg(cfg)(1)
+    want = _launch_counts(fps_cluster=f, knn_split=k)
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    step_ms = []
+    for n, b in enumerate(batches):
+        b = batch_fn(b, dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        m = step(state, b, lr)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        got = dict(ops.LAUNCHES)
+        check(math.isfinite(float(m["loss"])), f"{name} step {n}: loss "
+              f"{float(m['loss'])}")
+        check(got == want, f"{name} step {n}: launches {got}, expected "
+              f"{want}")
+        for key, v in got.items():
+            launches[key] += v
+    peak_mb = (torch.cuda.max_memory_allocated() - resident) / 2 ** 20
+    log(f"{name}: steps {', '.join(f'{x:.1f}' for x in step_ms)} ms (the "
+        f"first warm); loss {float(m['loss']):.6f}; launches a step {want}; "
+        f"peak memory {peak_mb:.0f} MiB above the resident "
+        f"{resident / 2 ** 20:.0f} MiB")
+    del state
+    torch.cuda.empty_cache()
+    compare = _heritage_card_vs_cpu(name, batches[0], batch_fn, lr, dev)
+
+    primary = "oa" if cfg.task == "cls" else "ins_miou"
+    root = tempfile.mkdtemp(prefix=f"geot_heritage_{name}_")
+    try:
+        common = [f"root_dir={root}", f"device={dev.type}", "seed=0"]
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = train_mod.parse_and_run(["--cfg", _heritage_path(name),
+                                       "epochs=1", "save_freq=1", *common])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        run_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        got = dict(ops.LAUNCHES)
+        val_batches = 2 if cfg.task == "cls" else 4
+        want_run = _launch_counts(fps_cluster=(steps + val_batches) * f,
+                                  knn_split=(steps + val_batches) * k)
+        check(got == want_run, f"{name} trainer launches {got}, expected "
+              f"{want_run} ({steps} steps, {val_batches} val batches)")
+        best = res["best"]
+        check(math.isfinite(best[primary]) and 0 <= best[primary] <= 100,
+              f"{name} trainer: best {best}")
+        task = os.path.basename(os.path.dirname(_heritage_path(name)))
+        (run_dir,) = [os.path.join(root, task, d)
+                      for d in os.listdir(os.path.join(root, task))]
+        with open(os.path.join(run_dir, "scalars.jsonl")) as fh:
+            sc = {d["tag"]: d["value"] for d in map(json.loads, fh)}
+        check(math.isfinite(sc["train/loss"]), f"{name}: train/loss")
+        ck = os.path.join(run_dir, "checkpoint")
+        for tag in ("latest", "best", "E1"):
+            check(os.path.exists(ckpt_path(ck, os.path.basename(run_dir),
+                                           tag)), f"{name}: no {tag}")
+        best_ck = ckpt_path(ck, os.path.basename(run_dir), "best")
+        ops.reset_launches()
+        t = time.perf_counter()
+        res_t = train_mod.parse_and_run(["--cfg", _heritage_path(name),
+                                         "mode=test",
+                                         f"pretrained_path={best_ck}",
+                                         *common])
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t
+        got_t = dict(ops.LAUNCHES)
+        want_t = _launch_counts(fps_cluster=val_batches * f,
+                                knn_split=val_batches * k)
+        check(got_t == want_t, f"{name} mode=test launches {got_t}, "
+              f"expected {want_t}")
+        diff = max(abs(res_t[key] - best[key]) for key in
+                   (("oa", "macc") if cfg.task == "cls"
+                    else ("ins_miou", "cls_miou")))
+        check(diff <= 1e-9, f"{name}: mode=test gives {res_t}, the run's "
+              f"validation {best}")
+        for key in launches:
+            launches[key] += got[key] + got_t[key]
+        refined = None
+        if name == "pointnet2part":
+            ops.reset_launches()
+            refined = train_mod.parse_and_run([
+                "--cfg", _heritage_path(name), "mode=test",
+                f"pretrained_path={best_ck}", "eval_refine=True",
+                "eval_category_mask=True", *common])
+            got_r = dict(ops.LAUNCHES)
+            check(got_r == want_t, f"{name} refined mode=test launches "
+                  f"{got_r}, expected {want_t}")
+            check(all(math.isfinite(refined[x]) and 0 <= refined[x] <= 100
+                      for x in ("ins_miou", "cls_miou")),
+                  f"{name} refined: {refined}")
+            log(f"{name} mode=test with eval_refine and eval_category_mask: "
+                f"ins_miou {refined['ins_miou']:.4f}, cls_miou "
+                f"{refined['cls_miou']:.4f} (plain {res_t['ins_miou']:.4f}, "
+                f"{res_t['cls_miou']:.4f}); launches {got_r}")
+            for key in launches:
+                launches[key] += got_r[key]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"{name} trainer: {run_s:.1f} s for 1 epoch of {steps} steps and "
+        f"{val_batches} val batches, epoch {sc['epoch_seconds']:.2f} s; "
+        f"peak memory {run_peak:.0f} MiB; val {primary} {best[primary]:.4f}; "
+        f"mode=test {test_s:.1f} s, {primary} {res_t[primary]:.4f}; "
+        f"launches {got} + {got_t}")
+    return {"params": n_params, "step_ms": step_ms, "peak_mb": peak_mb,
+            "compare": compare, "epoch_seconds": sc["epoch_seconds"],
+            "run_s": run_s, "run_peak_mb": run_peak, "test_s": test_s,
+            "best": {k_: best[k_] for k_ in best if k_ != "per_category"},
+            "refined": refined and {k_: refined[k_] for k_ in
+                                    ("ins_miou", "cls_miou")},
+            "launches": launches}
+
+
+def _write_partnormal_tree(root, sizes=(2500, 2700, 2900)):
+    """A ShapeNetPartNormal txt tree: airplane, bag and cap, 6 shapes each
+    (x y z nx ny nz part; 3 train, 1 val, 2 test) of 2,500 to 2,900
+    points, as the public distribution lays it out."""
+    import numpy as np
+
+    from geot_tpu_torch.data.shapenetpart import SHAPENETPART_CLS2PARTS
+
+    rng = np.random.default_rng(170)
+    cats = (("Airplane", "02691156"), ("Bag", "02773838"),
+            ("Cap", "02954340"))
+    os.makedirs(os.path.join(root, "train_test_split"), exist_ok=True)
+    with open(os.path.join(root, "synsetoffset2category.txt"), "w") as fh:
+        fh.writelines(f"{n}\t{s}\n" for n, s in cats)
+    splits = {"train": [], "val": [], "test": []}
+    for c, (_, syn) in enumerate(cats):
+        os.makedirs(os.path.join(root, syn), exist_ok=True)
+        for i in range(6):
+            sid = f"{c}{i:04d}h"
+            n = sizes[i % len(sizes)]
+            rows = np.concatenate([rng.standard_normal((n, 6)).round(6),
+                                   rng.choice(SHAPENETPART_CLS2PARTS[c],
+                                              (n, 1))], axis=1)
+            np.savetxt(os.path.join(root, syn, sid + ".txt"), rows,
+                       fmt="%.6f")
+            split = "train" if i < 3 else "val" if i == 3 else "test"
+            splits[split].append(f"shape_data/{syn}/{sid}")
+    for s, ids in splits.items():
+        with open(os.path.join(root, "train_test_split",
+                               f"shuffled_{s}_file_list.json"), "w") as fh:
+            json.dump(ids, fh)
+
+
+def _heritage_presample():
+    """A ShapeNetPartNormal txt tree in a temporary directory: ``presample``
+    on the card (one ``fps_cluster`` launch a test shape; the cached rows
+    are each shape's at ``fps_ref``'s indices), then ``pointnet2part.yaml``
+    at its width on the tree for 1 epoch, reading the cache."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.data.shapenetpart import ShapeNetPartNormal
+    from geot_tpu_torch.engine import train as train_mod
+
+    root = tempfile.mkdtemp(prefix="geot_partnormal_")
+    try:
+        tree = os.path.join(root, "tree")
+        _write_partnormal_tree(tree)
+        ops.reset_launches()
+        t = time.perf_counter()
+        ds = ShapeNetPartNormal(data_root=tree, num_points=2048,
+                                split="test", presample=True, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = dict(ops.LAUNCHES)
+        check(got == _launch_counts(fps_cluster=len(ds)),
+              f"presample launches {got}, expected {len(ds)} fps_cluster")
+        pkl = os.path.join(tree, "processed", "test_2048_fps.pkl")
+        with open(pkl, "rb") as fh:
+            pre_data, _ = pickle.load(fh)
+        for (_, path), rows in zip(ds.items, pre_data):
+            raw = np.loadtxt(path).astype(np.float32)
+            idx = ops.fps_ref(torch.from_numpy(raw[None, :, :3]), 2048)[0]
+            check(np.array_equal(rows, raw[idx.numpy()]),
+                  f"presample of {path}: rows differ from fps_ref's")
+        log(f"ShapeNetPartNormal presample on the card: {len(ds)} shapes of "
+            f"2,500-2,900 points -> 2048 in {secs:.2f} s, rows bit-equal "
+            f"to fps_ref's; launches {got}")
+        ops.reset_launches()
+        t = time.perf_counter()
+        res = train_mod.parse_and_run([
+            "--cfg", _heritage_path("pointnet2part"), "epochs=1",
+            f"dataset.common.data_root={tree}", f"root_dir={root}",
+            "device=cuda", "seed=0"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        got_r = dict(ops.LAUNCHES)
+        # 12 trainval shapes: 1 step of 8; 6 test shapes: one batch
+        f, k = _HERITAGE_PER_FORWARD["pointnet2part"]
+        check(got_r == _launch_counts(fps_cluster=2 * f, knn_split=2 * k),
+              f"the trainer on the tree: launches {got_r}")
+        check(math.isfinite(res["best"]["ins_miou"]),
+              f"the trainer on the tree: {res['best']}")
+        log(f"pointnet2part on the tree: {run_s:.1f} s for 1 step and 1 "
+            f"val batch (the cache read); ins_miou "
+            f"{res['best']['ins_miou']:.4f}; launches {got_r}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"seconds": secs, "shapes": len(ds),
+            "launches": {k_: got[k_] + got_r[k_] for k_ in got}}
+
+
+def phase_heritage(bound: Bound):
+    """Phase 17: kernels 1 and 2 at the heritage tasks' shapes, then each
+    config of ``cfgs/scanobjectnn`` and ``cfgs/shapenetpart`` through its
+    steps, the card-vs-CPU step and the trainer, and a txt tree with
+    ``presample`` on the card."""
+    import collections
+    import importlib
+
+    from geot_tpu_torch import ops
+
+    t_phase = time.perf_counter()
+    log("phase 17: the heritage tasks (cfgs/scanobjectnn, "
+        "cfgs/shapenetpart) at full width")
+    recs = _kernels_heritage(bound)
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    models = {}
+    fps_mod = importlib.import_module("geot_tpu_torch.ops.fps")
+    knn_mod = importlib.import_module("geot_tpu_torch.ops.knn")
+    real_fps, real_knn = fps_mod.fps_cluster, knn_mod.knn_small_k
+    shapes = collections.Counter()
+
+    def fps_counted(xyz, npoint, plan):
+        shapes[("fps", xyz.shape[0], xyz.shape[1], npoint)] += 1
+        return real_fps(xyz, npoint, plan)
+
+    def knn_counted(q, s_, k):
+        shapes[("knn", q.shape[0], q.shape[1], s_.shape[1], k)] += 1
+        return real_knn(q, s_, k)
+
+    fps_mod.fps_cluster, knn_mod.knn_small_k = fps_counted, knn_counted
+    try:
+        for name in HERITAGE:
+            models[name] = _heritage_model(name)
+            for key, v in models[name]["launches"].items():
+                launches[key] += v
+        presample = _heritage_presample()
+        for key, v in presample["launches"].items():
+            launches[key] += v
+    finally:
+        fps_mod.fps_cluster, knn_mod.knn_small_k = real_fps, real_knn
+    chain_calls = [(B, N, m) for B, N0, ms in _HERITAGE_CHAINS.values()
+                   for N, m in zip((N0,) + ms[:-1], ms)]
+    by_shape = {
+        "fps_chains": {f"({B},{N})->{m}": shapes[("fps", B, N, m)]
+                       for B, N, m in chain_calls},
+        "knn_decoder": {f"(8,{q})x(8,{s_})": shapes[("knn", 8, q, s_, 3)]
+                        for q, s_ in ((32, 8), (128, 32), (512, 128),
+                                      (2048, 512))}}
+    seconds = time.perf_counter() - t_phase
+    log(f"heritage launches at the chain and decoder shapes: {by_shape}")
+    log("heritage step ms (2 timed): " + "; ".join(
+        f"{n} {m['step_ms'][1]:.1f} / {m['step_ms'][2]:.1f}"
+        for n, m in models.items()) + "; peak MiB: " + "; ".join(
+        f"{n} {m['peak_mb']:.0f}" for n, m in models.items()))
+    log(f"phase 17: {seconds:.1f} s; launches {launches}")
+    return {"kernels": recs, "models": models, "presample": presample,
+            "launches": launches, "launches_by_shape": by_shape,
+            "seconds": seconds}
+
+
 # --dp-step-ms: phase 14's two-rank flagship trainer (gloo, both ranks on
 # one card, the global batch 2 + 2 + 2 at 16,000 points) for 8 steps, in
 # each checkout given, in the order given: to compare two commits on one
@@ -5031,6 +5518,7 @@ def main() -> int:
     export_dp = phase_export_dp(Bound(limit_w))
     pretrain = phase_pretrain(Bound(limit_w), smi)
     switches = phase_switches(Bound(limit_w), train)
+    heritage = phase_heritage(Bound(limit_w))
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
     # launches on the main paths: 3 served scans, the train run (2 cm
@@ -5049,7 +5537,8 @@ def main() -> int:
         f"and the serving CLI {files['launches']}, export and data "
         f"parallel {export_dp['launches']}, pretraining and the graft "
         f"{pretrain['launches']}, the trainer's other switches "
-        f"{switches['launches']}")
+        f"{switches['launches']}, the heritage tasks "
+        f"{heritage['launches']}")
 
     def entry(name, replaces, source=None):
         return {"name": name, "route": "cuda",
@@ -5064,7 +5553,8 @@ def main() -> int:
                              + files["launches"].get(name, 0)
                              + export_dp["launches"][name]
                              + pretrain["launches"][name]
-                             + switches["launches"][name]),
+                             + switches["launches"][name]
+                             + heritage["launches"][name]),
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
                 "launches_trainer_run": trainer["launches"][name],
@@ -5077,6 +5567,7 @@ def main() -> int:
                 "launches_export_and_dp": export_dp["launches"][name],
                 "launches_pretrain_and_graft": pretrain["launches"][name],
                 "launches_trainer_switches": switches["launches"][name],
+                "launches_heritage_tasks": heritage["launches"][name],
                 "library_ms": None, **recs[name]}
 
     kernels = [
@@ -5158,6 +5649,22 @@ def main() -> int:
          "source": "geot_tpu_torch/csrc/fps_cluster.cu",
          "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
          **pretrain["kernels"]["fps_pretrain"]},
+        # kernels 1 and 2 at the heritage tasks' shapes (phase 17): the FPS
+        # chains of classification at (32, 1024) and of part segmentation
+        # at (8, 2048), and the part decoders' k = 3 searches; launches at
+        # those shapes in phase 17's steps and trainer runs
+        {"name": "fps_cluster_heritage_chains_32x1024_8x2048",
+         "route": "cuda", "source": "geot_tpu_torch/csrc/fps_cluster.cu",
+         "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
+         "launches": sum(heritage["launches_by_shape"]["fps_chains"]
+                         .values()),
+         **heritage["kernels"]["fps_chains"]},
+        {"name": "knn_split_heritage_part_decoders_8x_k3", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/knn_split.cu",
+         "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
+         "launches": sum(heritage["launches_by_shape"]["knn_decoder"]
+                         .values()),
+         **heritage["kernels"]["knn_decoder"]},
     ]
     # every kernel of the paths ran in this run
     for kname in ("fps_cluster", "knn_split", *UPSAMPLE):

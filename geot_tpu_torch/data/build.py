@@ -1,18 +1,23 @@
 """Loaders (``geot_tpu/data/build.py``): an epoch-based loader with seeded
-shuffling, ``drop_last`` and per-rank sharding, collating numpy samples in
-this process; the loaders of a config's labelled and unlabelled datasets;
-and the copy of a batch onto the device.
+shuffling, ``drop_last``, per-rank sharding and a thread pool that loads
+and collates the next ``num_workers`` batches ahead; the loaders of a
+config's labelled and unlabelled datasets; and the copy of a batch onto the
+device.
 
 The rank and the number of ranks come from the caller (``geot_tpu`` asks
 JAX for them, ``data/build.py:152``).
 """
 from __future__ import annotations
 
+import concurrent.futures as _fut
+import itertools
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .shapenetpart import (ScanObjectNN, ShapeNetPart, ShapeNetPartCurve,
+                           ShapeNetPartNormal)
 from .tooth_pretrain import (TeethClsDataset, TeethSegFinetuneDataset,
                              Tooth6000, Tooth6000PCA)
 from .tooth_semi import TeethSegSemiLDataset, TeethSegSemiUDataset
@@ -28,7 +33,14 @@ DATASETS = {"TeethSegSemiLDataset": TeethSegSemiLDataset,
             "TeethSegSemiUDataset": TeethSegSemiUDataset,
             "TeethSegFinetuneDataset": TeethSegFinetuneDataset,
             "TeethClsDataset": TeethClsDataset,
-            "tooth_6000": Tooth6000, "tooth_6000_pca": Tooth6000PCA}
+            "tooth_6000": Tooth6000, "tooth_6000_pca": Tooth6000PCA,
+            "ShapeNetPart": ShapeNetPart,
+            "ShapeNetPartCurve": ShapeNetPartCurve,
+            "ShapeNetPartNormal": ShapeNetPartNormal,
+            "ScanObjectNN": ScanObjectNN}
+# the splits that train when the caller does not say
+# (geot_tpu/data/build.py:183)
+TRAIN_SPLITS = ("train", "training", "trainval")
 
 
 def default_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -47,15 +59,18 @@ def default_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 class DataLoader:
-    """An epoch loader (``geot_tpu/data/build.py:DataLoader`` without its
-    thread pool): with ``shuffle``, the order of epoch e is
-    ``default_rng(seed + e).permutation``; each global batch is
-    block-sharded over ``num_shards`` ranks; ``drop_last`` drops the ragged
-    tail, otherwise the last batch is short."""
+    """An epoch loader (``geot_tpu/data/build.py:50-150``): with
+    ``shuffle``, the order of epoch e is ``default_rng(seed +
+    e).permutation``; each global batch is block-sharded over
+    ``num_shards`` ranks; ``drop_last`` drops the ragged tail, otherwise
+    the last batch is short. A pool of ``num_workers`` threads loads and
+    collates up to ``num_workers`` batches ahead of the one the caller
+    takes; the batches and their order do not depend on ``num_workers``
+    (each item draws from its own ``(seed, epoch, idx)`` generator)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, num_shards: int = 1,
-                 shard_index: int = 0):
+                 shard_index: int = 0, num_workers: int = 4):
         if num_shards > 1 and not drop_last:
             raise NotImplementedError("sharding a loader that keeps its "
                                       "tail is not ported")
@@ -66,6 +81,7 @@ class DataLoader:
         self.seed = seed
         self.num_shards = num_shards
         self.shard_index = shard_index
+        self.num_workers = max(int(num_workers), 1)
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -89,27 +105,45 @@ class DataLoader:
         return (n // self.batch_size if self.drop_last
                 else -(-n // self.batch_size))
 
+    def _fetch(self, batch_idx: np.ndarray) -> Dict[str, Any]:
+        return default_collate([self.dataset[int(j)] for j in batch_idx])
+
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         idx = self._epoch_indices()
-        for i in range(len(self)):
-            batch = idx[i * self.batch_size:(i + 1) * self.batch_size]
-            yield default_collate([self.dataset[int(j)] for j in batch])
+        batches = (idx[i * self.batch_size:(i + 1) * self.batch_size]
+                   for i in range(len(self)))
+        with _fut.ThreadPoolExecutor(self.num_workers) as pool:
+            ahead = [pool.submit(self._fetch, b)
+                     for b in itertools.islice(batches, self.num_workers)]
+            for b in batches:
+                done = ahead.pop(0)
+                ahead.append(pool.submit(self._fetch, b))
+                yield done.result()
+            for fut in ahead:
+                yield fut.result()
 
 
 def build_dataloader_from_cfg(batch_size: int, dataset_cfg: Dict[str, Any],
                               datatransforms_cfg: Optional[Dict] = None,
                               split: str = "train", seed: int = 0,
-                              num_shards: int = 1, shard_index: int = 0
+                              num_shards: int = 1, shard_index: int = 0,
+                              dataloader_cfg: Optional[Dict] = None,
+                              is_train: Optional[bool] = None,
+                              device: "str | torch.device | None" = None
                               ) -> DataLoader:
     """The loader of one split of a dataset config (``common`` merged with
     the split's own keys; ``geot_tpu/data/build.py:172-231``).
 
-    A ``train`` loader is shuffled and drops its tail; ``val`` and ``test``
-    keep their order and their tail. The labelled dataset takes the split's
-    transforms (the ``val`` ones for a split without its own); the
+    A training loader (``is_train``; when None, a split of
+    ``TRAIN_SPLITS``) is shuffled and drops its tail; any other keeps its
+    order and its tail. The labelled dataset takes the split's transforms
+    (the ``train`` or ``val`` ones for a split without its own); the
     unlabelled one the ``train_w`` and ``train_s`` transforms, and its
     loader is seeded with ``seed + 1``. ``batch_size`` is global: each of
-    ``num_shards`` ranks loads its block of every batch."""
+    ``num_shards`` ranks loads its block of every batch. The loader's
+    threads are ``dataloader_cfg["num_workers"]`` (4 without it).
+    ``device`` goes to a dataset that computes on one (the FPS of
+    ``ShapeNetPartNormal``'s ``presample``)."""
     cfg = dict(dataset_cfg.get("common", {}))
     cfg.update(dataset_cfg.get(split, {}) or {})
     cfg.setdefault("split", split)
@@ -117,7 +151,10 @@ def build_dataloader_from_cfg(batch_size: int, dataset_cfg: Dict[str, Any],
     if name not in DATASETS:
         raise NotImplementedError(f"dataset {name!r} is not ported; ported: "
                                   f"{sorted(DATASETS)}")
-    is_train = split == "train"
+    if is_train is None:
+        is_train = split in TRAIN_SPLITS
+    if device is not None and DATASETS[name] is ShapeNetPartNormal:
+        cfg.setdefault("device", device)
     tf = datatransforms_cfg
     if DATASETS[name] is TeethSegSemiUDataset:
         dataset = TeethSegSemiUDataset(
@@ -136,7 +173,9 @@ def build_dataloader_from_cfg(batch_size: int, dataset_cfg: Dict[str, Any],
                          f"{num_shards} ranks")
     return DataLoader(dataset, batch_size // num_shards, shuffle=is_train,
                       drop_last=is_train, seed=seed, num_shards=num_shards,
-                      shard_index=shard_index)
+                      shard_index=shard_index,
+                      num_workers=(dataloader_cfg or {}).get("num_workers",
+                                                             4))
 
 
 def build_semi_loaders(cfg: Dict[str, Any], data_root: str = "",

@@ -140,10 +140,12 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     train_loader = build_dataloader_from_cfg(bs, cfg.dataset, tf,
                                              split="train", seed=seed,
                                              num_shards=world,
-                                             shard_index=rank)
+                                             shard_index=rank,
+                                             dataloader_cfg=cfg.get(
+                                                 "dataloader"))
     val_loader = build_dataloader_from_cfg(
         int(cfg.get("batch_size_val", bs)), cfg.dataset, tf, split="val",
-        seed=seed)
+        seed=seed, dataloader_cfg=cfg.get("dataloader"))
     logger.info(f"datasets: train={len(train_loader.dataset)} "
                 f"val={len(val_loader.dataset)}; device {device}"
                 + (f"; rank {rank} of {world} ({dist.backend()})"

@@ -1,9 +1,11 @@
 """The training entry point (``geot_tpu/engine/train.py``) for the flagship
-semi-supervised recipe and the supervised tooth zoo, on one device:
+semi-supervised recipe, the supervised tooth zoo and the heritage tasks,
+on one device:
 
     python -m geot_tpu_torch.engine.train \\
         --cfg cfgs/tooth_semi/transformer_finetune_fixmatch_ntm.yaml [k=v ...]
     python -m geot_tpu_torch.engine.train --cfg cfgs/tooth_sup/pointnet2.yaml
+    python -m geot_tpu_torch.engine.train --cfg cfgs/scanobjectnn/pointnet2cls.yaml
 
 ``parse_and_run`` reads the config (``default.yaml`` files of the parent
 directories first, then the named file, then the ``k=v`` overrides), makes
@@ -16,7 +18,12 @@ A config with ``dataset_u`` and ``criterion_u_args`` runs semi-supervised
 (``semi_mode``, ``geot_tpu/engine/train.py:177``): a ``SemiTrainState``
 of a ``WholePartSeg`` student. A model with ``generator_args`` (a
 ``ViewGenBase``, ``cfgs/tooth_pretrain/viewgen.yaml``) runs GeoT's
-pretraining stage, ``engine.pretrain.main``. Any other trains supervised:
+pretraining stage, ``engine.pretrain.main``. ``task: cls`` runs
+classification (``engine.cls.main``) and ``task: partseg`` part
+segmentation (``engine.partseg.main``), the heritage tasks of
+``cfgs/scanobjectnn`` and ``cfgs/shapenetpart`` (``geot_tpu/engine/
+train.py:767-774``), through ``engine.taskloop``. Any other trains
+supervised:
 a ``TrainState`` of ``cfg.model`` (``WholePartSeg``, ``BaseSeg`` or
 ``PointMLPPartSegmentor``), no teacher, T-predictor, NTM or ``cm``, and
 every epoch supervised. ``pretrain_encoder_path`` (a pretraining
@@ -81,8 +88,8 @@ batches to the device on every pass instead of once.
 SIGTERM or SIGINT during training means: finish the epoch, checkpoint, stop
 (a second one stops at once). Metrics accumulate on the device and are
 fetched once an epoch. What the port does not train (a training
-``dtype``, ``tp``, ``sp``, ``fsdp``, ``task: cls|partseg`` and model names
-its registry lacks) raises ``NotImplementedError`` naming the key.
+``dtype``, ``tp``, ``sp``, ``fsdp``, and model or dataset names its
+registries lack) raises ``NotImplementedError`` naming the key.
 """
 from __future__ import annotations
 
@@ -124,7 +131,9 @@ from .writer import SummaryWriter, Wandb
 EVAL_MODES = ("val", "test", "eval", "testing", "evaluation")
 # the model NAMEs the trainer builds (cfg.model.NAME)
 TRAINED_MODELS = ("WholePartSeg", "BaseSeg", "PointMLPPartSegmentor",
-                  "ViewGenBase")
+                  "ViewGenBase", "BaseCls", "DistillCls", "BasePartSeg")
+# the config sections that name datasets
+DATASET_KEYS = ("dataset", "dataset_l", "dataset_u")
 
 # epoch scalars under the reference's tags (geot_tpu/engine/train.py:418-433)
 # -> the step's metric
@@ -232,7 +241,8 @@ def _draw_seed(device) -> int:
 def refuse_unported(cfg) -> None:
     """Raise ``NotImplementedError`` naming the first switch of ``cfg``
     whose branch of ``geot_tpu``'s trainer the port lacks, or a compute
-    ``dtype`` other than float32 in a training mode."""
+    ``dtype`` other than float32 in a training mode; a model or dataset
+    name the port's registries lack is named by its dotted key."""
     model = cfg.get("model") or {}
     model_t = cfg.get("model_t") or {}
     mode = str(cfg.get("mode") or "train")
@@ -248,13 +258,14 @@ def refuse_unported(cfg) -> None:
         "tp": int(cfg.get("tp", 1) or 1) > 1,
         "sp": int(cfg.get("sp", 1) or 1) > 1,
         "fsdp": bool(cfg.get("fsdp")),
-        "task": cfg.get("task") in ("partseg", "cls"),
         "model.NAME": (model.get("NAME") not in TRAINED_MODELS
                        or (semi_mode(cfg)
                            and model.get("NAME") != "WholePartSeg")),
         "model_t.NAME": model_t.get("NAME", "WholePartSeg") != "WholePartSeg",
         **{k: True for k in _unported_names(model, "model")},
         **{k: True for k in _unported_names(model_t, "model_t")},
+        **{k: True for key in DATASET_KEYS
+           for k in _unported_datasets(cfg.get(key), key)},
     }
     on = [k for k, v in refused.items() if v]
     if on:
@@ -281,6 +292,17 @@ def _unported_names(tree, prefix: str):
             yield f"{prefix}.NAME"
         elif isinstance(value, dict):
             yield from _unported_names(value, f"{prefix}.{key}")
+
+
+def _unported_datasets(tree, prefix: str):
+    """The dotted keys of every ``NAME`` in a dataset config (``common``
+    and the splits) that the port's ``DATASETS`` lacks."""
+    from ..data.build import DATASETS
+
+    for key, value in (tree or {}).items():
+        if isinstance(value, dict) and value.get("NAME") is not None \
+                and value["NAME"] not in DATASETS:
+            yield f"{prefix}.{key}.NAME"
 
 
 def _get(cfg, dotted: str):
@@ -436,7 +458,8 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
         return build_dataloader_from_cfg(int(batch_size), ds_cfg, tf,
                                          split=split, seed=seed,
                                          num_shards=shards,
-                                         shard_index=rank % shards)
+                                         shard_index=rank % shards,
+                                         dataloader_cfg=cfg.get("dataloader"))
 
     val_loader = loader(cfg.get("batch_size_val", 2), cfg.dataset_l, "val")
     test_loader = loader(cfg.get("batch_size_test", 2), cfg.dataset_l, "test")
@@ -825,6 +848,15 @@ def parse_and_run(argv=None) -> Dict[str, Any]:
     if dist.is_primary():
         with open(os.path.join(cfg.run_dir, cfg_name), "w") as f:
             f.write(dump_yaml(cfg.dict()))
+    # the pretraining stage first, then the heritage tasks
+    # (geot_tpu/engine/train.py:763-774)
+    if "generator_args" not in (cfg.get("model") or {}):
+        if cfg.get("task") == "partseg":
+            from .partseg import main as partseg_main
+            return partseg_main(cfg, device=device)
+        if cfg.get("task") == "cls":
+            from .cls import main as cls_main
+            return cls_main(cfg, device=device)
     return main(cfg, device=device)
 
 

@@ -56,6 +56,7 @@ class DGCNN(nn.Module):
         self.fusion_bn = BatchNorm(embed_dim)
         self.act = LeakyReLU(0.2)
         self.out_channels = embed_dim
+        self.cls_channels = 2 * embed_dim
 
     def forward(self, pts, features=None):
         if features is None:
@@ -72,6 +73,12 @@ class DGCNN(nn.Module):
 
     def forward_seg_feat(self, pts, features=None):
         return pts, self(pts, features)
+
+    def forward_cls_feat(self, pts, features=None):
+        """The max and the mean over the points of the fused features,
+        concatenated: (B, ``cls_channels``) = (B, 2 ``embed_dim``)."""
+        fused = self(pts, features)
+        return torch.cat([fused.amax(dim=1), fused.mean(dim=1)], dim=-1)
 
 
 @register_model("DGCNNGenEncoder")

@@ -1,5 +1,6 @@
-"""PointMLP part segmentor, channels-last
-(``geot_tpu/models/backbone/pointmlp.py:27-274``).
+"""PointMLP: the part segmentor, the classification encoders and the
+pretraining encoder, channels-last
+(``geot_tpu/models/backbone/pointmlp.py:27-367``).
 
 Encoder: per stage FPS to ``N // reducer`` anchors, their k nearest
 points (exact kNN), a geometric-affine normalisation of the groups (by the
@@ -11,9 +12,14 @@ interpolation back up the pyramid with skip concats. Head: a global
 max-pooled token and the jaw token (one-hot ``cls``) beside every point.
 Module names follow the flax tree; every layer's input width follows from
 the config and ``in_channels``, the width of the data's ``x``.
+``PointMLPEncoder`` (and its ``PointMLP`` alias, ``pointMLP`` and
+``pointMLPElite``) gives classification the max over the last stage's
+groups; ``PointMLPEncoderV2`` maps each group's features and center
+through an MLP (fc1, exact GELU, fc2) first.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Optional, Sequence
 
 import torch
@@ -23,7 +29,7 @@ import torch.nn.functional as F
 from ...core.config import register_model
 from ...ops import fps, gather_points, grouping_operation, knn, \
     three_interpolation
-from ..layers import BatchNorm, Dense, Dropout
+from ..layers import BatchNorm, Dense, Dropout, gelu
 
 
 class ConvBNReLU(nn.Module):
@@ -180,6 +186,96 @@ class PointMLPGenEncoder(nn.Module):
             xyz, grouped = getattr(self, f"grouper_{i}")(xyz, x)
             x = getattr(self, f"pos_{i}")(getattr(self, f"pre_{i}")(grouped))
         return x, xyz
+
+    def forward_cls_feat(self, xyz, features: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None):
+        return self(xyz, features)
+
+
+@register_model("PointMLPEncoder")
+class PointMLPEncoder(PointMLPGenEncoder):
+    """The classification encoder (``geot_tpu/models/backbone/pointmlp.py:
+    137-172``): the stages of ``PointMLPGenEncoder``; ``forward`` returns
+    (centers, tokens) of the last stage and ``forward_cls_feat`` the max
+    over its groups, (B, ``out_channels``)."""
+
+    def forward(self, xyz, features: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        x, xyz = super().forward(xyz, features)
+        return xyz, x
+
+    def forward_cls_feat(self, xyz, features: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None):
+        return self(xyz, features)[1].amax(dim=1)
+
+
+def pointMLP(**kwargs) -> PointMLPEncoder:
+    """The original PointMLP encoder (``geot_tpu/models/backbone/pointmlp.py:
+    175-184``); ``num_classes`` is taken and dropped."""
+    kwargs.pop("num_classes", None)
+    return PointMLPEncoder(embed_dim=64, res_expansion=1.0, bias=False,
+                           use_xyz=False, normalize="anchor",
+                           dim_expansion=(2, 2, 2, 2), pre_blocks=(2, 2, 2, 2),
+                           pos_blocks=(2, 2, 2, 2),
+                           k_neighbors=(24, 24, 24, 24),
+                           reducers=(2, 2, 2, 2), **kwargs)
+
+
+def pointMLPElite(**kwargs) -> PointMLPEncoder:
+    """The slim PointMLP encoder (``geot_tpu/models/backbone/pointmlp.py:
+    187-195``)."""
+    kwargs.pop("num_classes", None)
+    return PointMLPEncoder(embed_dim=32, res_expansion=0.25, bias=False,
+                           use_xyz=False, normalize="anchor",
+                           dim_expansion=(2, 2, 2, 1), pre_blocks=(1, 1, 2, 1),
+                           pos_blocks=(1, 1, 2, 1),
+                           k_neighbors=(24, 24, 24, 24),
+                           reducers=(2, 2, 2, 2), **kwargs)
+
+
+@register_model("PointMLP")
+def PointMLP(**kwargs) -> PointMLPEncoder:
+    """The registry's ``PointMLP``: a ``PointMLPEncoder`` of the arguments
+    it takes, the others dropped (``geot_tpu/models/backbone/pointmlp.py:
+    362-367``)."""
+    fields = inspect.signature(PointMLPEncoder.__init__).parameters
+    return PointMLPEncoder(**{k: v for k, v in kwargs.items()
+                              if k in fields and k != "self"})
+
+
+@register_model("PointMLPEncoderV2")
+class PointMLPEncoderV2(nn.Module):
+    """``enc``, a ``PointMLPGenEncoder``; each last-stage group's features
+    and center concatenated go through ``feat_mlp_fc1``, exact GELU and
+    ``feat_mlp_fc2`` to ``feat_channels`` (0: the last stage's width),
+    then the max over the groups (``geot_tpu/models/backbone/pointmlp.py:
+    322-359``). ``forward`` and ``forward_cls_feat`` take a batch dict or
+    arrays and return (B, ``out_channels``)."""
+
+    def __init__(self, in_channels: int = 3, embed_dim: int = 64,
+                 res_expansion: float = 1.0, bias: bool = False,
+                 use_xyz: bool = False, normalize: str = "anchor",
+                 dim_expansion: Sequence[int] = (2, 2, 2, 2),
+                 pre_blocks: Sequence[int] = (2, 2, 2, 2),
+                 pos_blocks: Sequence[int] = (2, 2, 2, 2),
+                 k_neighbors: Sequence[int] = (24, 24, 24, 24),
+                 reducers: Sequence[int] = (2, 2, 2, 2),
+                 feat_channels: int = 0):
+        super().__init__()
+        self.enc = PointMLPGenEncoder(
+            in_channels, embed_dim, res_expansion, bias, use_xyz, normalize,
+            dim_expansion, pre_blocks, pos_blocks, k_neighbors, reducers)
+        last = self.enc.out_channels
+        out = feat_channels or last
+        self.feat_mlp_fc1 = Dense(last + 3, out)
+        self.feat_mlp_fc2 = Dense(out, out)
+        self.out_channels = out
+
+    def forward(self, xyz, features: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        x, xyz = self.enc(xyz, features)
+        h = self.feat_mlp_fc1(torch.cat([x, xyz.to(x.dtype)], dim=-1))
+        return self.feat_mlp_fc2(gelu(h)).amax(dim=1)
 
     def forward_cls_feat(self, xyz, features: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None):

@@ -1,5 +1,5 @@
-"""PointNet++ encoder and decoder, channels-last
-(``geot_tpu/models/backbone/pointnetv2.py:23-236``).
+"""PointNet++ encoder and decoders, channels-last
+(``geot_tpu/models/backbone/pointnetv2.py:23-270``).
 
 Set-abstraction stages (FPS down by ``stride``, then one ball-query local
 aggregation per scale, concatenated) and feature-propagation stages
@@ -146,6 +146,10 @@ class PointNet2Encoder(nn.Module):
     def forward(self, xyz, features=None):
         return self.forward_seg_feat(xyz, features)
 
+    def forward_cls_feat(self, xyz, features=None):
+        """The max over the last level's points: (B, ``out_channels``)."""
+        return self.forward_seg_feat(xyz, features)[1][-1].amax(dim=1)
+
     def forward_seg_feat(self, xyz, features=None):
         if features is None:
             features = xyz
@@ -182,7 +186,8 @@ class PointNet2Decoder(nn.Module):
     level 0's features, ``out_channels`` wide."""
 
     def __init__(self, encoder_channel_list: Sequence[int],
-                 fp_mlps: Any = None, decoder_layers: int = 1):
+                 fp_mlps: Any = None, decoder_layers: int = 1,
+                 _level0_extra: int = 0):
         super().__init__()
         skip = list(encoder_channel_list)
         if fp_mlps is None:
@@ -190,12 +195,15 @@ class PointNet2Decoder(nn.Module):
             fp_mlps += [[c] * (decoder_layers + 1) for c in skip[1:-1]]
         self.n = len(fp_mlps)
         # fp_{j} writes level L - n + j from the one above it: the
-        # encoder's last level, else what fp_{j+1} wrote
+        # encoder's last level, else what fp_{j+1} wrote; level 0 may
+        # carry _level0_extra more channels (the part decoder's one-hot)
         L = len(skip) - 1
         above = skip[L]
         for j in reversed(range(self.n)):
+            level = L - self.n + j
             self.add_module(f"fp_{j}", PointNetFPModule(
-                skip[L - self.n + j] + above, fp_mlps[j]))
+                skip[level] + (_level0_extra if level == 0 else 0) + above,
+                fp_mlps[j]))
             above = fp_mlps[j][-1]
         self.out_channels = above if self.n == L else skip[0]
 
@@ -206,3 +214,38 @@ class PointNet2Decoder(nn.Module):
             l_features[i - 1] = getattr(self, f"fp_{n + i}")(
                 l_xyz[i - 1], l_xyz[i], l_features[i - 1], l_features[i])
         return l_features[0]
+
+
+@register_model("PointNet2PartDecoder")
+class PointNet2PartDecoder(PointNet2Decoder):
+    """``PointNet2Decoder`` whose finest level's features are concatenated
+    with the one-hot of each cloud's shape category ``cls_label`` (B,) or
+    (B, 1) before its FP stage (``geot_tpu/models/backbone/pointnetv2.py:
+    238-270``)."""
+
+    def __init__(self, encoder_channel_list: Sequence[int],
+                 shape_classes: int = 16, fp_mlps: Any = None,
+                 decoder_layers: int = 1):
+        skip = list(encoder_channel_list)
+        n = len(fp_mlps) if fp_mlps is not None else len(skip) - 1
+        # the one-hot joins level 0 only when the decoder reaches it
+        super().__init__(encoder_channel_list, fp_mlps, decoder_layers,
+                         _level0_extra=(shape_classes if n == len(skip) - 1
+                                        else 0))
+        self.shape_classes = shape_classes
+        self.reaches_level0 = n == len(skip) - 1
+
+    def forward(self, l_xyz, l_features, cls_label=None):
+        l_features = list(l_features)
+        if self.reaches_level0:
+            if cls_label is None:
+                raise ValueError("PointNet2PartDecoder needs the shape "
+                                 "category (cls)")
+            B, N0 = l_xyz[0].shape[:2]
+            onehot = torch.nn.functional.one_hot(
+                cls_label.reshape(-1).long(), self.shape_classes).to(
+                l_features[0].dtype)
+            l_features[0] = torch.cat(
+                [l_features[0], onehot[:, None, :].expand(
+                    B, N0, self.shape_classes)], dim=-1)
+        return super().forward(l_xyz, l_features)

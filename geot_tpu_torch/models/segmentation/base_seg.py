@@ -1,7 +1,8 @@
 """``WholePartSeg``, the GeoT segmentation wrapper, ``InsTMean``, the
-instance transition-matrix predictor wrapper, and ``BaseSeg`` with its
-``SegHead``, the encoder/decoder/head composition of the supervised zoo
-(``geot_tpu/models/segmentation/base_seg.py:19-63, 108, 121-146,
+instance transition-matrix predictor wrapper, ``BaseSeg`` with its
+``SegHead``, the encoder/decoder/head composition of the supervised zoo,
+and ``BasePartSeg``, that composition with the shape category given to the
+decoder (``geot_tpu/models/segmentation/base_seg.py:19-63, 108, 121-186,
 223-243``)."""
 from __future__ import annotations
 
@@ -107,6 +108,26 @@ class BaseSeg(nn.Module):
             f = self.decoder(l_xyz, l_feats)
         else:
             # a one-level encoder (DGCNN) returns its (B, N, C) features
+            f = l_feats[-1] if isinstance(l_feats, (list, tuple)) else l_feats
+        return self.head(f, generator) if self.head is not None else f
+
+
+@register_model("BasePartSeg")
+class BasePartSeg(BaseSeg):
+    """``BaseSeg`` for part segmentation: the decoder also takes each
+    cloud's shape category (``cls``). ``forward`` takes a batch dict
+    (``pos``, ``x``, ``cls``) or arrays ``(p0, f0, cls0)`` and returns
+    bare (B, N, C) logits."""
+
+    def forward(self, p0, f0: Optional[torch.Tensor] = None,
+                cls0: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        if isinstance(p0, dict):
+            p0, f0, cls0 = p0["pos"], p0.get("x"), p0.get("cls")
+        l_xyz, l_feats = self.encoder.forward_seg_feat(p0, f0)
+        if self.decoder is not None:
+            f = self.decoder(l_xyz, l_feats, cls0)
+        else:
             f = l_feats[-1] if isinstance(l_feats, (list, tuple)) else l_feats
         return self.head(f, generator) if self.head is not None else f
 

@@ -1101,3 +1101,169 @@ def test_adahessian_diagonal_on_the_card_matches_the_cpu(cuda):
             err = float((res[0][(n, key)] - v).abs().max()) / max(
                 float(v.abs().max()), 1e-6 * gmax)
             assert err <= 1e-6, (key, n, err)
+
+
+# --- the heritage tasks (task: cls | partseg) --------------------------------
+
+HERITAGE_CHAINS = ((32, 1024, (256, 64, 16, 4)), (32, 1024, (512, 256, 128,
+                                                              64)),
+                   (8, 2048, (512, 128, 32, 8)))
+HERITAGE_TINY = {
+    "scanobjectnn/pointnet2cls.yaml": [
+        "model.encoder_args.width=8", "model.encoder_args.num_samples=8",
+        "model.encoder_args.strides=[4,4]", "model.encoder_args.blocks=[1,1]",
+        "model.cls_args.mlps=[32]", "model.cls_args.dropout_ratio=0.0"],
+    "scanobjectnn/dgcnncls.yaml": [
+        "model.encoder_args.channels=8", "model.encoder_args.embed_dim=32",
+        "model.encoder_args.n_blocks=3", "model.encoder_args.k=8",
+        "model.cls_args.mlps=[32]", "model.cls_args.dropout_ratio=0.0"],
+    "scanobjectnn/pointmlpcls.yaml": [
+        "model.encoder_args.embed_dim=8",
+        "model.encoder_args.dim_expansion=[2,2]",
+        "model.encoder_args.pre_blocks=[1,1]",
+        "model.encoder_args.pos_blocks=[1,1]",
+        "model.encoder_args.k_neighbors=[8,8]",
+        "model.encoder_args.reducers=[4,4]", "model.cls_args.mlps=[32]",
+        "model.cls_args.dropout_ratio=0.0"],
+    "shapenetpart/pointnet2part.yaml": [
+        "model.encoder_args.width=8", "model.encoder_args.num_samples=8",
+        "model.encoder_args.strides=[4,4]", "model.encoder_args.blocks=[1,1]",
+        "model.cls_args.mlps=[16]", "model.cls_args.dropout_ratio=0.0"],
+    "shapenetpart/pointmlppart.yaml": [
+        "model.embed_dim=8", "model.dim_expansion=[2,2]",
+        "model.pre_blocks=[1,1]", "model.pos_blocks=[1,1]",
+        "model.k_neighbors=[8,8]", "model.reducers=[4,4]",
+        "model.de_dims=[16,16]", "model.de_blocks=[1,1]", "model.gmp_dim=8",
+        "model.cls_dim=8"],
+}
+
+
+def test_fps_at_the_heritage_chains_and_empty_blocks(cuda):
+    """The FPS chains of classification (B = 32, 1024 points) and part
+    segmentation (B = 8, 2048 points) bit-equal to ``fps_ref``; clouds of
+    10 and 17 points on a 16-block cluster, where blocks own no point; 40
+    distinct points sampled to 1024."""
+    for B, N, npoints in HERITAGE_CHAINS:
+        x = _cloud(17, (B, N, 3)).to(cuda)
+        for npoint in npoints:
+            idx = ops.fps(x, npoint)
+            assert torch.equal(idx, ops.fps_ref(x, npoint)), (x.shape,
+                                                               npoint)
+            x = ops.gather_points(x, idx).contiguous()
+    for N, npoint in ((10, 4), (17, 8)):
+        plan = ops.fps_plan(N, 16)
+        assert any(hi <= lo for lo, hi in plan.ranges(N))
+        x = _cloud(N, (32, N, 3)).to(cuda)
+        assert torch.equal(ops.fps_cluster(x, npoint, plan),
+                           ops.fps_ref(x, npoint))
+    sel = torch.from_numpy(np.random.default_rng(41).choice(40, 1024))
+    few = _cloud(40, (32, 40, 3))[:, sel].contiguous().to(cuda)
+    assert torch.equal(ops.fps(few, 256), ops.fps_ref(few, 256))
+
+
+def test_knn_split_at_the_part_decoder_shapes(cuda):
+    """The part decoders' k = 3 searches, (8, 32) x (8, 8) to (8, 2048) x
+    (8, 512), and a support with duplicates: bit-equal to
+    ``knn_small_k_ref``."""
+    x = _cloud(18, (8, 2048, 3)).to(cuda)
+    lv = [x]
+    for npoint in (512, 128, 32, 8):
+        lv.append(ops.gather_points(lv[-1], ops.fps(lv[-1], npoint))
+                  .contiguous())
+    dup = torch.cat([lv[2], lv[2][:, :64]], dim=1).contiguous()
+    for q, s in ((lv[3], lv[4]), (lv[2], lv[3]), (lv[1], lv[2]),
+                 (lv[0], lv[1]), (lv[1], dup)):
+        d, i = ops.knn_small_k(q, s, 3)
+        d_r, i_r = ops.knn_small_k_ref(q, s, 3)
+        assert torch.equal(i, i_r) and torch.equal(d, d_r), (q.shape,
+                                                            s.shape)
+
+
+@pytest.mark.parametrize("path", sorted(HERITAGE_TINY))
+def test_heritage_step_on_the_card_matches_the_cpu(cuda, path):
+    """One supervised step of each heritage config at the small widths, 4
+    clouds of 256 points, from the same weights, in float64 around the
+    float32 kernels: the loss within 1e-9 relative, every gradient within
+    1e-6 of its tensor's largest entry (floored at 1e-6 of the largest
+    gradient)."""
+    import os
+
+    from geot_tpu_torch.core.config import EasyConfig
+    from geot_tpu_torch.data.build import build_dataloader_from_cfg
+    from geot_tpu_torch.engine import cls as cls_mod
+    from geot_tpu_torch.engine import partseg as partseg_mod
+    from geot_tpu_torch.engine.state import TrainState
+    from geot_tpu_torch.engine.steps import make_supervised_step
+
+    cfg = EasyConfig()
+    cfg.load(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "cfgs", path), recursive=True)
+    cfg.update(HERITAGE_TINY[path] + ["dataset.common.num_points=256",
+                                      "seed=0"])
+    loader = build_dataloader_from_cfg(
+        4, cfg.dataset, split=cfg.dataset.get("train_split", "train"))
+    loader.set_epoch(1)
+    batch = next(iter(loader))
+    batch_fn = (cls_mod if cfg.task == "cls" else partseg_mod)._batch
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        st = TrainState.create(cfg, cfg.model, seed=1, device=dev)
+        st.model.double()
+        if "pointmlppart" in path:
+            st.model.dropout.rate = 0.0
+        b = {k: (v.double() if v.is_floating_point() else v)
+             for k, v in batch_fn(batch, dev).items()}
+        m = make_supervised_step(cfg)(st, b, 1e-3)
+        res[dev.type] = (float(m["loss"]), {
+            n: st.opt.state[p]["exp_avg"].cpu()
+            for n, p in st.model.named_parameters()})
+    (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
+    assert abs(lg - lc) <= 1e-9 * abs(lc)
+    gmax = max(float(v.abs().max()) for v in gc.values())
+    for k, ref in gc.items():
+        scale = max(float(ref.abs().max()), 1e-6 * gmax)
+        assert float((gg[k] - ref).abs().max()) <= 1e-6 * scale, k
+
+
+def test_presample_on_the_card(cuda, tmp_path):
+    """``ShapeNetPartNormal(presample=True)`` on the card: one FPS launch a
+    shape, and the cached rows are the shape's at ``fps_ref``'s indices."""
+    import json
+    import os
+    import pickle
+
+    from geot_tpu_torch.data.shapenetpart import (SHAPENETPART_CLS2PARTS,
+                                                  ShapeNetPartNormal)
+
+    rng = np.random.default_rng(19)
+    root = str(tmp_path)
+    os.makedirs(os.path.join(root, "train_test_split"))
+    with open(os.path.join(root, "synsetoffset2category.txt"), "w") as f:
+        f.write("Airplane\t02691156\nBag\t02773838\n")
+    ids = []
+    for c, syn in enumerate(("02691156", "02773838")):
+        os.makedirs(os.path.join(root, syn))
+        for i in range(2):
+            n = 300 + 50 * i
+            rows = np.concatenate([rng.standard_normal((n, 6)).round(6),
+                                   rng.choice(SHAPENETPART_CLS2PARTS[c],
+                                              (n, 1))], axis=1)
+            np.savetxt(os.path.join(root, syn, f"s{c}{i}.txt"), rows,
+                       fmt="%.6f")
+            ids.append(f"shape_data/{syn}/s{c}{i}")
+    for s in ("train", "val", "test"):
+        with open(os.path.join(root, "train_test_split",
+                               f"shuffled_{s}_file_list.json"), "w") as f:
+            json.dump(ids if s == "test" else [], f)
+    n0 = ops.LAUNCHES["fps_cluster"]
+    ds = ShapeNetPartNormal(data_root=root, num_points=256, split="test",
+                            presample=True, device="cuda")
+    assert ops.LAUNCHES["fps_cluster"] == n0 + 4 == n0 + len(ds)
+    with open(os.path.join(root, "processed", "test_256_fps.pkl"),
+              "rb") as f:
+        pre_data, pre_cls = pickle.load(f)
+    for (_, path), rows in zip(ds.items, pre_data):
+        raw = np.loadtxt(path).astype(np.float32)
+        idx = ops.fps_ref(torch.from_numpy(raw[None, :, :3]), 256)[0]
+        np.testing.assert_array_equal(rows, raw[idx.numpy()])
+    assert [int(c[0]) for c in pre_cls] == [0, 0, 1, 1]

@@ -330,9 +330,9 @@ def _ported(opt, key):
     ("fsdp=True", "fsdp"), _ported("step_per_update=2", "step_per_update"),
     _ported("eval_device_cache=False", "eval_device_cache"),
     _ported("pretrain_encoder_path=/x", "pretrain_encoder_path"),
-    _ported("mode=finetune_encoder", "mode"), ("task=partseg", "task"),
-    ("task=cls", "task"), _ported("model.generator_args={}",
-                                  "model.generator_args"),
+    _ported("mode=finetune_encoder", "mode"),
+    _ported("task=partseg", "task"), _ported("task=cls", "task"),
+    _ported("model.generator_args={}", "model.generator_args"),
     ("model.segmentor_args.depth=2", None),
     ("model.segmentor_args.dtype=bfloat16", "model.segmentor_args.dtype"),
     ("model_t.segmentor_args.dtype=bfloat16",
@@ -352,7 +352,8 @@ def test_unported_switches_are_refused(opt, key):
     """Each switch whose branch the port lacks is refused, naming its key;
     the cases with no key (votes, a teacher of another topology, the semi
     step's branches, ``ema_eval``, the pretraining graft and stage, the
-    cosine schedule) are ported now and pass both checks;
+    cosine schedule, the heritage tasks) are ported now and pass both
+    checks;
     ``tests/test_torch_fast_train.py``, ``tests/test_torch_semi_trainer.py``,
     ``tests/test_torch_ema.py`` and ``tests/test_torch_pretrain.py`` train
     with them."""
@@ -368,11 +369,17 @@ def test_unported_switches_are_refused(opt, key):
 
 
 def test_other_configs_and_reference_files_are_refused(tmp_path):
-    for path, key in (("cfgs/shapenetpart/pointnet2part.yaml", "task"),
-                      ("cfgs/shapenetpart/pointmlppart.yaml", "task"),
-                      ("cfgs/scanobjectnn/dgcnncls.yaml", "task")):
+    # the heritage configs run now (tests/test_torch_heritage_engine.py);
+    # a dataset the port lacks is refused by its key before a run starts
+    for path, opt, key in (
+            ("cfgs/shapenetpart/pointnet2part.yaml",
+             "dataset.common.NAME=ShapeNet55", "dataset.common.NAME"),
+            ("cfgs/shapenetpart/pointmlppart.yaml",
+             "dataset.test.NAME=ShapeNet", "dataset.test.NAME"),
+            ("cfgs/scanobjectnn/dgcnncls.yaml",
+             "dataset.common.NAME=ModelNet40", "dataset.common.NAME")):
         with pytest.raises(NotImplementedError, match=key):
-            ttrain.parse_and_run(["--cfg", os.path.join(ROOT, path),
+            ttrain.parse_and_run(["--cfg", os.path.join(ROOT, path), opt,
                                   f"root_dir={tmp_path}", "device=cpu"])
     assert not os.path.exists(tmp_path / "scanobjectnn")
     # a reference-style .pth that does not convert to the model: as in

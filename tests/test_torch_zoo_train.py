@@ -364,14 +364,14 @@ def test_checkpoint_round_trip_and_bit_exact_resume(tmp_path):
 
 
 @pytest.mark.parametrize("name,opt,key", [
-    ("pointnet2.yaml", "model.NAME=BasePartSeg", "model.NAME"),
+    ("pointnet2.yaml", "model.NAME=WholePartSeg_ntm", "model.NAME"),
     ("pointnet2.yaml", "model.NAME=VariableSeg", "model.NAME"),
     ("pointnet2.yaml", "model.NAME=DistillBaseSeg", "model.NAME"),
-    ("pointnet2.yaml", "model.decoder_args.NAME=PointNet2PartDecoder",
+    ("pointnet2.yaml", "model.decoder_args.NAME=P3Embed",
      "model.decoder_args.NAME"),
     ("pointnet2.yaml", "model.cls_args.NAME=VariableSegHead",
      "model.cls_args.NAME"),
-    ("dgcnn.yaml", "model.encoder_args.NAME=PointMLPEncoder",
+    ("dgcnn.yaml", "model.encoder_args.NAME=PointTransformerEncoder",
      "model.encoder_args.NAME"),
     ("transformer.yaml",
      "model.segmentor_args.NAME=PointTransformer_seg_cluster",
