@@ -1411,6 +1411,10 @@ def phase_train():
     return {"step_ms": step_ms, "peak_mb": peak_mb, "per_step": per_step,
             "grads": grads,
             "compare": compare,
+            # the float64 CPU step (the last of the loop) and its inputs,
+            # which phase 18 holds WholePartSeg_ntm's card step against
+            "semi64_ref": {"cpu": res["cpu"], "cm": state.cm.detach().cpu(),
+                           "lr": lr},
             "cm_batches": counted, "state": state, "pairs": pairs}
 
 
@@ -5313,6 +5317,628 @@ def phase_heritage(bound: Bound):
             "seconds": seconds}
 
 
+# phase 18: the rest of the model registry. The seg variants of the
+# flagship backbone under WholePartSeg_ntm (supervised, cfgs/tooth_sup/
+# transformer.yaml), the semi recipe with WholePartSeg_ntm as student and
+# teacher, BaseCls over the cls-token PointTransformerEncoder on
+# cfgs/scanobjectnn at geot_tpu's defaults, and one forward of each other
+# new name card vs CPU
+REG_VARIANTS = ("cluster", "classifier", "2classifier")
+_REG_FEAT = {"cluster": 64, "classifier": 128, "2classifier": 384}
+_REG_NTM = ("model.NAME=WholePartSeg_ntm", "model_t.NAME=WholePartSeg_ntm")
+# the cls-token encoder at geot_tpu's defaults (transformer.py:556-572)
+# and a ClsHead on its 768 channels
+_REG_CLS_MODEL = {"NAME": "BaseCls",
+                  "encoder_args": {"NAME": "PointTransformerEncoder"},
+                  "cls_args": {"NAME": "ClsHead", "num_classes": 15}}
+# card vs CPU of a float32 forward at the tests' small sizes
+_REG_FWD_TOL = 1e-4
+# the float64 card-vs-CPU steps: one supervised step of a seg variant (the
+# supervised loss reads the logits alone, so the three variants' steps are
+# the same computation but for the cluster head's zero gradients; the
+# cluster variant has the most weights), and one semi step with the
+# default criterion, which reads no T-revision output, so that
+# WholePartSeg_ntm's step is the flagship's and phase 6's float64 CPU step
+# is its reference
+_REG_SUP_CMP = "cluster"
+
+
+def _reg_sup_cfg(variant, *opts):
+    return _zoo_cfg("transformer", "model.NAME=WholePartSeg_ntm",
+                    "model.segmentor_args.NAME=PointTransformer_seg_"
+                    + variant, *opts)
+
+
+def _reg_semi_cfg(criterion_u=None, **over):
+    """The flagship semi recipe with WholePartSeg_ntm as student and
+    teacher: the YAML's settings (``FLAGSHIP_SEMI_CFG`` is the YAML,
+    ``tests/test_torch_train.py``), which the trainer's gate takes."""
+    from geot_tpu_torch import FLAGSHIP_SEMI_CFG
+    from geot_tpu_torch.engine import train as train_mod
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cfgs",
+                        "tooth_semi", "transformer_finetune_fixmatch_ntm.yaml")
+    yaml_cfg = _zoo_cfg_at(path, *_REG_NTM, *(
+        [f"criterion_u_args.NAME={criterion_u}"] if criterion_u else []))
+    train_mod.refuse_unported(yaml_cfg)
+    cfg = dict(FLAGSHIP_SEMI_CFG, **over)
+    if criterion_u:
+        cfg["criterion_u_args"] = dict(cfg["criterion_u_args"],
+                                       NAME=criterion_u)
+    return cfg
+
+
+def _reg_sup_step64(variant, batch_np, lr, dev):
+    """One float64 supervised step of the variant on the batch's first 2
+    clouds on ``dev`` (stochastic depth and dropout off): (loss, name ->
+    the first AdamW moment on the host, seconds)."""
+    import torch
+
+    from geot_tpu_torch.data.build import MODEL_KEYS, to_device
+    from geot_tpu_torch.engine.state import TrainState
+    from geot_tpu_torch.engine.steps import make_supervised_step
+
+    cfg = _reg_sup_cfg(variant, *_ZOO_NO_DROPOUT["transformer"])
+    two = {k: v[:2] for k, v in batch_np.items()}
+    st = TrainState.create(cfg, cfg.model, seed=1, device=dev)
+    st.model.double()
+    b = {k: (v.double() if v.is_floating_point() else v)
+         for k, v in to_device(two, MODEL_KEYS, dev).items()}
+    t = time.perf_counter()
+    m = make_supervised_step(cfg)(st, b, lr)
+    loss = float(m["loss"])
+    return loss, {n: st.opt.state[p]["exp_avg"].detach().cpu()
+                  for n, p in st.model.named_parameters()}, \
+        time.perf_counter() - t
+
+
+def _reg_semi_step64(cm, lr, dev, criterion_u=None,
+                     model_name="WholePartSeg_ntm"):
+    """One float64 semi step of the recipe with ``model_name`` as student
+    and teacher on 1 + 1 + 1 clouds on ``dev``, stochastic depth and
+    dropout off, as phase 6's: (loss terms, name -> first moment, ema_t,
+    seconds)."""
+    import torch
+
+    from geot_tpu_torch import FLAGSHIP_SEG_ARGS
+    from geot_tpu_torch.data.build import (MODEL_KEYS, SEMI_KEYS,
+                                           build_semi_loaders, semi_pairs,
+                                           to_device)
+    from geot_tpu_torch.engine.state import SemiTrainState
+    from geot_tpu_torch.engine.steps import make_semi_step
+
+    cfg = _reg_semi_cfg(criterion_u, batch_size_l=1, batch_size_u=1)
+    seg = dict(FLAGSHIP_SEG_ARGS, drop_path_rate=0.0, head_dropout=0.0)
+    l1, u1 = build_semi_loaders(cfg)
+    for loader in (l1, u1):
+        loader.set_epoch(1)
+    bl, bu = next(semi_pairs(l1, u1, limit=1))
+    st = SemiTrainState.create(cfg, seg_args=seg, seed=1, device=dev,
+                               model_name=model_name)
+    for mod in (st.model, st.teacher, st.t_predictor):
+        mod.double()
+    st.ema_t = st.ema_t.double()
+    st.cm = cm.to(dev, torch.float64)
+    batches = [{k: (v.double() if v.is_floating_point() else v)
+                for k, v in to_device(b, keys, dev).items()}
+               for b, keys in ((bl, MODEL_KEYS), (bu, SEMI_KEYS))]
+    t = time.perf_counter()
+    m = make_semi_step(cfg)(st, *batches, lr, True)
+    terms = {k: float(m[k]) for k in ("loss", "sup_loss", "unsup_loss",
+                                      "threed_loss")}
+    return terms, _adam_grads(st), st.ema_t.double().cpu(), \
+        time.perf_counter() - t
+
+
+def _reg_grad_err(gg, gc):
+    """The worst per-tensor max |d| / max |g| (scale floored at 1e-6 of the
+    largest gradient, as phase 12's)."""
+    gmax = max(float(v.abs().max()) for v in gc.values())
+    errs = {k: float((gg[k].double() - ref.double()).abs().max())
+            / max(float(ref.abs().max()), 1e-6 * gmax)
+            for k, ref in gc.items()}
+    return max(errs.items(), key=lambda kv: kv[1])
+
+
+def _reg_small_models():
+    """The other new names at the tests' small sizes: name -> (model
+    config, inputs)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(18)
+    pos = torch.from_numpy(rng.uniform(-1, 1, (2, 128, 3)).astype(
+        np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, 128, 3)).astype(
+        np.float32))
+    f16 = torch.from_numpy(rng.standard_normal((2, 128, 16)).astype(
+        np.float32))
+    probs = torch.softmax(torch.from_numpy(rng.standard_normal(
+        (2, 16, 17)).astype(np.float32)), -1)
+    enc = {"NAME": "PointNet2Encoder", "in_channels": 3, "width": 8,
+           "layers": 2, "strides": [4, 4], "radius": 0.2, "num_samples": 8,
+           "blocks": [1, 1], "aggr_args": {"feature_type": "dp_fj"}}
+    head = {"NAME": "VariableSegHead", "num_classes": 17, "in_channels": 24}
+    return {
+        "PointTransformerGenEncoder": (
+            {"NAME": "PointTransformerGenEncoder", "num_groups": 16,
+             "group_size": 8, "encoder_dims": 32, "trans_dim": 48,
+             "depth": 2, "num_heads": 4, "radius": 0.4}, (pos,)),
+        "PointPatchEmbed": ({"NAME": "PointPatchEmbed", "sample_ratio": 0.25,
+                             "group_size": 8, "channels": [16, 32],
+                             "in_channels": 3}, (pos, x)),
+        "P3Embed": ({"NAME": "P3Embed", "stages": 2, "sample_ratio": 0.5,
+                     "group_size": 8, "channels": [8, 16]}, (pos,)),
+        "VariableSeg": ({"NAME": "VariableSeg", "encoder_args": enc,
+                         "decoder_args": {"NAME": "PointNet2Decoder"},
+                         "cls_args": head}, (pos, x)),
+        "DistillBaseSeg": ({"NAME": "DistillBaseSeg", "encoder_args": enc,
+                            "decoder_args": {"NAME": "PointNet2Decoder"},
+                            "cls_args": head, "distill_args": {}},
+                           (pos, x)),
+        "MultiSegHead": ({"NAME": "MultiSegHead", "in_channels": 16,
+                          "shape_classes": 4, "num_parts": [2, 3, 4, 2]},
+                         (f16,)),
+        "Ins_T": ({"NAME": "Ins_T", "T_args": {"NAME": "sig_t",
+                                               "nclasses": 17}}, (probs,)),
+    }
+
+
+def _reg_forwards():
+    """Phase 18 (d): one eval forward of each other new name on the card
+    against the CPU from the same seeded weights; ``Gragh_Matching`` must
+    raise. Returns name -> max |d| / max |out| and the launches."""
+    import copy
+
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.core.config import build_model_from_cfg
+    from geot_tpu_torch.models.segmentation.base_seg import init_weights
+
+    out, launches = {}, dict.fromkeys(ops.LAUNCHES, 0)
+    for name, (cfg, args) in _reg_small_models().items():
+        model = init_weights(build_model_from_cfg(cfg),
+                             torch.Generator().manual_seed(18)).eval()
+        card = copy.deepcopy(model).cuda()
+        ops.reset_launches()
+        with torch.no_grad():
+            want = model(*args)
+            got = card(*(a.cuda() for a in args))
+        torch.cuda.synchronize()
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        rel = max(float((g.cpu() - w).abs().max())
+                  / max(float(w.abs().max()), 1e-30)
+                  for g, w in zip(got, want))
+        check(all(g.shape == w.shape for g, w in zip(got, want)),
+              f"{name}: card shapes differ from the CPU's")
+        check(rel <= _REG_FWD_TOL, f"{name} card vs CPU forward: {rel}")
+        out[name] = rel
+    gm = build_model_from_cfg({"NAME": "Gragh_Matching"}).cuda()
+    try:
+        gm(torch.zeros(1, device="cuda"), None, None)
+    except NotImplementedError:
+        out["Gragh_Matching"] = "raises NotImplementedError"
+    else:
+        check(False, "Gragh_Matching did not raise")
+    log("phase 18 (d) card vs CPU forwards, max |d| / max |out|: "
+        + ", ".join(f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in out.items()) + f"; launches {launches}")
+    return out, launches
+
+
+def _reg_inputs():
+    """Phase 18's inputs: 3 batches of ``transformer.yaml``'s loader (4 x
+    16,000 points), epoch 1's learning rate, a class-mean matrix and a
+    served scan with its 16,000-point sample."""
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch.data.build import build_dataloader_from_cfg
+    from geot_tpu_torch.optim import build_scheduler_from_cfg
+
+    cfg = _reg_sup_cfg("cluster")
+    loader = build_dataloader_from_cfg(int(cfg.batch_size_l), cfg.dataset_l,
+                                       cfg.datatransforms, split="train",
+                                       seed=int(cfg.seed))
+    loader.set_epoch(1)
+    it = iter(loader)
+    batches_np = [next(it) for _ in range(3)]
+    rng = np.random.default_rng(18)
+    cm = torch.from_numpy(rng.dirichlet(np.ones(17), 17).astype(np.float32))
+    pts, sample, _, _ = _scan_sample(18)
+    return (batches_np, build_scheduler_from_cfg(cfg)(1), cm, pts,
+            torch.from_numpy(sample)[None])
+
+
+def _reg_variant(variant, batches_np, lr, dev):
+    """Phase 18 (a) on the card: the variant's 1 warm and 2 timed steps at
+    the YAML's batch, launches and peak memory, and for ``_REG_SUP_CMP``
+    its float64 step."""
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.data.build import MODEL_KEYS, to_device
+    from geot_tpu_torch.engine.state import TrainState
+    from geot_tpu_torch.engine.steps import make_supervised_step
+
+    cfg = _reg_sup_cfg(variant)
+    f, k = _ZOO_PER_FORWARD["transformer"]
+    state = TrainState.create(cfg, cfg.model, seed=0, device=dev)
+    step = make_supervised_step(cfg)
+    want = _launch_counts(fps_cluster=f, knn_split=k)
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    step_ms = []
+    for n, b in enumerate(batches_np):
+        b = to_device(b, MODEL_KEYS, dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        m = step(state, b, lr)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        got = dict(ops.LAUNCHES)
+        check(math.isfinite(float(m["loss"])), f"{variant} step {n}: loss "
+              f"{float(m['loss'])}")
+        check(got == want, f"{variant} step {n}: launches {got}, expected "
+              f"{want}")
+        for key, v in got.items():
+            launches[key] += v
+    peak_mb = (torch.cuda.max_memory_allocated() - resident) / 2 ** 20
+    with torch.no_grad():
+        out = state.model.eval()(to_device(batches_np[0], MODEL_KEYS, dev))
+    check(out[3].shape[-1] == _REG_FEAT[variant] and out[1] is None
+          and out[2] is None, f"{variant}: outputs {[type(o) for o in out]}")
+    del state, out
+    torch.cuda.empty_cache()
+    card64 = None
+    if variant == _REG_SUP_CMP:
+        ops.reset_launches()
+        card64 = _reg_sup_step64(variant, batches_np[0], lr, dev)
+        for key, v in ops.LAUNCHES.items():
+            launches[key] += v
+    log(f"{variant}: WholePartSeg_ntm over PointTransformer_seg_{variant}, "
+        f"batch {len(batches_np[0]['pos'])} x "
+        f"{batches_np[0]['pos'].shape[1]}; steps "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} ms (the first warm); "
+        f"launches a step {want}; peak {peak_mb:.0f} MiB above the resident "
+        f"{resident / 2 ** 20:.0f} MiB")
+    return {"step_ms": step_ms, "peak_mb": peak_mb, "launches": launches,
+            "card64": card64}
+
+
+def _reg_semi(cm, lr, dev, ref):
+    """Phase 18 (b) on the card: the semi recipe with WholePartSeg_ntm, 3
+    steps at 2 + 2 + 2 clouds per criterion (2 FPS and 14 kNN launches a
+    step, finite losses), and the float64 step with the default criterion
+    from ``ref``'s class means and learning rate (phase 6's)."""
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.data.build import (MODEL_KEYS, SEMI_KEYS,
+                                           build_semi_loaders, semi_pairs,
+                                           to_device)
+    from geot_tpu_torch.engine.state import SemiTrainState
+    from geot_tpu_torch.engine.steps import make_semi_step
+
+    want = _launch_counts(fps_cluster=2, knn_split=14)
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    recs = {}
+    for crit in (None, "Poly1FocalLoss_U_T_v1"):
+        cfg = _reg_semi_cfg(crit)
+        state = SemiTrainState.create(cfg, seed=0, device=dev,
+                                      model_name="WholePartSeg_ntm")
+        check(type(state.teacher).__name__ == "WholePartSegNTM",
+              "the teacher is not WholePartSeg_ntm")
+        state.cm = cm.to(dev)
+        loader_l, loader_u = build_semi_loaders(cfg)
+        for loader in (loader_l, loader_u):
+            loader.set_epoch(1)
+        step = make_semi_step(cfg)
+        step_ms, losses = [], []
+        for n, (bl, bu) in enumerate(semi_pairs(loader_l, loader_u,
+                                                limit=3)):
+            bl = to_device(bl, MODEL_KEYS, dev)
+            bu = to_device(bu, SEMI_KEYS, dev)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t = time.perf_counter()
+            m = step(state, bl, bu, lr, True)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            got = dict(ops.LAUNCHES)
+            terms = {k: float(m[k]) for k in ("loss", "sup_loss",
+                                              "unsup_loss", "threed_loss")}
+            check(all(math.isfinite(v) for v in terms.values()),
+                  f"semi ntm {crit} step {n}: {terms}")
+            check(got == want, f"semi ntm {crit} step {n}: launches {got}, "
+                  f"expected {want}")
+            for key, v in got.items():
+                launches[key] += v
+            losses.append(terms["loss"])
+        del state
+        torch.cuda.empty_cache()
+        label = crit or "Poly1FocalLoss_U_corr (default)"
+        log(f"semi WholePartSeg_ntm, {label}: steps "
+            f"{', '.join(f'{x:.1f}' for x in step_ms)} ms; losses "
+            f"{', '.join(f'{x:.6f}' for x in losses)}; launches a step "
+            f"{want}")
+        recs[label] = {"step_ms": step_ms, "losses": losses}
+    ops.reset_launches()
+    card64 = _reg_semi_step64(ref["cm"], ref["lr"], dev)
+    for key, v in ops.LAUNCHES.items():
+        launches[key] += v
+    log(f"semi WholePartSeg_ntm, default criterion: float64 step on the "
+        f"card {card64[3]:.1f} s")
+    return recs, card64, launches
+
+
+def _reg_cls(dev):
+    """Phase 18 (c): BaseCls over PointTransformerEncoder at geot_tpu's
+    defaults on cfgs/scanobjectnn/default.yaml (1024 points, batch 32): 1
+    warm and 2 timed steps, then the trainer for 1 epoch from a config this
+    function writes to a temporary file, and ``mode=test`` on its best
+    checkpoint."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.core.config import dump_yaml
+    from geot_tpu_torch.engine import train as train_mod
+    from geot_tpu_torch.engine.state import TrainState
+    from geot_tpu_torch.engine.steps import make_supervised_step
+    from geot_tpu_torch.optim import build_scheduler_from_cfg
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cfgs",
+                        "scanobjectnn", "default.yaml")
+    cfg = _zoo_cfg_at(path, "seed=0")
+    cfg.model = json.loads(json.dumps(_REG_CLS_MODEL))
+    state = TrainState.create(cfg, cfg.model, seed=0, device=dev)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    check(state.model.head.mlp_0.in_features == 768,
+          f"ClsHead on {state.model.head.mlp_0.in_features} channels")
+    batches, batch_fn, steps = _heritage_batches(cfg, 3, dev)
+    step = make_supervised_step(cfg)
+    lr = build_scheduler_from_cfg(cfg)(1)
+    want = _launch_counts(fps_cluster=1, knn_split=0)
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for n, b in enumerate(batches):
+        b = batch_fn(b, dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        m = step(state, b, lr)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        got = dict(ops.LAUNCHES)
+        check(math.isfinite(float(m["loss"])), f"cls-token step {n}")
+        check(got == want, f"cls-token step {n}: launches {got}, expected "
+              f"{want}")
+        for key, v in got.items():
+            launches[key] += v
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    B, N = batches[0]["pos"].shape[:2]
+    del state
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="geot_cls_token_")
+    try:
+        cfg_path = os.path.join(root, "cfgs", "cls_token", "encoder.yaml")
+        os.makedirs(os.path.dirname(cfg_path))
+        with open(cfg_path, "w") as fh:
+            fh.write(dump_yaml(cfg.dict()))
+        common = [f"root_dir={root}/runs", f"device={dev.type}", "seed=0"]
+        ops.reset_launches()
+        t = time.perf_counter()
+        res = train_mod.parse_and_run(["--cfg", cfg_path, "epochs=1",
+                                       "save_freq=1", *common])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        got = dict(ops.LAUNCHES)
+        val_batches = 2
+        want_run = _launch_counts(fps_cluster=steps + val_batches,
+                                  knn_split=0)
+        check(got == want_run, f"cls-token trainer launches {got}, "
+              f"expected {want_run}")
+        best = res["best"]
+        check(math.isfinite(best["oa"]) and 0 <= best["oa"] <= 100,
+              f"cls-token trainer: best {best}")
+        best_ck = [os.path.join(d, x) for d, _, xs in os.walk(root)
+                   for x in xs if "best" in x]
+        check(len(best_ck) == 1, f"cls-token best checkpoints {best_ck}")
+        ops.reset_launches()
+        res_t = train_mod.parse_and_run(["--cfg", cfg_path, "mode=test",
+                                         f"pretrained_path={best_ck[0]}",
+                                         *common])
+        torch.cuda.synchronize()
+        got_t = dict(ops.LAUNCHES)
+        check(got_t == _launch_counts(fps_cluster=val_batches, knn_split=0),
+              f"cls-token mode=test launches {got_t}")
+        diff = max(abs(res_t[k] - best[k]) for k in ("oa", "macc"))
+        check(diff <= 1e-9, f"cls-token mode=test {res_t} vs the run's "
+              f"{best}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for key in launches:
+        launches[key] += got[key] + got_t[key]
+    log(f"cls-token BaseCls over PointTransformerEncoder: {n_params} "
+        f"parameters, batch {B} x {N}; steps "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} ms (the first warm); "
+        f"peak {peak_mb:.0f} MiB; trainer {run_s:.1f} s for {steps} steps "
+        f"and {val_batches} val batches, oa {best['oa']:.4f}; mode=test oa "
+        f"{res_t['oa']:.4f}; launches {launches}")
+    return {"params": n_params, "step_ms": step_ms, "peak_mb": peak_mb,
+            "run_s": run_s, "oa": best["oa"], "launches": launches}
+
+
+def phase_registry(bound: Bound, semi_ref=None):
+    """Phase 18: kernels 1 and 2 at this slice's shapes, then (a) the seg
+    variants, (b) the semi recipe with WholePartSeg_ntm, (c) the cls-token
+    encoder, (d) the other new names, and last the CPU sides of (a): the
+    float64 step and the served sample's forward. The CPU side of (b)'s
+    float64 step is ``semi_ref``, phase 6's float64 CPU step and its
+    inputs (computed here without one)."""
+    import collections
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.engine.predict import load_model, predict_scan
+
+    t_phase = time.perf_counter()
+    log("phase 18: the rest of the model registry at full width")
+    dev = torch.device("cuda")
+    cfg = _reg_sup_cfg("cluster")
+    batches_np, lr, cm, pts, scan = _reg_inputs()
+    if semi_ref is None:
+        terms, grads, ema, _ = _reg_semi_step64(cm, lr, "cpu",
+                                                model_name="WholePartSeg")
+        semi_ref = {"cpu": (terms, grads, ema), "cm": cm, "lr": lr}
+
+    # kernels 1 and 2 at the slice's shapes, counted by shape over the phase
+    x4 = torch.from_numpy(batches_np[0]["pos"]).to(dev).contiguous()
+    fps4, levels4 = _zoo_chain(bound, x4, (8192,))
+    searches, _, _ = _scan_searches(pts, x4, np.zeros(3, np.float32), 1.0)
+    dup = torch.cat([levels4[1][:, :2048], levels4[1][:, :2048]],
+                    dim=1).contiguous()
+    knn4, _ = _kernels_knn(bound, searches[:7], ("ties", dup, dup, 4))
+    x32 = torch.from_numpy(np.random.default_rng(180).standard_normal(
+        (32, 1024, 3)).astype(np.float32)).to(dev)
+    fps32, _ = _zoo_chain(bound, x32, (256,))
+    fps_mod = importlib.import_module("geot_tpu_torch.ops.fps")
+    knn_mod = importlib.import_module("geot_tpu_torch.ops.knn")
+    real_fps, real_knn = fps_mod.fps_cluster, knn_mod.knn_small_k
+    shapes = collections.Counter()
+
+    def fps_counted(xyz, npoint, plan):
+        if xyz.is_cuda:
+            shapes[("fps", xyz.shape[0], xyz.shape[1], npoint)] += 1
+        return real_fps(xyz, npoint, plan)
+
+    def knn_counted(q, s_, k):
+        if q.is_cuda:
+            shapes[("knn", q.shape[0])] += 1
+        return real_knn(q, s_, k)
+
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    fps_mod.fps_cluster, knn_mod.knn_small_k = fps_counted, knn_counted
+    try:
+        variants = {}
+        for v in REG_VARIANTS:
+            variants[v] = _reg_variant(v, batches_np, lr, dev)
+            for key, n in variants[v]["launches"].items():
+                launches[key] += n
+        model = load_model(model_cfg=dict(cfg.model), device=dev)
+        ops.reset_launches()
+        t = time.perf_counter()
+        labels, logits = predict_scan(model, pts, 0)
+        torch.cuda.synchronize()
+        scan_ms = (time.perf_counter() - t) * 1e3
+        check(labels.shape == (len(pts),) and bool(
+            torch.isfinite(logits).all()), "cluster predict_scan")
+        with torch.no_grad():
+            feats = model({"pos": scan.to(dev), "x": scan.to(dev),
+                           "cls": torch.zeros(1, 1, dtype=torch.long,
+                                              device=dev)})
+        torch.cuda.synchronize()
+        for key, n in ops.LAUNCHES.items():
+            launches[key] += n
+        semi, semi64, semi_launches = _reg_semi(cm, lr, dev, semi_ref)
+        cls_token = _reg_cls(dev)
+        for part in (semi_launches, cls_token["launches"]):
+            for key, n in part.items():
+                launches[key] += n
+    finally:
+        fps_mod.fps_cluster, knn_mod.knn_small_k = real_fps, real_knn
+    forwards, fwd_launches = _reg_forwards()
+    for key, n in fwd_launches.items():
+        launches[key] += n
+
+    # card vs CPU: the CPU sides of (a), after the card's work
+    t_cpu = time.perf_counter()
+    v = _REG_SUP_CMP
+    cpu_sup = _reg_sup_step64(v, batches_np[0], lr, "cpu")
+    cpu_model = load_model(model_cfg=dict(cfg.model), device="cpu")
+    with torch.no_grad():
+        t = time.perf_counter()
+        want_out = cpu_model({"pos": scan, "x": scan,
+                              "cls": torch.zeros(1, 1, dtype=torch.long)})
+        cpu_s = time.perf_counter() - t
+    del cpu_model
+    cpu_seconds = time.perf_counter() - t_cpu
+    (lg, gg, sg), (lc, gc, sc) = variants[v]["card64"], cpu_sup
+    rel = abs(lg - lc) / abs(lc)
+    worst = _reg_grad_err(gg, gc)
+    loss_tol, grad_tol = _ZOO_CMP_TOL["transformer"]
+    log(f"{v} card vs CPU float64 step (2 clouds; card {sg:.1f} s, CPU "
+        f"{sc:.1f} s): loss relative {rel:.2e} (bound {loss_tol}); worst "
+        f"per-tensor gradient {worst[0]} {worst[1]:.2e} (bound {grad_tol})")
+    check(rel <= loss_tol, f"{v} card vs CPU loss: {rel}")
+    check(worst[1] <= grad_tol, f"{v} card vs CPU gradients: {worst}")
+    compare = {v: {"loss_rel": rel, "grad_rel": worst[1]}}
+    (lg, gg, eg, sg), (lc, gc, ec) = semi64, semi_ref["cpu"]
+    rel = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lg)
+    worst = _reg_grad_err({k: v for k, v in gg.items()
+                           if k not in _ZERO_GRAD},
+                          {k: v for k, v in gc.items()
+                           if k not in _ZERO_GRAD})
+    ema = float((eg - ec).abs().max())
+    log(f"semi WholePartSeg_ntm card vs WholePartSeg CPU float64 step (1 + "
+        f"1 + 1, default criterion; card {sg:.1f} s): loss terms relative "
+        f"{rel:.2e}; worst per-tensor gradient {worst[0]} {worst[1]:.2e}; "
+        f"ema_t {ema:.2e}")
+    check(rel <= 1e-4, f"semi card vs CPU losses: {rel}")
+    check(worst[1] <= 1e-3, f"semi card vs CPU gradients: {worst}")
+    check(ema <= 1e-6, f"semi card vs CPU ema_t: {ema}")
+    compare["semi"] = {"loss_rel": rel, "grad_rel": worst[1]}
+    f_rel = float((feats[3].cpu() - want_out[3]).abs().max()
+                  / want_out[3].abs().max())
+    l_rel = float((feats[0].cpu() - want_out[0]).abs().max()
+                  / want_out[0].abs().max())
+    agree = float((feats[0].cpu().argmax(-1) == want_out[0].argmax(-1))
+                  .float().mean())
+    log(f"cluster predict_scan: {scan_ms:.1f} ms for a {len(pts)}-point "
+        f"scan; its 16,000-point forward card vs CPU ({cpu_s:.1f} s): "
+        f"64-d features max |d| / max {f_rel:.2e}, logits {l_rel:.2e}, "
+        f"argmax agreement {agree:.5f}")
+    check(feats[3].shape == (1, 16000, 64), "cluster features' shape")
+    check(f_rel <= 1e-3 and l_rel <= 1e-3 and agree >= 0.999,
+          f"cluster card vs CPU: features {f_rel}, logits {l_rel}, argmax "
+          f"{agree}")
+    compare["predict_cluster"] = {"feat_rel": f_rel, "logit_rel": l_rel,
+                                  "argmax": agree}
+    by_shape = {"fps_4x16000_8192": shapes[("fps", 4, 16000, 8192)],
+                "fps_32x1024_256": shapes[("fps", 32, 1024, 256)],
+                "knn_B4": shapes[("knn", 4)]}
+    seconds = time.perf_counter() - t_phase
+    log("phase 18 step ms (2 timed): " + "; ".join(
+        f"{v} {r['step_ms'][1]:.1f} / {r['step_ms'][2]:.1f}"
+        for v, r in variants.items()) + "; semi " + "; ".join(
+        f"{k} {r['step_ms'][1]:.1f} / {r['step_ms'][2]:.1f}"
+        for k, r in semi.items()) + f"; cls-token "
+        f"{cls_token['step_ms'][1]:.1f} / {cls_token['step_ms'][2]:.1f}")
+    log(f"phase 18: {seconds:.1f} s (the CPU sides {cpu_seconds:.1f} s); "
+        f"launches {launches}; at the slice's kernel shapes {by_shape}")
+    return {"kernels": {"fps_4x16000": fps4, "knn_4x16000": knn4,
+                        "fps_32x1024": fps32},
+            "variants": variants, "semi": semi, "cls_token": cls_token,
+            "forwards": forwards, "compare": compare, "launches": launches,
+            "launches_by_shape": by_shape, "seconds": seconds,
+            "cpu_seconds": cpu_seconds}
+
+
 # --dp-step-ms: phase 14's two-rank flagship trainer (gloo, both ranks on
 # one card, the global batch 2 + 2 + 2 at 16,000 points) for 8 steps, in
 # each checkout given, in the order given: to compare two commits on one
@@ -5519,6 +6145,7 @@ def main() -> int:
     pretrain = phase_pretrain(Bound(limit_w), smi)
     switches = phase_switches(Bound(limit_w), train)
     heritage = phase_heritage(Bound(limit_w))
+    registry = phase_registry(Bound(limit_w), train["semi64_ref"])
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
     # launches on the main paths: 3 served scans, the train run (2 cm
@@ -5538,7 +6165,8 @@ def main() -> int:
         f"parallel {export_dp['launches']}, pretraining and the graft "
         f"{pretrain['launches']}, the trainer's other switches "
         f"{switches['launches']}, the heritage tasks "
-        f"{heritage['launches']}")
+        f"{heritage['launches']}, the rest of the registry "
+        f"{registry['launches']}")
 
     def entry(name, replaces, source=None):
         return {"name": name, "route": "cuda",
@@ -5554,7 +6182,8 @@ def main() -> int:
                              + export_dp["launches"][name]
                              + pretrain["launches"][name]
                              + switches["launches"][name]
-                             + heritage["launches"][name]),
+                             + heritage["launches"][name]
+                             + registry["launches"][name]),
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
                 "launches_trainer_run": trainer["launches"][name],
@@ -5568,6 +6197,7 @@ def main() -> int:
                 "launches_pretrain_and_graft": pretrain["launches"][name],
                 "launches_trainer_switches": switches["launches"][name],
                 "launches_heritage_tasks": heritage["launches"][name],
+                "launches_registry_rest": registry["launches"][name],
                 "library_ms": None, **recs[name]}
 
     kernels = [
@@ -5665,6 +6295,25 @@ def main() -> int:
          "launches": sum(heritage["launches_by_shape"]["knn_decoder"]
                          .values()),
          **heritage["kernels"]["knn_decoder"]},
+        # kernels 1 and 2 at the rest of the registry's shapes (phase 18):
+        # the seg variants' FPS at (4, 16000) -> 8192 and their 7 searches
+        # at B = 4, and the cls-token encoder's FPS at (32, 1024) -> 256;
+        # launches at those shapes in phase 18
+        {"name": "fps_cluster_seg_variants_4x16000_8192", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/fps_cluster.cu",
+         "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
+         "launches": registry["launches_by_shape"]["fps_4x16000_8192"],
+         **registry["kernels"]["fps_4x16000"]},
+        {"name": "knn_split_seg_variants_4x16000_7_searches",
+         "route": "cuda", "source": "geot_tpu_torch/csrc/knn_split.cu",
+         "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
+         "launches": registry["launches_by_shape"]["knn_B4"],
+         **registry["kernels"]["knn_4x16000"]},
+        {"name": "fps_cluster_cls_token_32x1024_256", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/fps_cluster.cu",
+         "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
+         "launches": registry["launches_by_shape"]["fps_32x1024_256"],
+         **registry["kernels"]["fps_32x1024"]},
     ]
     # every kernel of the paths ran in this run
     for kname in ("fps_cluster", "knn_split", *UPSAMPLE):

@@ -242,9 +242,11 @@ def convert_torch_seg_t(state_dict: Dict[str, Any], depth: int = 12
     414 convert_torch_seg_t``, then ``params_from_jax``): the entries
     ``geot_tpu`` reads, under the same names, Conv1d/Conv2d k = 1 weights
     (out, in, 1[, 1]) as Linear weights (out, in), BatchNorm counters 0.
-    A missing entry raises ``KeyError``; ``reduce_dim`` and the NTM head
-    (``T_linear``, ``T_revision``, ``sigma``) are taken when present, and
-    everything else in the file is ignored."""
+    A missing entry raises ``KeyError``; ``reduce_dim``, the NTM head
+    (``T_linear``, ``T_revision``, ``sigma``) and the cluster variant's
+    projection (``proj_{i}``, ``proj_bn_{i}``: the port's names, so that a
+    state_dict file of that variant converts to itself) are taken when
+    present, and everything else in the file is ignored."""
     sd = {_strip_prefixes(k): v for k, v in state_dict.items()}
     out: Dict[str, torch.Tensor] = {}
     pfx = "segmentor."
@@ -296,13 +298,18 @@ def convert_torch_seg_t(state_dict: Dict[str, Any], depth: int = 12
     if pfx + "T_linear.weight" in sd:
         for name in ("T_linear.weight", "T_revision.weight", "sigma"):
             out[pfx + name] = _as_float(sd[pfx + name])
+    if pfx + "proj_0.weight" in sd:
+        for i in range(3):
+            dense(f"proj_{i}")
+            bn(f"proj_bn_{i}")
     return out
 
 
 def seg_t_depth(model_cfg: Dict[str, Any]) -> Optional[int]:
-    """The transformer depth of a ``WholePartSeg`` config (the seg_T family,
-    whose weights a reference ``.pth`` holds); None for other models."""
-    if model_cfg.get("NAME") != "WholePartSeg":
+    """The transformer depth of a ``WholePartSeg`` or ``WholePartSeg_ntm``
+    config (the seg_T family, whose weights a reference ``.pth`` holds);
+    None for other models."""
+    if model_cfg.get("NAME") not in ("WholePartSeg", "WholePartSeg_ntm"):
         return None
     return int((model_cfg.get("segmentor_args") or {}).get("depth", 12))
 

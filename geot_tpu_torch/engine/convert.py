@@ -1,10 +1,10 @@
 """Weights and train state from ``geot_tpu`` to the port.
 
 ``params_from_jax`` takes the JAX package's ``{"params", "batch_stats"}``
-tree of a ``WholePartSeg``, ``BaseSeg``, ``PointMLPPartSegmentor`` or
-``ViewGenBase`` (nested dicts of numpy arrays; no JAX needed) and returns
-the port's ``state_dict``, running statistics included.
-``t_params_from_jax`` does the same for the ``Ins_T_mean`` T-predictor;
+tree of a model (nested dicts of numpy arrays; no JAX needed) and returns
+the port's ``state_dict``, running statistics included; a leaf it cannot
+place raises, naming it. ``t_params_from_jax`` does the same for the
+``Ins_T_mean`` and ``Ins_T`` T-predictors;
 ``state_from_jax`` for a supervised or pretraining ``TrainState``: the
 weights, the EMA shadow and, from a full-state checkpoint, the optax
 optimizer state (``opt_state_from_jax``) and ``step``; and
@@ -92,14 +92,33 @@ def _float(a) -> torch.Tensor:
         a, dtype=np.float64 if a.dtype == np.float64 else np.float32))
 
 
+# the raw parameters (not a layer's kernel, bias or scale) of geot_tpu's
+# models: PointMLP's affine, the cls-token encoders' token and position,
+# sig_t's and sig_t_mean's matrices; the seg_T family's T_linear,
+# T_revision and sigma sit at the segmentor's root
+_RAW = ("affine_alpha", "affine_beta", "cls_token", "cls_pos", "fc")
+_SEG_T_ROOT = ("T_linear", "T_revision", "sigma")
+
+
+def _unplaced(path: str, names) -> ValueError:
+    leaves = ", ".join(f"{path}/{n}" if path else n for n in sorted(names))
+    return ValueError(f"no place in the port for the leaves {leaves}")
+
+
 def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``geot_tpu`` model variables -> port ``state_dict``, in float32
-    (float64 leaves stay float64). The model is a ``WholePartSeg`` (the
-    flagship or ``PointTransformer_seg``), a ``BaseSeg``, a
+    (float64 leaves stay float64). The model is a ``WholePartSeg`` or
+    ``WholePartSeg_ntm`` (over any ``PointTransformer_seg*``), a
+    ``BaseSeg``, ``DistillBaseSeg``, ``VariableSeg`` or ``BasePartSeg``
+    (with any head), a ``BaseCls`` (the cls-token encoders included), a
     ``PointMLPPartSegmentor``, a ``ViewGenBase`` (any encoder, generator
-    and decoder) or a generation encoder; their port modules carry the
-    flax names, but for the transformer trunk's renames. Convolution
-    kernels (H, W, in, out) become OIHW weights."""
+    and decoder), one of their encoders, a patch embedding or ``sig_t``;
+    their port modules carry the flax names, but for the transformer
+    trunk's renames. Convolution kernels (H, W, in, out) become OIHW
+    weights. A leaf that has no place in the port (a layer with leaves
+    other than its own, a raw parameter the port's models lack, running
+    statistics without their normalisation) raises ``ValueError`` naming
+    it."""
     params = variables["params"]
     trunks = (("",) if "pos_embed" in params else ("segmentor/",) + (
         ("encoder/",) if "pos_embed" in (params.get("encoder") or {})
@@ -110,36 +129,57 @@ def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     def put(key, arr):
         sd[key] = _float(arr)
 
+    placed_stats = set()
     for path, leaves in _walk(params):
         if path == "segmentor":   # T_linear / T_revision / sigma
+            if set(leaves) - set(_SEG_T_ROOT):
+                raise _unplaced(path, set(leaves) - set(_SEG_T_ROOT))
             for name, arr in leaves.items():
                 put(f"segmentor.{name}" if name == "sigma"
                     else f"segmentor.{name}.weight", arr)
             continue
         mod = _module_name(path, trunks)
         if "kernel" in leaves:    # Dense, Conv, ConvTranspose
+            if set(leaves) - {"kernel", "bias"}:
+                raise _unplaced(path, set(leaves) - {"kernel", "bias"})
             kernel = np.asarray(leaves["kernel"])
             put(f"{mod}.weight", kernel.transpose(3, 2, 0, 1)
                 if kernel.ndim == 4 else kernel.T)
             if "bias" in leaves:
                 put(f"{mod}.bias", leaves["bias"])
         elif "scale" in leaves:   # a normalisation
+            if set(leaves) - {"scale", "bias"}:
+                raise _unplaced(path, set(leaves) - {"scale", "bias"})
             put(f"{mod}.weight", leaves["scale"])
             put(f"{mod}.bias", leaves["bias"])
             if path in stats_by_path:  # BatchNorm
                 put(f"{mod}.running_mean", stats_by_path[path]["mean"])
                 put(f"{mod}.running_var", stats_by_path[path]["var"])
                 sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
+                placed_stats.add(path)
         else:                     # raw parameters (affine_alpha, ...)
+            if set(leaves) - set(_RAW):
+                raise _unplaced(path, set(leaves) - set(_RAW))
             for name, arr in leaves.items():
-                put(f"{mod}.{name}", arr)
+                put(f"{mod}.{name}" if mod else name, arr)
+    if set(stats_by_path) - placed_stats:
+        path = sorted(set(stats_by_path) - placed_stats)[0]
+        raise _unplaced(f"batch_stats/{path}", stats_by_path[path])
     return sd
 
 
 def t_params_from_jax(t_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """``Ins_T_mean`` params (``{"T_predictor": {"fc": (C, 2C, C)}}``) ->
-    the port's ``InsTMean`` state_dict; the layout is the same."""
-    return {"T_predictor.fc": _float(t_params["T_predictor"]["fc"])}
+    """``Ins_T_mean`` or ``Ins_T`` params (``{"T_predictor": {"fc": ...}}``:
+    ``sig_t_mean``'s (C, 2C, C) or ``sig_t``'s (C C, C)) -> the port's
+    ``InsTMean`` / ``InsT`` state_dict; the layouts are the same. Any other
+    leaf raises ``ValueError`` naming it."""
+    pred = t_params.get("T_predictor")
+    if set(t_params) != {"T_predictor"} or not isinstance(pred, dict) \
+            or set(pred) != {"fc"}:
+        names = [f"T_predictor/{k}" for k in (pred or {}) if k != "fc"] + [
+            k for k in t_params if k != "T_predictor"]
+        raise _unplaced("", names or ["T_predictor/fc (missing)"])
+    return {"T_predictor.fc": _float(pred["fc"])}
 
 
 # per-parameter trees of the optax states the port converts: field ->

@@ -160,26 +160,29 @@ class SemiTrainState(_Shadowed):
     def create(cls, cfg: Dict[str, Any],
                seg_args: Optional[Dict[str, Any]] = None, seed: int = 0,
                device: "str | torch.device" = "cuda",
-               teacher_args: Optional[Dict[str, Any]] = None
-               ) -> "SemiTrainState":
-        """Student ``WholePartSeg(seg_args)`` (the flagship by default) and
-        the T-predictor of ``cfg`` with weights drawn from ``seed``; the
-        teacher ``WholePartSeg(teacher_args)`` (the student's arguments by
-        default: ``geot_tpu/engine/train.py:335`` builds ``model_t`` or
-        else ``model``) with the student's initial weights, whose names do
-        not depend on the topology; the masks' generator seeded with
+               teacher_args: Optional[Dict[str, Any]] = None,
+               model_name: str = "WholePartSeg",
+               teacher_name: Optional[str] = None) -> "SemiTrainState":
+        """Student ``model_name(seg_args)`` (``WholePartSeg`` or
+        ``WholePartSeg_ntm``; the flagship by default) and the
+        T-predictor of ``cfg`` with weights drawn from ``seed``; the
+        teacher ``teacher_name(teacher_args)`` (the student's name and
+        arguments by default: ``geot_tpu/engine/train.py:335`` builds
+        ``model_t`` or else ``model``) with the student's initial weights,
+        whose names do not depend on the topology; the masks' generator
+        seeded with
         ``seed``; the bank's rows drawn on the CPU from ``seed + 7``; under
         ``cfg["ema_eval"]`` the shadow, a copy of the initial weights; all
         on ``device``."""
         device = resolve_device(device)
         seg_args = seg_args or FLAGSHIP_SEG_ARGS
-        model = build_model_from_cfg({"NAME": "WholePartSeg",
+        model = build_model_from_cfg({"NAME": model_name,
                                       "segmentor_args": seg_args})
         init_weights(model, torch.Generator().manual_seed(seed))
         t_predictor = build_model_from_cfg(cfg["t_predictor"])
         init_weights(t_predictor, torch.Generator().manual_seed(seed + 2))
         model, t_predictor = model.to(device), t_predictor.to(device)
-        teacher = build_model_from_cfg({"NAME": "WholePartSeg",
+        teacher = build_model_from_cfg({"NAME": teacher_name or model_name,
                                         "segmentor_args": teacher_args or
                                         seg_args}).to(device)
         teacher.load_state_dict(model.state_dict())

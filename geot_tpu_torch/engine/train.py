@@ -16,7 +16,8 @@ line runs on the CPU; the default is the card, and without one it raises.
 
 A config with ``dataset_u`` and ``criterion_u_args`` runs semi-supervised
 (``semi_mode``, ``geot_tpu/engine/train.py:177``): a ``SemiTrainState``
-of a ``WholePartSeg`` student. A model with ``generator_args`` (a
+of a ``WholePartSeg`` or ``WholePartSeg_ntm`` student (and teacher) over
+``PointTransformer_seg_T``. A model with ``generator_args`` (a
 ``ViewGenBase``, ``cfgs/tooth_pretrain/viewgen.yaml``) runs GeoT's
 pretraining stage, ``engine.pretrain.main``. ``task: cls`` runs
 classification (``engine.cls.main``) and ``task: partseg`` part
@@ -24,11 +25,13 @@ segmentation (``engine.partseg.main``), the heritage tasks of
 ``cfgs/scanobjectnn`` and ``cfgs/shapenetpart`` (``geot_tpu/engine/
 train.py:767-774``), through ``engine.taskloop``. Any other trains
 supervised:
-a ``TrainState`` of ``cfg.model`` (``WholePartSeg``, ``BaseSeg`` or
-``PointMLPPartSegmentor``), no teacher, T-predictor, NTM or ``cm``, and
-every epoch supervised. ``pretrain_encoder_path`` (a pretraining
-checkpoint or its run directory) grafts the pretrained encoder trunk into
-the model before training (``engine.checkpoint.load_pretrain_encoder``);
+a ``TrainState`` of ``cfg.model`` (``WholePartSeg`` or ``WholePartSeg_ntm``
+over any ``PointTransformer_seg*``, ``BaseSeg``, ``DistillBaseSeg``,
+``VariableSeg`` or ``PointMLPPartSegmentor``), no teacher, T-predictor,
+NTM or ``cm``, and every epoch supervised. ``pretrain_encoder_path`` (a
+pretraining checkpoint or its run directory) grafts the pretrained encoder
+trunk into the model before training
+(``engine.checkpoint.load_pretrain_encoder``);
 in semi mode the teacher starts from the grafted student. A ``plateau``
 schedule is fed each validation's selected ``whole_miou``.
 
@@ -95,6 +98,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import inspect
 import json
 import logging
 import os
@@ -130,8 +134,14 @@ from .writer import SummaryWriter, Wandb
 
 EVAL_MODES = ("val", "test", "eval", "testing", "evaluation")
 # the model NAMEs the trainer builds (cfg.model.NAME)
-TRAINED_MODELS = ("WholePartSeg", "BaseSeg", "PointMLPPartSegmentor",
+TRAINED_MODELS = ("WholePartSeg", "WholePartSeg_ntm", "BaseSeg",
+                  "DistillBaseSeg", "VariableSeg", "PointMLPPartSegmentor",
                   "ViewGenBase", "BaseCls", "DistillCls", "BasePartSeg")
+# the semi recipe's student and teacher wrappers, and the segmentor whose
+# forward gives the NTM update its sigma (geot_tpu/engine/semi.py:114-134
+# fails without one)
+SEMI_MODELS = ("WholePartSeg", "WholePartSeg_ntm")
+SEMI_SEGMENTOR = "PointTransformer_seg_T"
 # the config sections that name datasets
 DATASET_KEYS = ("dataset", "dataset_l", "dataset_u")
 
@@ -239,40 +249,125 @@ def _draw_seed(device) -> int:
 
 
 def refuse_unported(cfg) -> None:
-    """Raise ``NotImplementedError`` naming the first switch of ``cfg``
-    whose branch of ``geot_tpu``'s trainer the port lacks, or a compute
-    ``dtype`` other than float32 in a training mode; a model or dataset
-    name the port's registries lack is named by its dotted key."""
+    """Raise ``NotImplementedError`` naming the first key of ``cfg`` that
+    the port does not train: a switch whose branch of ``geot_tpu``'s
+    trainer the port lacks, a compute ``dtype`` other than float32 in a
+    training mode, a model or dataset name the port's registries lack, or
+    a combination that ``geot_tpu``'s own trainer fails on (a model name
+    in a role it cannot fill, an argument its module does not take, a
+    semi-supervised model without the NTM's ``sigma``). ``parse_and_run``
+    calls it before it makes a run directory."""
     model = cfg.get("model") or {}
     model_t = cfg.get("model_t") or {}
     mode = str(cfg.get("mode") or "train")
     training = mode not in EVAL_MODES
+    semi = semi_mode(cfg)
 
     def reduced(m):
         dtype = (m.get("segmentor_args") or {}).get("dtype")
         return dtype not in (None, "float32")
 
-    refused = {
-        "model.segmentor_args.dtype": training and reduced(model),
-        "model_t.segmentor_args.dtype": training and reduced(model_t),
-        "tp": int(cfg.get("tp", 1) or 1) > 1,
-        "sp": int(cfg.get("sp", 1) or 1) > 1,
-        "fsdp": bool(cfg.get("fsdp")),
-        "model.NAME": (model.get("NAME") not in TRAINED_MODELS
-                       or (semi_mode(cfg)
-                           and model.get("NAME") != "WholePartSeg")),
-        "model_t.NAME": model_t.get("NAME", "WholePartSeg") != "WholePartSeg",
-        **{k: True for k in _unported_names(model, "model")},
-        **{k: True for k in _unported_names(model_t, "model_t")},
-        **{k: True for key in DATASET_KEYS
-           for k in _unported_datasets(cfg.get(key), key)},
-    }
-    on = [k for k, v in refused.items() if v]
+    port = "not ported"
+    refused = [
+        ("model.segmentor_args.dtype", training and reduced(model), port),
+        ("model_t.segmentor_args.dtype", training and reduced(model_t),
+         port),
+        ("tp", int(cfg.get("tp", 1) or 1) > 1, port),
+        ("sp", int(cfg.get("sp", 1) or 1) > 1, port),
+        ("fsdp", bool(cfg.get("fsdp")), port),
+        ("model.NAME", model.get("NAME") not in TRAINED_MODELS
+         or (semi and model.get("NAME") not in SEMI_MODELS), port),
+        ("model_t.NAME", model_t.get("NAME", "WholePartSeg") not in
+         SEMI_MODELS, port),
+        *((k, True, port) for k in _unported_names(model, "model")),
+        *((k, True, port) for k in _unported_names(model_t, "model_t")),
+        *((k, True, port) for key in DATASET_KEYS
+          for k in _unported_datasets(cfg.get(key), key)),
+        *((f"{key}.segmentor_args.NAME", True,
+           "geot_tpu's NTM update needs the segmentor's sigma")
+          for key, m in (("model", model), ("model_t", model_t))
+          if semi and m.get("NAME") in SEMI_MODELS
+          and (m.get("segmentor_args") or {}).get("NAME") != SEMI_SEGMENTOR),
+        ("t_predictor.NAME", semi and (cfg.get("t_predictor") or {}).get(
+            "NAME") != "Ins_T_mean",
+         "the semi step calls the T-predictor with (softmax, cm)"),
+        *((k, True, why) for k, why in _misplaced(model, "model",
+                                                   training)),
+        *((k, True, "geot_tpu's module takes no such argument")
+          for k in _unknown_args(model, "model")),
+    ]
+    on = [(k, why) for k, v, why in refused if v]
     if on:
+        key, why = on[0]
         raise NotImplementedError(
-            f"not ported: {on[0]}={_get(cfg, on[0])!r} (the port trains "
+            f"{why}: {key}={_get(cfg, key)!r} (the port trains "
             f"{', '.join(TRAINED_MODELS)} in float32, data parallel "
-            f"only, semi-supervised only WholePartSeg)")
+            f"only; semi-supervised {' or '.join(SEMI_MODELS)} over "
+            f"{SEMI_SEGMENTOR} with Ins_T_mean)")
+
+
+# the compositions whose encoder gives per-level features, and those whose
+# encoder gives one global feature
+_SEG_COMPOSITIONS = ("BaseSeg", "BasePartSeg", "DistillBaseSeg",
+                     "VariableSeg")
+_CLS_COMPOSITIONS = ("BaseCls", "DistillCls")
+
+
+def _misplaced(model, prefix: str, training: bool):
+    """(dotted key, reason) of each model name that ``cfg.model``'s
+    composition cannot use where it stands, judged from the port's
+    classes (the same roles as ``geot_tpu``'s): a seg composition's
+    encoder needs ``forward_seg_feat``, its decoder an
+    ``encoder_channel_list``, and a trained head (B, N, C) logits (not
+    ``MultiSegHead``'s stack: ``geot_tpu``'s ``MultiShapeCrossEntropy``
+    fails on its loader's (B, 1) categories, and its evaluation indexes
+    the stack's first axis as the batch); a cls composition's encoder a
+    global ``forward_cls_feat`` (not the token encoders' (tokens,
+    centers))."""
+    from ..core.config import MODELS
+    from .. import models  # noqa: F401  (registers the model classes)
+
+    def cls_of(key):
+        return MODELS.get((model.get(key) or {}).get("NAME"))
+
+    name = model.get("NAME")
+    enc, dec, head = (cls_of("encoder_args"), cls_of("decoder_args"),
+                      cls_of("cls_args"))
+    if name in _SEG_COMPOSITIONS:
+        if enc is not None and not hasattr(enc, "forward_seg_feat"):
+            yield (f"{prefix}.encoder_args.NAME",
+                   "the encoder gives no per-level features")
+        if dec is not None and "encoder_channel_list" not in \
+                inspect.signature(dec).parameters:
+            yield f"{prefix}.decoder_args.NAME", "it is not a decoder"
+        if head is not None and training and getattr(head, "STACKED",
+                                                     False):
+            yield (f"{prefix}.cls_args.NAME", "geot_tpu's trainer cannot "
+                   "train a per-category stack of logits")
+    if name in _CLS_COMPOSITIONS and enc is not None and not getattr(
+            enc, "GLOBAL_CLS_FEAT", hasattr(enc, "forward_cls_feat")):
+        yield (f"{prefix}.encoder_args.NAME",
+               "the encoder gives no global feature")
+
+
+def _unknown_args(tree, prefix: str):
+    """The dotted keys of the arguments that a named module of the model
+    config does not take (a module that takes ``**kwargs`` takes any;
+    ``generator_args`` is the trainer's key for the pretraining stage)."""
+    from ..core.config import MODELS
+    from .. import models  # noqa: F401  (registers the model classes)
+
+    cls = MODELS.get((tree or {}).get("NAME"))
+    if cls is not None:
+        params = inspect.signature(cls).parameters
+        if not any(p.kind is p.VAR_KEYWORD for p in params.values()):
+            for key in tree:
+                if key not in params and key not in (
+                        "NAME", "pretrained_path", "generator_args"):
+                    yield f"{prefix}.{key}"
+    for key, value in (tree or {}).items():
+        if isinstance(value, dict):
+            yield from _unknown_args(value, f"{prefix}.{key}")
 
 
 def semi_mode(cfg) -> bool:
@@ -516,7 +611,9 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
         state = SemiTrainState.create(
             cfg, seg_args=dict(cfg.model.segmentor_args), seed=seed,
             device=device, teacher_args=(dict(model_t.segmentor_args)
-                                         if model_t else None))
+                                         if model_t else None),
+            model_name=cfg.model.NAME,
+            teacher_name=model_t.NAME if model_t else None)
     else:
         state = TrainState.create(cfg, cfg.model, seed=seed, device=device)
     pep = cfg.get("pretrain_encoder_path")

@@ -5,21 +5,33 @@ from .backbone.pointmlp import (PointMLPEncoder, PointMLPEncoderV2,
                                 PointMLPGenEncoder, PointMLPPartSegmentor)
 from .backbone.pointnetv2 import (PointNet2Decoder, PointNet2Encoder,
                                   PointNet2GenEncoder, PointNet2PartDecoder)
-from .backbone.transformer import (PointTransformerGenEncoder,
-                                   PointTransformerSeg, PointTransformerSegT,
-                                   SigTMean)
+from .backbone.transformer import (GraghMatching, PointTransformerEncoder,
+                                   PointTransformerGenEncoder,
+                                   PointTransformerGenEncoderSeg,
+                                   PointTransformerSeg,
+                                   PointTransformerSeg2Classifier,
+                                   PointTransformerSegClassifier,
+                                   PointTransformerSegCluster,
+                                   PointTransformerSegT, SigT, SigTMean)
+from .layers.patch_embed import P3Embed, PointPatchEmbed
 from .generation.view_gen import (ViewDecoder, ViewDecoderBig, ViewDecoderDS,
                                   ViewGenBase, ViewTransformer)
 from .classification.cls_base import BaseCls, ClsHead, DistillCls
-from .segmentation.base_seg import (BasePartSeg, BaseSeg, InsTMean, SegHead,
-                                    WholePartSeg)
+from .segmentation.base_seg import (BasePartSeg, BaseSeg, DistillBaseSeg,
+                                    InsT, InsTMean, MultiSegHead, SegHead,
+                                    VariableSeg, VariableSegHead,
+                                    WholePartSeg, WholePartSegNTM)
 
 __all__ = ["BaseCls", "BasePartSeg", "BaseSeg", "ClsHead", "DGCNN",
-           "DGCNNGenEncoder", "DistillCls", "InsTMean", "PointMLPEncoder",
-           "PointMLPEncoderV2", "PointMLPGenEncoder", "PointMLPPartSegmentor",
-           "PointNet2Decoder", "PointNet2Encoder", "PointNet2GenEncoder",
-           "PointNet2PartDecoder",
-           "PointTransformerGenEncoder", "PointTransformerSeg",
-           "PointTransformerSegT", "SegHead", "SigTMean", "ViewDecoder",
-           "ViewDecoderBig", "ViewDecoderDS", "ViewGenBase",
-           "ViewTransformer", "WholePartSeg"]
+           "DGCNNGenEncoder", "DistillBaseSeg", "DistillCls",
+           "GraghMatching", "InsT", "InsTMean", "MultiSegHead", "P3Embed",
+           "PointMLPEncoder", "PointMLPEncoderV2", "PointMLPGenEncoder",
+           "PointMLPPartSegmentor", "PointNet2Decoder", "PointNet2Encoder",
+           "PointNet2GenEncoder", "PointNet2PartDecoder", "PointPatchEmbed",
+           "PointTransformerEncoder", "PointTransformerGenEncoder",
+           "PointTransformerGenEncoderSeg", "PointTransformerSeg",
+           "PointTransformerSeg2Classifier", "PointTransformerSegClassifier",
+           "PointTransformerSegCluster", "PointTransformerSegT", "SegHead",
+           "SigT", "SigTMean", "VariableSeg", "VariableSegHead",
+           "ViewDecoder", "ViewDecoderBig", "ViewDecoderDS", "ViewGenBase",
+           "ViewTransformer", "WholePartSeg", "WholePartSegNTM"]

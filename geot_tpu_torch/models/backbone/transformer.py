@@ -1,11 +1,16 @@
-"""Point Transformer seg backbone, the GeoT flagship, and its instance
-transition-matrix predictor ``SigTMean``.
+"""Point Transformer seg backbone, the GeoT flagship, its seg variants,
+encoders and transition-matrix predictors.
 
-Counterpart of ``geot_tpu/models/backbone/transformer.py:33-469``
-(``_PointTransformerSegBase`` with ``with_T`` on or off, head mode "plain",
-the exact or the serving topology, float32 or bfloat16 compute) and
-``:651`` (``SigTMean``), and the pretraining stage's encoder
-``PointTransformer_genencoder`` (``:517-552``). In training mode
+Counterpart of ``geot_tpu/models/backbone/transformer.py``:
+``_PointTransformerSegBase`` (``:292-514``: ``with_T`` on or off, head
+mode "plain", "cluster" or "classifier", the exact or the serving
+topology, float32 or bfloat16 compute) under the names
+``PointTransformer_seg_T``, ``_seg``, ``_seg_2classifier``,
+``_seg_cluster`` and ``_seg_classifier``; the pretraining stage's encoder
+``PointTransformer_genencoder`` (``:517-552``); the cls-token encoders
+``PointTransformerGenEncoder`` and ``PointTransformerEncoder``
+(``:556-626``); ``sig_t`` and ``sig_t_mean`` (``:629, 651``); and the
+``Gragh_Matching`` stub (``:680``). In training mode
 (``module.train()``) BatchNorm uses batch statistics and updates its
 running ones as flax does, and stochastic depth (rate ``drop_path_rate *
 i / (depth - 1)`` in block i) and the seg head's dropout draw their masks
@@ -36,6 +41,7 @@ from ...ops import (fps, fps_stratified, gather_points, grouping_operation,
 from ..layers import (GELU, BatchNorm, Dense, DropPath, Dropout, DtypeArg,
                       GroupNorm, LayerNorm, LeakyReLU, MlpBlock, SharedMLP,
                       as_dtype, rounded, softmax)
+from ..layers.group_embed import GroupTokenizer, SubsampleGroup
 
 
 class MiniPointNetEncoder(nn.Module):
@@ -113,10 +119,11 @@ class Block(nn.Module):
 class TransformerStack(nn.Module):
     """Block stack; the position embedding is re-added before every block
     and the outputs of the blocks in ``extract_layers`` (1-based) are
-    returned."""
+    returned (untapped: ``extract_layers=None``)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
-                 drop_path_rate: float, extract_layers: Sequence[int],
+                 drop_path_rate: float,
+                 extract_layers: Optional[Sequence[int]],
                  dtype: DtypeArg = None):
         super().__init__()
         dpr = ([float(drop_path_rate)] if depth == 1 else
@@ -124,16 +131,20 @@ class TransformerStack(nn.Module):
         self.blocks = nn.ModuleList(Block(dim, num_heads, drop_path=dpr[i],
                                           dtype=dtype)
                                     for i in range(depth))
-        self.extract_layers = tuple(extract_layers)
+        self.extract_layers = (None if extract_layers is None
+                               else tuple(extract_layers))
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
+        """The taps, or the last block's output when ``extract_layers``
+        is None."""
         taps = []
         for i, block in enumerate(self.blocks):
             x = block(x + pos, generator)
-            if i + 1 in self.extract_layers:
+            if self.extract_layers is not None and \
+                    i + 1 in self.extract_layers:
                 taps.append(x)
-        return taps
+        return x if self.extract_layers is None else taps
 
 
 class PosEmbed(nn.Sequential):
@@ -142,25 +153,6 @@ class PosEmbed(nn.Sequential):
 
     def __init__(self, dim: int):
         super().__init__(Dense(3, 128), GELU(), Dense(128, dim))
-
-
-def group_tokens(pts: torch.Tensor, npoint: int, num_group: int,
-                 group_size: int, fps_pts: Optional[torch.Tensor] = None):
-    """The tokenizer's groups: FPS of ``npoint`` points of ``pts`` (unless
-    ``fps_pts`` gives them), whose first ``num_group`` are the centers,
-    and each center's ``group_size`` nearest points less the center.
-    Returns ``(fps_pts (B, npoint, 3), center (B, num_group, 3),
-    neighborhood (B, num_group, group_size, 3))``. The flagship takes
-    ``npoint`` = its largest pyramid level, so one FPS run gives the
-    centers and the pyramid; the generation encoder takes ``num_group``
-    (``geot_tpu/models/layers/group_embed.py:60-65``)."""
-    if fps_pts is None:
-        # the FPS kernel reads float32 coordinates whatever the dtype
-        fps_pts = gather_points(pts, fps(pts.float().contiguous(), npoint))
-    center = fps_pts[:, :num_group]
-    _, knn_idx = knn(center, pts, group_size)
-    neighborhood = grouping_operation(pts, knn_idx) - center[:, :, None, :]
-    return fps_pts, center, neighborhood
 
 
 class FeaturePropagation(nn.Module):
@@ -224,6 +216,9 @@ class DGCNNPropagation(nn.Module):
         return self.layer2(h2).amax(dim=2)
 
 
+HEAD_MODES = ("plain", "cluster", "classifier")
+
+
 @register_model("PointTransformer_seg_T")
 class PointTransformerSegT(nn.Module):
     """The GeoT flagship segmentor. ``forward`` returns
@@ -243,7 +238,15 @@ class PointTransformerSegT(nn.Module):
     indices. ``dtype`` ("bfloat16", "float32", None) is the compute dtype
     of the layers that ``geot_tpu`` gives one (``models.layers``);
     parameters stay float32, and FPS and every neighbour search read
-    float32 coordinates."""
+    float32 coordinates.
+
+    ``head_mode`` (``geot_tpu``'s ``:310, 415-440``) sets the fourth
+    output: "plain" the decoder's features ``f_l0``; "cluster" a 64-d
+    contrast projection of them (``proj_{i}`` + ``proj_bn_{i}``, 128, 128,
+    64, ReLU between, none after the last), taken before the serving
+    order's un-permute so it follows the logits' rows; "classifier" the
+    log-softmax of the logits times the detached seg head's last weight
+    (128, C), each class's column L2-normalised (+1e-12): (B, N, 128)."""
 
     def __init__(self, trans_dim: int = 384, depth: int = 12,
                  drop_path_rate: float = 0.1, nclasses: int = 17,
@@ -254,11 +257,15 @@ class PointTransformerSegT(nn.Module):
                  head_dropout: float = 0.5,
                  fast_pyramid: Union[bool, int] = False,
                  fast_graph: bool = False, dtype: DtypeArg = None,
-                 with_T: bool = True):
+                 with_T: bool = True, head_mode: str = "plain"):
         super().__init__()
+        if head_mode not in HEAD_MODES:
+            raise ValueError(f"head_mode {head_mode!r}; expected one of "
+                             f"{HEAD_MODES}")
         D = trans_dim
         self.num_group = num_group
-        self.group_size = group_size
+        self.tokenizer = GroupTokenizer(num_group, group_size)
+        self.head_mode = head_mode
         self.downsample_targets = tuple(downsample_targets)
         self.fast_pyramid = fast_pyramid
         self.fast_graph = bool(fast_graph)
@@ -279,6 +286,12 @@ class PointTransformerSegT(nn.Module):
                                       BatchNorm(128, dtype=dtype),
                                       Dropout(head_dropout),
                                       Dense(128, nclasses))
+        if head_mode == "cluster":
+            width = D
+            for i, c in enumerate((128, 128, 64)):
+                self.add_module(f"proj_{i}", Dense(width, c))
+                self.add_module(f"proj_bn_{i}", BatchNorm(c))
+                width = c
         self.with_T = with_T
         if with_T:
             # T_revision is in the reference checkpoint but unused in
@@ -309,8 +322,11 @@ class PointTransformerSegT(nn.Module):
             # ONE FPS run (greedy selections are incremental)
             max_n = max(max(self.downsample_targets), self.num_group)
             fps_pts = None
-        fps_pts, center, neighborhood = group_tokens(
-            pts, max_n, self.num_group, self.group_size, fps_pts)
+        if fps_pts is None:
+            # the FPS kernel reads float32 coordinates whatever the dtype
+            fps_pts = gather_points(pts, fps(pts.float().contiguous(),
+                                             max_n))
+        neighborhood, center, _ = self.tokenizer.group(pts, fps_pts)
         tokens = self.encoder(neighborhood)
         if self.reduce_dim is not None:
             tokens = self.reduce_dim(tokens)
@@ -335,8 +351,24 @@ class PointTransformerSegT(nn.Module):
                                   c[0].shape[1] if perm is not None else None)
         head = self.seg_head
         logit = head[3](head[2](head[1](head[0](f_l0)), generator))
+        feats = f_l0
+        if self.head_mode == "classifier":
+            # class prototypes: the last layer's kernel (128, C), detached,
+            # each column L2-normalised, weighted by the log-softmax
+            proto = head[3].weight.detach().T
+            proto = proto / (torch.linalg.vector_norm(proto, dim=0,
+                                                      keepdim=True) + 1e-12)
+            feats = torch.log_softmax(logit, dim=-1) @ proto.T
         # logits in at least float32 (geot_tpu casts to float32, for bf16)
         logit = logit.to(torch.promote_types(logit.dtype, torch.float32))
+        if self.head_mode == "cluster":
+            h = f_l0
+            for i in range(3):
+                h = getattr(self, f"proj_bn_{i}")(
+                    getattr(self, f"proj_{i}")(h))
+                if i < 2:
+                    h = torch.relu(h)
+            feats = h
         if perm is not None:
             # back to the caller's point order: the inverse permutation is
             # a scatter of iota
@@ -344,12 +376,12 @@ class PointTransformerSegT(nn.Module):
                 1, perm.long(), torch.arange(N, device=perm.device)
                 .expand(B, N))
             logit = gather_points(logit, inv)
-            f_l0 = gather_points(f_l0, inv)
+            feats = gather_points(feats, inv)
 
         if not self.with_T:
-            return logit, None, None, f_l0
+            return logit, None, None, feats
         correction = self.T_linear(T) if T is not None else None
-        return logit, correction, self.sigma, f_l0
+        return logit, correction, self.sigma, feats
 
 
 @register_model("PointTransformer_seg")
@@ -360,8 +392,30 @@ def PointTransformerSeg(**kwargs) -> PointTransformerSegT:
     return PointTransformerSegT(with_T=False, **kwargs)
 
 
+@register_model("PointTransformer_seg_2classifier")
+def PointTransformerSeg2Classifier(**kwargs) -> PointTransformerSegT:
+    """``PointTransformer_seg``'s forward (the reference never wired its
+    second classifier; ``transformer.py:495-499``)."""
+    return PointTransformerSegT(with_T=False, **kwargs)
+
+
+@register_model("PointTransformer_seg_cluster")
+def PointTransformerSegCluster(**kwargs) -> PointTransformerSegT:
+    """The seg backbone with the 64-d contrast projection as its features
+    (``head_mode="cluster"``, ``transformer.py:502-506``)."""
+    return PointTransformerSegT(with_T=False, head_mode="cluster", **kwargs)
+
+
+@register_model("PointTransformer_seg_classifier")
+def PointTransformerSegClassifier(**kwargs) -> PointTransformerSegT:
+    """The seg backbone with class-prototype features from the seg head's
+    weights (``head_mode="classifier"``, ``transformer.py:509-514``)."""
+    return PointTransformerSegT(with_T=False, head_mode="classifier",
+                                **kwargs)
+
+
 @register_model("PointTransformer_genencoder")
-class PointTransformerGenEncoder(nn.Module):
+class PointTransformerGenEncoderSeg(nn.Module):
     """The flagship's trunk as the pretraining stage's point encoder
     (``geot_tpu/models/backbone/transformer.py:517-552``): FPS to
     ``num_group`` centers, kNN groups, the mini-PointNet, the block stack;
@@ -373,6 +427,9 @@ class PointTransformerGenEncoder(nn.Module):
     does not read (``nclasses``, ``downsample_targets``) are taken, as in
     ``geot_tpu``."""
 
+    # forward_cls_feat gives tokens and centers, no global feature
+    GLOBAL_CLS_FEAT = False
+
     def __init__(self, trans_dim: int = 384, depth: int = 12,
                  drop_path_rate: float = 0.1, num_heads: int = 4,
                  group_size: int = 32, num_group: int = 512,
@@ -381,8 +438,7 @@ class PointTransformerGenEncoder(nn.Module):
                  nclasses: int = 17,
                  downsample_targets: Sequence[int] = (8192, 4096, 2048)):
         super().__init__()
-        self.num_group = num_group
-        self.group_size = group_size
+        self.tokenizer = GroupTokenizer(num_group, group_size)
         self.encoder = MiniPointNetEncoder(encoder_dims)
         self.reduce_dim = (Dense(encoder_dims, trans_dim)
                            if encoder_dims != trans_dim else None)
@@ -394,8 +450,7 @@ class PointTransformerGenEncoder(nn.Module):
     def forward(self, p, f0: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
         pts = (p["pos"] if isinstance(p, dict) else p).contiguous()
-        _, center, neighborhood = group_tokens(
-            pts, self.num_group, self.num_group, self.group_size)
+        neighborhood, center, _ = self.tokenizer(pts)
         tokens = self.encoder(neighborhood)
         if self.reduce_dim is not None:
             tokens = self.reduce_dim(tokens)
@@ -405,6 +460,115 @@ class PointTransformerGenEncoder(nn.Module):
     def forward_cls_feat(self, p, f0: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None):
         return self(p, f0, generator)
+
+
+class _ClsTokenEncoder(nn.Module):
+    """The cls-token encoders' body (``geot_tpu/models/backbone/
+    transformer.py:556-598``): ``SubsampleGroup`` (FPS to ``num_groups``
+    centers, ball-query or kNN groups of ``group_size``), the
+    mini-PointNet, ``reduce_dim`` to ``trans_dim``, a learnt ``cls_token``
+    and ``cls_pos`` before the group tokens, an untapped block stack and
+    ``norm``. ``encode`` returns (the normed tokens (B, 1 + G, D), the
+    centers (B, G, 3)). ``in_channels`` is taken and not read, as in
+    ``geot_tpu``."""
+
+    def __init__(self, num_groups: int = 256, group_size: int = 32,
+                 subsample: str = "fps", group: str = "ballquery",
+                 radius: float = 0.1, encoder_dims: int = 256,
+                 trans_dim: int = 384, drop_path_rate: float = 0.1,
+                 depth: int = 12, num_heads: int = 6, in_channels: int = 3):
+        super().__init__()
+        self.grouper = SubsampleGroup(num_groups, group_size, subsample,
+                                      group, radius)
+        self.encoder = MiniPointNetEncoder(encoder_dims)
+        self.reduce_dim = Dense(encoder_dims, trans_dim)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, trans_dim))
+        self.cls_pos = nn.Parameter(torch.empty(1, 1, trans_dim))
+        self.pos_embed = PosEmbed(trans_dim)
+        self.blocks = TransformerStack(trans_dim, depth, num_heads,
+                                       drop_path_rate, None)
+        self.norm = LayerNorm(trans_dim, eps=1e-5)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """``cls_token`` zeros and ``cls_pos`` N(0, 1), as ``geot_tpu``
+        draws them."""
+        with torch.no_grad():
+            self.cls_token.zero_()
+            self.cls_pos.normal_(generator=generator)
+
+    def encode(self, pts: torch.Tensor,
+               generator: Optional[torch.Generator] = None):
+        neighborhood, center = self.grouper(pts)
+        tokens = self.reduce_dim(self.encoder(neighborhood))
+        B, _, D = tokens.shape
+        x = torch.cat([self.cls_token.expand(B, 1, D), tokens], dim=1)
+        pos = torch.cat([self.cls_pos.expand(B, 1, D),
+                         self.pos_embed(center)], dim=1)
+        return self.norm(self.blocks(x, pos, generator)), center
+
+    def forward_cls_feat(self, p, f0: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None):
+        return self(p, f0, generator)
+
+
+@register_model("PointTransformerGenEncoder")
+class PointTransformerGenEncoder(_ClsTokenEncoder):
+    """``forward`` returns (the tokens without the cls token (B, G, D),
+    the centers (B, G, 3)) (``transformer.py:601-612``)."""
+
+    GLOBAL_CLS_FEAT = False
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.out_channels = self.reduce_dim.out_features
+
+    def forward(self, p, x: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        pts = p["pos"] if isinstance(p, dict) else p
+        out, center = self.encode(pts, generator)
+        return out[:, 1:], center
+
+
+@register_model("PointTransformerEncoder")
+class PointTransformerEncoder(_ClsTokenEncoder):
+    """``forward`` returns [the cls token ; the max over the group tokens],
+    (B, 2 D) (``transformer.py:615-626``)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.out_channels = 2 * self.reduce_dim.out_features
+
+    def forward(self, p, f0: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        pts = p["pos"] if isinstance(p, dict) else p
+        out, _ = self.encode(pts, generator)
+        return torch.cat([out[:, 0], out[:, 1:].amax(dim=1)], dim=-1)
+
+
+@register_model("sig_t")
+class SigT(nn.Module):
+    """A global transition matrix from softmax outputs
+    (``transformer.py:629-647``): ``fc`` (C C, C) (the reference's
+    ``fc.weight`` layout, init 0.1 / C) maps each point's (C,) softmax to
+    a (C, C) matrix, clipped to [1e-5, 1 - 1e-5] and row-normalised.
+    ``forward(x (B, N, C)) -> (B N, C, C)``."""
+
+    def __init__(self, nclasses: int = 17):
+        super().__init__()
+        self.nclasses = nclasses
+        self.fc = nn.Parameter(torch.empty(nclasses * nclasses, nclasses))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.fc.fill_(0.1 / self.nclasses)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        C = self.nclasses
+        out = (x.reshape(-1, C).to(self.fc.dtype) @ self.fc.T)
+        out = out.reshape(-1, C, C).clamp(1e-5, 1 - 1e-5)
+        return out / out.sum(dim=2, keepdim=True)
 
 
 @register_model("sig_t_mean")
@@ -438,3 +602,22 @@ class SigTMean(nn.Module):
         const = torch.einsum("kc,kcd->kd", cm, w2)
         ins_t = (data + const[None]).clamp(1e-5, 1 - 1e-5)
         return ins_t / ins_t.sum(dim=2, keepdim=True)
+
+
+@register_model("Gragh_Matching")
+class GraghMatching(nn.Module):
+    """The registry's ``Gragh_Matching`` (``transformer.py:680-694``): the
+    reference class is unfinished (its ``forward`` is ``pass``), so, as in
+    ``geot_tpu``, the surface is kept and a call raises."""
+
+    def __init__(self, in_channels: int = 128, nclasses: int = 17,
+                 sample_nums: int = 1024):
+        super().__init__()
+        self.in_channels = in_channels
+        self.nclasses = nclasses
+        self.sample_nums = sample_nums
+
+    def forward(self, feat_s, feat_t, label_t):
+        raise NotImplementedError(
+            "Gragh_Matching is an unfinished stub in the reference "
+            "(forward is `pass`); kept only for registry parity.")

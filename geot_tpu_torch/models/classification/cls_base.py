@@ -11,6 +11,7 @@ global feature (``cls_channels`` where the encoder has one, else its
 """
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, Optional, Sequence
 
 import torch
@@ -59,11 +60,16 @@ class _ClsBase(nn.Module):
                         self.encoder.out_channels)
         self.head = (build_model_from_cfg(dict(cls_args, in_channels=width))
                      if cls_args is not None else None)
+        # an encoder with stochastic depth (the cls-token encoders) takes
+        # the masks' generator
+        self._gen = "generator" in inspect.signature(
+            self.encoder.forward_cls_feat).parameters
 
     def _feat_and_logits(self, p0, f0, generator):
         if isinstance(p0, dict):
             p0, f0 = p0["pos"], p0.get("x")
-        g = self.encoder.forward_cls_feat(p0, f0)
+        g = (self.encoder.forward_cls_feat(p0, f0, generator=generator)
+             if self._gen else self.encoder.forward_cls_feat(p0, f0))
         return g, (self.head(g, generator) if self.head is not None else g)
 
 

@@ -14,7 +14,8 @@ from .fps import (FpsPlan, bucket_capacity, cluster_exchange, fps,
                   fps_bucket_size, fps_cluster, fps_gather, fps_plan, fps_ref,
                   fps_stratified)
 from .group import gather_points, grouping_operation
-from .interpolate import three_interpolate, three_interpolation, three_nn
+from .interpolate import (three_interpolate, three_interpolation, three_nn,
+                          three_nn_weights)
 from .knn import (KnnPrunedPlan, knn, knn_pruned_order, knn_pruned_plan,
                   knn_pruned_prepare, knn_pruned_prepare_ref, knn_route,
                   knn_small_k, knn_small_k_pruned, knn_small_k_pruned_ref,
@@ -29,7 +30,7 @@ __all__ = ["LAUNCHES", "reset_launches", "ball_query", "FpsPlan",
            "fps_plan",
            "fps_ref", "fps_stratified", "gather_points",
            "grouping_operation", "three_interpolate", "three_interpolation",
-           "three_nn", "KnnPrunedPlan", "knn",
+           "three_nn", "three_nn_weights", "KnnPrunedPlan", "knn",
            "knn_pruned_order", "knn_pruned_plan", "knn_pruned_prepare",
            "knn_pruned_prepare_ref",
            "knn_small_k", "knn_small_k_pruned",

@@ -1267,3 +1267,94 @@ def test_presample_on_the_card(cuda, tmp_path):
         idx = ops.fps_ref(torch.from_numpy(raw[None, :, :3]), 256)[0]
         np.testing.assert_array_equal(rows, raw[idx.numpy()])
     assert [int(c[0]) for c in pre_cls] == [0, 0, 1, 1]
+
+
+# --- the rest of the model registry -----------------------------------------
+
+_SEG_VARIANT_FEAT = {"PointTransformer_seg_cluster": 64,
+                     "PointTransformer_seg_classifier": 128,
+                     "PointTransformer_seg_2classifier": 48}
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast_pyramid"])
+@pytest.mark.parametrize("name", sorted(_SEG_VARIANT_FEAT))
+def test_seg_variant_on_the_card_matches_the_cpu(cuda, name, fast):
+    """``WholePartSeg_ntm`` over each seg variant: logits and features on
+    the card against the CPU from the same weights, and the forward's
+    launches counted."""
+    seg = dict(SMALL_ARGS, NAME=name, drop_path_rate=0.0, fast_pyramid=fast)
+    model = load_model(model_cfg={"NAME": "WholePartSeg_ntm",
+                                  "segmentor_args": seg}, device="cpu")
+    card = load_model(model_cfg={"NAME": "WholePartSeg_ntm",
+                                 "segmentor_args": seg}, device=cuda)
+    pos = _cloud(3, (2, 256, 3))
+    batch = {"pos": pos, "x": pos, "cls": torch.tensor([[0], [1]])}
+    with torch.no_grad():
+        want = model(batch)
+        ops.reset_launches()
+        got = card({k: v.to(cuda) for k, v in batch.items()})
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    # one FPS (the serving order's prefix when fast); the searches with
+    # 128 queries or more take the split kernel, the others the tiled path
+    assert counts.get("fps_cluster") == 1 and set(counts) == {
+        "fps_cluster", "knn_split"}, counts
+    assert got[1] is None and got[2] is None
+    assert got[3].shape == (2, 256, _SEG_VARIANT_FEAT[name])
+    for g, w in ((got[0], want[0]), (got[3], want[3])):
+        rel = float((g.cpu() - w).abs().max() / w.abs().max())
+        assert rel <= 1e-4, (name, rel)
+
+
+def test_rest_of_the_registry_on_the_card_matches_the_cpu(cuda):
+    """One eval forward of each other new name on the card against the
+    CPU: the cls-token encoders, the patch embeddings, ``VariableSeg`` and
+    ``DistillBaseSeg``, ``MultiSegHead``, ``Ins_T`` over ``sig_t``; and
+    ``Gragh_Matching`` raises on the card too."""
+    import copy
+
+    from geot_tpu_torch.core.config import build_model_from_cfg
+    from geot_tpu_torch.models.segmentation.base_seg import init_weights
+
+    pos, x = _cloud(4, (2, 128, 3)), _cloud(5, (2, 128, 3))
+    enc = {"NAME": "PointNet2Encoder", "in_channels": 3, "width": 8,
+           "layers": 2, "strides": [4, 4], "radius": 0.2, "num_samples": 8,
+           "blocks": [1, 1], "aggr_args": {"feature_type": "dp_fj"}}
+    head = {"NAME": "VariableSegHead", "num_classes": 17, "in_channels": 24}
+    token = {"num_groups": 16, "group_size": 8, "encoder_dims": 32,
+             "trans_dim": 48, "depth": 2, "num_heads": 4, "radius": 0.4}
+    cases = [
+        ({"NAME": "PointTransformerEncoder", **token}, (pos,)),
+        ({"NAME": "PointTransformerGenEncoder", **token, "group": "knn"},
+         (pos,)),
+        ({"NAME": "PointPatchEmbed", "sample_ratio": 0.25, "group_size": 8,
+          "channels": [16, 32], "in_channels": 3}, (pos, x)),
+        ({"NAME": "P3Embed", "stages": 2, "sample_ratio": 0.5,
+          "group_size": 8, "channels": [8, 16]}, (pos,)),
+        ({"NAME": "VariableSeg", "encoder_args": enc,
+          "decoder_args": {"NAME": "PointNet2Decoder"}, "cls_args": head},
+         (pos, x)),
+        ({"NAME": "DistillBaseSeg", "encoder_args": enc,
+          "decoder_args": {"NAME": "PointNet2Decoder"}, "cls_args": head},
+         (pos, x)),
+        ({"NAME": "MultiSegHead", "in_channels": 3, "shape_classes": 4,
+          "num_parts": [2, 3, 4, 2]}, (x,)),
+        ({"NAME": "Ins_T", "T_args": {"NAME": "sig_t", "nclasses": 17}},
+         (torch.softmax(_cloud(6, (2, 16, 17)), -1),)),
+    ]
+    for cfg, args in cases:
+        model = init_weights(build_model_from_cfg(cfg),
+                             torch.Generator().manual_seed(0)).eval()
+        card = copy.deepcopy(model).to(cuda)
+        with torch.no_grad():
+            want = model(*args)
+            got = card(*(a.to(cuda) for a in args))
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape, cfg["NAME"]
+            rel = float((g.cpu() - w).abs().max() / w.abs().max())
+            assert rel <= 1e-4, (cfg["NAME"], rel)
+    with pytest.raises(NotImplementedError):
+        build_model_from_cfg({"NAME": "Gragh_Matching"}).to(cuda)(
+            None, None, None)

@@ -399,8 +399,8 @@ def test_heritage_tasks_are_no_longer_refused(tmp_path):
         ttrain.refuse_unported(cfg)
     with pytest.raises(FileNotFoundError, match="pretrained_path"):
         ttrain.parse_and_run(_args("cls_pointnet2", tmp_path, "mode=test"))
-    for opt, key in (("model.cls_args.NAME=VariableSegHead",
-                      "model.cls_args.NAME"), ("tp=2", "tp")):
+    for opt, key in (("dataset.common.NAME=ShapeNet55",
+                      "dataset.common.NAME"), ("tp=2", "tp")):
         with pytest.raises(NotImplementedError, match=key):
             ttrain.parse_and_run(_args("part_pointnet2", tmp_path / "r", opt))
     assert not os.path.exists(tmp_path / "r")

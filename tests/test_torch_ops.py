@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from geot_tpu import ops as jops
@@ -144,6 +145,45 @@ def test_three_interpolation_matches_jax(rng):
     d_e, i_e = jops.three_nn(jnp.asarray(unknown), jnp.asarray(known))
     np.testing.assert_array_equal(i.numpy(), np.asarray(i_e))
     np.testing.assert_allclose(d.numpy(), np.asarray(d_e), rtol=0, atol=1e-6)
+
+
+def test_three_interpolation_float64_matches_compiled_geot_tpu(rng):
+    """The 3-NN weights are float32 in a float64 step, bit-equal to those
+    of ``geot_tpu``'s compiled ``three_interpolation`` (its squared
+    distances FMA-contracted, its square root correctly rounded, its two
+    divisions folded into one). Weights in float64, or from the search's
+    own distances, differ from them in the last bit, and at a max over
+    neighbours whose top two are closer than that they route the gradient
+    to another neighbour (``tests/test_torch_registry_rest_engine.py``'s
+    ``ntm-T`` case)."""
+    unknown = rng.uniform(-1, 1, (4, 128, 3)).astype(np.float32)
+    known = rng.uniform(-1, 1, (4, 64, 3)).astype(np.float32)
+    known[:, :10] = unknown[:, :10]            # coincident points: d = 0
+    feats = rng.standard_normal((4, 64, 48))
+    got = ops.three_interpolation(_t(unknown), _t(known),
+                                  torch.from_numpy(feats)).numpy()
+    _, i = ops.three_nn(_t(unknown), _t(known))
+    w = ops.three_nn_weights(_t(unknown), _t(known), i)
+
+    def weights(u, k):
+        dist, _ = jops.three_nn(u, k)
+        dist_recip = 1.0 / (dist + 1e-8)
+        return dist_recip / jnp.sum(dist_recip, axis=2, keepdims=True)
+
+    jax.config.update("jax_enable_x64", True)
+    try:
+        _, i_j = jax.jit(jops.three_nn)(jnp.asarray(unknown),
+                                        jnp.asarray(known))
+        w_j = jax.jit(weights)(jnp.asarray(unknown), jnp.asarray(known))
+        want = jax.jit(jops.three_interpolation)(
+            jnp.asarray(unknown), jnp.asarray(known), jnp.asarray(feats))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_j))
+    assert w.dtype == torch.float32 and want.dtype == jnp.float64
+    np.testing.assert_array_equal(w.numpy(), np.asarray(w_j))
+    # float64 sums of float32-weighted terms (XLA fuses them into FMAs)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-12, atol=1e-14)
 
 
 # --- the build and the wrappers' CPU behaviour -----------------------------

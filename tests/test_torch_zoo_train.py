@@ -363,30 +363,47 @@ def test_checkpoint_round_trip_and_bit_exact_resume(tmp_path):
     assert state.step == saved["step"] == 6
 
 
-@pytest.mark.parametrize("name,opt,key", [
-    ("pointnet2.yaml", "model.NAME=WholePartSeg_ntm", "model.NAME"),
-    ("pointnet2.yaml", "model.NAME=VariableSeg", "model.NAME"),
-    ("pointnet2.yaml", "model.NAME=DistillBaseSeg", "model.NAME"),
-    ("pointnet2.yaml", "model.decoder_args.NAME=P3Embed",
-     "model.decoder_args.NAME"),
-    ("pointnet2.yaml", "model.cls_args.NAME=VariableSegHead",
-     "model.cls_args.NAME"),
-    ("dgcnn.yaml", "model.encoder_args.NAME=PointTransformerEncoder",
-     "model.encoder_args.NAME"),
-    ("transformer.yaml",
-     "model.segmentor_args.NAME=PointTransformer_seg_cluster",
-     "model.segmentor_args.NAME"),
-    ("pointnet2.yaml", "criterion_u_args.NAME=Poly1FocalLoss_U_corr",
-     None)])
-def test_unported_model_names_are_refused(name, opt, key, tmp_path):
-    """A model NAME anywhere in ``cfg.model`` that ``geot_tpu``'s registry
-    has and the port's lacks is refused by its dotted key before a run
-    directory is made; a semi-supervised config (``dataset_u`` and
-    ``criterion_u_args``) must name ``WholePartSeg``."""
+def _case(name, opt, key, want):
+    """A case under the id its parameters had when every name of it was
+    refused as unported."""
+    return pytest.param(name, opt, want, id=f"{name}-{opt}-{key}")
+
+
+@pytest.mark.parametrize("name,opt,want", [
+    _case("pointnet2.yaml", "model.NAME=WholePartSeg_ntm", "model.NAME",
+          "model.encoder_args"),
+    _case("pointnet2.yaml", "model.NAME=VariableSeg", "model.NAME", None),
+    _case("pointnet2.yaml", "model.NAME=DistillBaseSeg", "model.NAME", None),
+    _case("pointnet2.yaml", "model.decoder_args.NAME=P3Embed",
+          "model.decoder_args.NAME", "model.decoder_args.NAME"),
+    _case("pointnet2.yaml", "model.cls_args.NAME=VariableSegHead",
+          "model.cls_args.NAME", "model.cls_args.mlps"),
+    _case("dgcnn.yaml", "model.encoder_args.NAME=PointTransformerEncoder",
+          "model.encoder_args.NAME", "model.encoder_args.NAME"),
+    _case("transformer.yaml",
+          "model.segmentor_args.NAME=PointTransformer_seg_cluster",
+          "model.segmentor_args.NAME", None),
+    _case("pointnet2.yaml", "criterion_u_args.NAME=Poly1FocalLoss_U_corr",
+          None, "model.NAME")])
+def test_unported_model_names_are_refused(name, opt, want, tmp_path):
+    """Every model name of ``geot_tpu``'s registry is now the port's: a
+    combination ``geot_tpu``'s trainer trains passes ``refuse_unported``
+    and its train state builds (``want`` None); one it cannot train (a
+    name in a role it cannot fill, an argument its module does not take,
+    a semi-supervised config without ``WholePartSeg`` or
+    ``WholePartSeg_ntm``: ``tests/test_torch_registry_rest_gate.py``) is
+    refused by its dotted key ``want`` before a run directory is made."""
     extra = [opt]
-    if key is None:
+    if opt.startswith("criterion_u_args"):
         extra.append("dataset_u.common.NAME=TeethSegSemiUDataset")
-        key = "model.NAME"
-    with pytest.raises(NotImplementedError, match=key):
+    if want is None:
+        cfg = zoo_cfg("torch", name, *extra)
+        ttrain.refuse_unported(cfg)
+        state = TrainState.create(cfg, cfg.model, seed=0, device="cpu")
+        m = make_supervised_step(cfg)(state, _tbatch(zoo_batches(cfg, 1)[0]),
+                                      1e-3)
+        assert np.isfinite(float(m["loss"]))
+        return
+    with pytest.raises(NotImplementedError, match=want):
         ttrain.parse_and_run(_cfg_args(name, tmp_path, *extra))
     assert not os.path.exists(tmp_path / "tooth_sup")
