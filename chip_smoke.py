@@ -254,6 +254,28 @@ Phases, each printed with the seconds elapsed when it starts:
    temporary directory: ``presample`` on the card (rows at ``fps_ref``'s
    indices), then ``pointnet2part.yaml`` on it for 1 epoch. Prints its
    seconds.
+19. the reference layer and op API (``ops.compat``, the layer surface,
+   VoteNet's SA modules). The main path with the launch counts at 0: (a)
+   ``pointops`` / ``openpoints_pointops`` / ``pointnet2_utils`` at the
+   flagship scan's shapes, (2, 16000): ``knn`` at k = 3 and 16, ``fps``
+   and ``furthest_point_sample`` -> 512, ``fps_weight`` -> 512,
+   ``queryandgroup`` and ``querygroup`` at nsample 32, ``interpolation``
+   at k = 3 and 6, ``three_nn``, ``subtraction`` and ``aggregation`` at
+   nsample 16 and C = 64; (b) VoteNet's four SA levels
+   (``VOTENET_SA``) over ``PointnetSAModuleVotes`` at batch 8 x 20,000
+   points, a warm and 2 timed forward + backward with peak memory; (c)
+   DeepGCN's 2 ``ResDynBlock``s (64 channels, k 16, 8 x 4,096 points)
+   the same way. Launches, counted part by part: the compat calls 2
+   ``fps_cluster`` and 3 ``knn_split``, VoteNet 12 ``fps_cluster``,
+   DeepGCN none; no other kernel.
+   Then the compat searches and FPS and VoteNet's FPS chain bit-equal to
+   their plain versions, timed kernel-only beside their bounds; float64
+   card against CPU on 2 clouds (``REF64_RTOL``): VoteNet's SA levels,
+   ``ASSA``, ``KMeansEmbed`` (256 groups, width 256) and
+   ``TransformerEncoder`` (384 wide, depth 12, 6 heads, 256 tokens), and
+   DeepGCN's rows (``DEEPGCN_ROWS_AGREE``: its feature search is float32
+   on both); (d) the native ``grid_subsample`` of a 150,000-point scan
+   against numpy, both timed. Prints its seconds.
 Phase 3 also holds ``fps_cluster`` at the serving topology's prefix,
 (1|6, 16000) -> 1024 and a duplicate-heavy cloud, and ``knn_split`` at a
 fast scan's 6 searches, against their plain versions, with times and
@@ -5939,6 +5961,359 @@ def phase_registry(bound: Bound, semi_ref=None):
             "cpu_seconds": cpu_seconds}
 
 
+# phase 19: the reference layer and op API. VoteNet's backbone
+# (facebookresearch/votenet models/backbone_module.py: SUN RGB-D with the
+# height feature, 20,000 points, batch 8): per SA level npoint, radius,
+# nsample and mlp (mlp[0] the input feature width)
+VOTENET_SA = ((2048, 0.2, 64, (1, 64, 64, 128)),
+              (1024, 0.4, 32, (128, 128, 128, 256)),
+              (512, 0.8, 16, (256, 128, 128, 256)),
+              (256, 1.2, 16, (256, 128, 128, 256)))
+# float64 card vs CPU: the relative bound on every module's output (the
+# indices are the same; the sums run in other orders)
+REF64_RTOL = 1e-9
+# DeepGCN's blocks (arXiv:1904.03751, ResGCN-28's width): clouds x points,
+# channels, neighbours
+DEEPGCN = (8, 4096, 64, 16)
+# DeepGCN's feature search runs in float32 on both devices, where cuBLAS
+# and the CPU round the expansion differently: the share of output rows
+# that agree to REF64_RTOL must reach this
+DEEPGCN_ROWS_AGREE = 0.99
+
+
+def _votenet_scene(B: int, N: int, seed: int):
+    """Synthetic indoor scenes: B clouds of N points in a 6 x 6 x 2 m room
+    (floor, walls and boxes), with VoteNet's height feature (z above the
+    cloud's 1st percentile)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pts = np.empty((B, N, 3), np.float32)
+    for b in range(B):
+        n_floor, n_wall = N // 3, N // 4
+        floor = np.c_[rng.uniform(-3, 3, (n_floor, 2)), np.zeros(n_floor)]
+        wall = np.c_[rng.uniform(-3, 3, n_wall), np.full(n_wall, 3.0),
+                     rng.uniform(0, 2, n_wall)]
+        rest = N - n_floor - n_wall
+        centres = rng.uniform([-2.5, -2.5, 0.3], [2.5, 2.5, 1.2], (8, 3))
+        boxes = centres[rng.integers(0, 8, rest)] + rng.uniform(
+            -0.4, 0.4, (rest, 3))
+        pts[b] = np.concatenate([floor, wall, boxes]) + rng.normal(
+            0, 0.005, (N, 3))
+    height = pts[..., 2:] - np.percentile(pts[..., 2], 1, axis=1)[:, None,
+                                                                  None]
+    return pts, height.astype(np.float32)
+
+
+def _votenet_backbone(seed: int = 190):
+    """The four SA levels of VoteNet's ``Pointnet2Backbone`` over the
+    port's ``PointnetSAModuleVotes`` (its FP levels are the zoo's 3-NN
+    propagation, driven in phase 12): (xyz, features) -> (SA4's xyz,
+    SA4's features, each level's indices)."""
+    import torch
+
+    from geot_tpu_torch.models.backbone import PointnetSAModuleVotes
+
+    class Backbone(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.sa = torch.nn.ModuleList(
+                PointnetSAModuleVotes(list(mlp), npoint, radius, nsample,
+                                      normalize_xyz=True)
+                for npoint, radius, nsample, mlp in VOTENET_SA)
+
+        def forward(self, xyz, features):
+            inds = []
+            for sa in self.sa:
+                xyz, features, ind = sa(xyz, features)
+                inds.append(ind)
+            return (xyz, features, *inds)
+
+    torch.manual_seed(seed)
+    return Backbone()
+
+
+def _card_vs_cpu64(name, module, args, dev):
+    """``module``'s float64 eval forward on the card and on the CPU from the
+    same weights and inputs; the relative difference of every output."""
+    import copy
+
+    import torch
+
+    cpu = copy.deepcopy(module).double().eval()
+    card = copy.deepcopy(module).double().eval().to(dev)
+    with torch.no_grad():
+        t = time.perf_counter()
+        want = cpu(*(a.double() if a.is_floating_point() else a
+                     for a in args))
+        cpu_s = time.perf_counter() - t
+        got = card(*(a.double().to(dev) if a.is_floating_point()
+                     else a.to(dev) for a in args))
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    rel = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g is None or not w.is_floating_point():
+            check(g is None and w is None or torch.equal(g.cpu(), w),
+                  f"{name}: output {i} (indices) differ card vs CPU")
+            continue
+        finite = torch.isfinite(w)
+        check(torch.equal(torch.isfinite(g.cpu()), finite),
+              f"{name}: output {i} finite at other places")
+        rel[i] = float((g.cpu()[finite] - w[finite]).abs().max()
+                       / w[finite].abs().max())
+    return rel, cpu_s
+
+
+def phase_reference(bound: Bound):
+    """Phase 19: (a) the compat ops at the flagship scan's shapes, (b)
+    VoteNet's backbone at 20,000 points and batch 8, (c) DeepGCN's blocks,
+    ASSA, KMeansEmbed and TransformerEncoder, (d) the native grid
+    subsampling of a 150,000-point scan. The main path runs first with the
+    launch counts at 0; the kernels' checks against their plain versions
+    and their times after it."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.models import layers
+    from geot_tpu_torch.ops.fps import card_cluster_size
+    from geot_tpu_torch.ops.compat import (openpoints_pointops,
+                                           pointnet2_utils, pointops)
+
+    t_phase = time.perf_counter()
+    log("phase 19: the reference layer and op API")
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    _, x_np, _, _ = _scan_sample(191)
+    _, x2_np, _, _ = _scan_sample(192)
+    x = torch.from_numpy(np.stack([x_np, x2_np])).to(dev)       # (2, 16000)
+    N = x.shape[1]
+    new = x[:, ::4].contiguous()                                 # 4000
+    rng = np.random.default_rng(193)
+    feat = torch.from_numpy(rng.standard_normal((2, N, 64)).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy(rng.uniform(0.1, 1.0, (2, N)).astype(
+        np.float32)).to(dev)
+    scene, height = _votenet_scene(8, 20000, 194)
+    scene_t = torch.from_numpy(scene).to(dev)
+    height_t = torch.from_numpy(height).to(dev)
+    backbone = _votenet_backbone().to(dev).train()
+    gB, gN, gC, gk = DEEPGCN
+    gcn = torch.nn.Sequential(*(layers.ResDynBlock(gC, "edge", k=gk)
+                                for _ in range(2))).to(dev).train()
+    gcn_x = torch.randn(gB, gN, gC, generator=torch.Generator().manual_seed(
+        195)).to(dev)
+
+    def compat():
+        """The compat calls at the scan's shapes: 2 FPS and 3 small-k
+        searches on the kernels, the rest plain PyTorch."""
+        out = {}
+        out["i3"], out["d3"] = pointops.knn(x, x, 3)
+        out["i16"], _ = pointops.knn(new, x, 16)
+        out["sampled"] = pointops.fps(x, 512)
+        out["inds"] = pointnet2_utils.furthest_point_sample(x, 512)
+        out["sampled_w"] = pointops.fps_weight(x, 512, w)
+        out["qg"] = openpoints_pointops.queryandgroup(32, x, out["sampled"],
+                                                      feat)
+        out["gx"], out["gf"] = openpoints_pointops.querygroup(
+            32, x, out["sampled"], feat, normalize_dp=True)
+        out["up3"] = openpoints_pointops.interpolation(new, x, feat[:, ::4],
+                                                       k=3)
+        out["up6"] = openpoints_pointops.interpolation(new, x, feat[:, ::4],
+                                                       k=6)
+        out["dist"], out["idx3"] = pointnet2_utils.three_nn(x, new)
+        out["sub"] = openpoints_pointops.subtraction(feat[:, ::4], feat,
+                                                     out["i16"])
+        out["agg"] = openpoints_pointops.aggregation(
+            feat, torch.softmax(out["sub"][..., :8], dim=2), out["i16"])
+        sync()
+        return out
+
+    def grew(before):
+        return {k: v - before[k] for k, v in ops.LAUNCHES.items()}
+
+    # --- the main path, counted part by part -----------------------------
+    ops.reset_launches()
+    sync()
+    ms = {}
+    t = time.perf_counter()
+    c = compat()
+    by_part = {"compat": dict(ops.LAUNCHES)}
+    # the first calls load the CUDA modules of the kernels they use
+    ms["compat_calls_first"] = (time.perf_counter() - t) * 1e3
+    i3, d3, i16, sampled, inds, sampled_w, qg, gx, gf, up3, up6, dist, \
+        idx3, sub, agg = (c[k] for k in (
+            "i3", "d3", "i16", "sampled", "inds", "sampled_w", "qg", "gx",
+            "gf", "up3", "up6", "dist", "idx3", "sub", "agg"))
+    for name_, out in (("queryandgroup", qg), ("querygroup", gf),
+                       ("interpolation k=3", up3), ("interpolation k=6", up6),
+                       ("aggregation", agg)):
+        check(bool(torch.isfinite(out).all()), f"compat {name_} not finite")
+    check(qg.shape == (2, 512, 32, 67) and gx.shape == (2, 512, 32, 3)
+          and float(gx.norm(dim=-1).amax()) <= 1.0 + 1e-6,
+          "compat grouping shapes / normalize_dp")
+    check(agg.shape == (2, N // 4, 64) and sub.shape == (2, N // 4, 16, 64),
+          "compat vector attention shapes")
+    # VoteNet's SA levels: a warm and 2 timed forward + backward, batch 8
+    before = dict(ops.LAUNCHES)
+    step_ms = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        out_xyz, out_f, *_ = backbone(scene_t, height_t)
+        out_f.square().mean().backward()
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    votenet_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(out_f.shape == (8, 256, 256) and bool(torch.isfinite(out_f).all())
+          and all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                  for p in backbone.parameters()),
+          "VoteNet backbone: output or gradients")
+    by_part["votenet"] = grew(before)
+    # DeepGCN: 2 ResDynBlocks, a warm and 2 timed forward + backward
+    before = dict(ops.LAUNCHES)
+    gcn_ms = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        g = gcn(gcn_x)
+        g.square().mean().backward()
+        sync()
+        gcn_ms.append((time.perf_counter() - t0) * 1e3)
+    gcn_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(bool(torch.isfinite(g).all()), "DeepGCN output")
+    by_part["deepgcn"] = grew(before)
+    launches = dict(ops.LAUNCHES)
+    t = time.perf_counter()
+    compat()
+    ms["compat_calls"] = (time.perf_counter() - t) * 1e3
+    plan8 = ops.fps_plan(scene.shape[1], card_cluster_size(dev, 8))
+    log(f"VoteNet SA1's FPS {tuple(scene.shape[:2])} -> 2048: plan "
+        f"{plan8}")
+    # compat: 2 FPS and 3 small-k searches; VoteNet: 4 SA levels x 3
+    # passes, each one FPS; DeepGCN's feature searches: int64 topk
+    want = {"compat": _launch_counts(fps_cluster=2, knn_split=3),
+            "votenet": _launch_counts(fps_cluster=12),
+            "deepgcn": _launch_counts()}
+    for part, counts in want.items():
+        check(by_part[part] == counts, f"phase 19 {part} launches "
+              f"{by_part[part]}, expected {counts}")
+
+    # --- kernels 1 and 2 against their plain versions, kernel-only times ---
+    d_r, i_r = ops.knn_small_k_ref(x, x, 3)
+    check(torch.equal(i3, i_r) and torch.equal(d3, d_r),
+          "pointops.knn k=3 differs from knn_small_k_ref")
+    d_r, i_r = ops.knn_small_k_ref(x, new, 3)
+    check(torch.equal(idx3, i_r) and torch.equal(dist, d_r.sqrt()),
+          "three_nn differs from knn_small_k_ref")
+    ref = ops.fps_ref(x, 512)
+    check(torch.equal(inds, ref) and torch.equal(
+        sampled, ops.gather_points(x, ref)), "compat FPS differs from fps_ref")
+    check(torch.equal(sampled_w, ops.gather_points(
+        x, ops.fps_weighted(x.cpu(), w.cpu(), 512).to(dev))),
+        "fps_weight card vs CPU")
+    knn_rec, _ = _kernels_knn(bound, (("compat self k=3", x, x, 3),
+                                      ("compat three_nn", x, new, 3)),
+                              ("ties", new, torch.cat([new, new], 1)
+                               .contiguous(), 3))
+    fps_rec, _ = _zoo_chain(bound, x, (512,))
+    vote_rec, levels = _zoo_chain(bound, scene_t, (2048, 1024, 512, 256))
+    # the chain is the backbone's: its last level is SA4's points
+    check(torch.equal(out_xyz, levels[-1]),
+          "VoteNet SA levels' points differ from the FPS chain's")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ops.fps_weighted(x, w, 512)
+    sync()
+    ms["fps_weighted_2x16000_512"] = (time.perf_counter() - t0) * 1e3 / 3
+    ms["dynconv_topk_8x4096_k16"] = cuda_ms(
+        lambda: ops.knn(gcn_x, gcn_x, gk), 3)
+
+    # --- float64, card against the CPU, 2 clouds -------------------------
+    t_cpu = time.perf_counter()
+    compare = {}
+    rel, cpu_s = _card_vs_cpu64("VoteNet SA", _votenet_backbone(seed=196),
+                                (scene_t[:2].cpu(), height_t[:2].cpu()), dev)
+    compare["votenet_sa"] = rel
+    log(f"VoteNet SA levels float64 card vs CPU (2 clouds, CPU {cpu_s:.1f} "
+        f"s): {rel}")
+    check(max(rel.values()) <= REF64_RTOL, f"VoteNet card vs CPU {rel}")
+    torch.manual_seed(197)
+    q_xyz = scene_t[:2, :1024].cpu()
+    assa = layers.ASSA(64, [64, 96, 128], {"NAME": "ballquery",
+                                           "radius": 0.4, "nsample": 32})
+    rel, _ = _card_vs_cpu64("ASSA", assa, (q_xyz, scene_t[:2, :4096].cpu(),
+                                           torch.randn(2, 4096, 64)), dev)
+    compare["assa"] = rel
+    kme = layers.KMeansEmbed(256, 256)
+    rel, _ = _card_vs_cpu64("KMeansEmbed", kme, (x[:, :4096].cpu(),), dev)
+    compare["kmeans_embed"] = rel
+    enc = layers.TransformerEncoder(384, 12, 6)
+    tokens = torch.randn(2, 256, 384)
+    rel, cpu_s = _card_vs_cpu64("TransformerEncoder", enc,
+                                (tokens, 0.1 * torch.randn(2, 256, 384)),
+                                dev)
+    compare["transformer_encoder"] = rel
+    for key in ("assa", "kmeans_embed", "transformer_encoder"):
+        check(max(compare[key].values()) <= REF64_RTOL,
+              f"{key} card vs CPU {compare[key]}")
+    gcn64 = torch.nn.Sequential(*(layers.ResDynBlock(gC, "edge", k=gk)
+                                  for _ in range(2)))
+    cpu64 = gcn64.double().eval()
+    card64 = copy.deepcopy(cpu64).to(dev)
+    with torch.no_grad():
+        gx64 = gcn_x[:2].double()
+        gw, gg = cpu64(gx64.cpu()), card64(gx64).cpu()
+    row_rel = ((gg - gw).abs().amax(-1) / gw.abs().amax())
+    agree = float((row_rel <= REF64_RTOL).double().mean())
+    compare["deepgcn_rows_agree"] = agree
+    check(agree >= DEEPGCN_ROWS_AGREE, f"DeepGCN card vs CPU rows {agree}")
+    cpu_seconds = time.perf_counter() - t_cpu
+    log(f"float64 card vs CPU: {compare}")
+
+    # --- (d) grid subsampling of a 150,000-point scan --------------------
+    from geot_tpu_torch.data.tooth_semi import _synthetic_scan
+
+    pts, labels = _synthetic_scan(198, 150000)
+    ops.grid_subsample_native(pts[:10], sample_dl=0.01)     # the build
+    t0 = time.perf_counter()
+    nat = ops.grid_subsample_native(pts, labels=labels, sample_dl=0.01)
+    ms["grid_subsample_native_150000"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    npy = ops.grid_subsample(pts, labels=labels, sample_dl=0.01,
+                             num_classes=17)
+    ms["grid_subsample_numpy_150000"] = (time.perf_counter() - t0) * 1e3
+    a, b = np.lexsort(nat[0].T), np.lexsort(npy[0].T)
+    check(nat[0].shape == npy[0].shape
+          and np.abs(nat[0][a] - npy[0][b]).max() <= 1e-4
+          and np.array_equal(nat[1][a], npy[1][b]),
+          "native grid_subsample differs from numpy")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 19 ms: {ms}; VoteNet SA fwd+bwd (8 x 20000) "
+        f"{step_ms[1]:.1f} / {step_ms[2]:.1f}, peak {votenet_peak:.0f} MiB; "
+        f"DeepGCN 2 ResDynBlocks fwd+bwd (8 x 4096, 64, k 16) "
+        f"{gcn_ms[1]:.1f} / {gcn_ms[2]:.1f}, peak {gcn_peak:.0f} MiB; "
+        f"{len(nat[0])} voxels")
+    log(f"phase 19: {seconds:.1f} s (float64 CPU sides {cpu_seconds:.1f} s); "
+        f"launches {launches}, by part {by_part}")
+    return {"kernels": {"fps_compat": fps_rec, "fps_votenet": vote_rec,
+                        "knn_compat": knn_rec},
+            "launches": launches,
+            "launches_by_shape": {
+                "fps_compat_2x16000_512": by_part["compat"]["fps_cluster"],
+                "fps_votenet_chain_8x20000":
+                    by_part["votenet"]["fps_cluster"],
+                "knn_compat_2x16000_k3": by_part["compat"]["knn_split"]},
+            "ms": ms, "votenet_step_ms": step_ms, "votenet_peak_mb":
+            votenet_peak, "deepgcn_step_ms": gcn_ms, "deepgcn_peak_mb":
+            gcn_peak, "compare": compare, "seconds": seconds}
+
+
 # --dp-step-ms: phase 14's two-rank flagship trainer (gloo, both ranks on
 # one card, the global batch 2 + 2 + 2 at 16,000 points) for 8 steps, in
 # each checkout given, in the order given: to compare two commits on one
@@ -6146,6 +6521,7 @@ def main() -> int:
     switches = phase_switches(Bound(limit_w), train)
     heritage = phase_heritage(Bound(limit_w))
     registry = phase_registry(Bound(limit_w), train["semi64_ref"])
+    reference = phase_reference(Bound(limit_w))
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
     # launches on the main paths: 3 served scans, the train run (2 cm
@@ -6166,7 +6542,8 @@ def main() -> int:
         f"{pretrain['launches']}, the trainer's other switches "
         f"{switches['launches']}, the heritage tasks "
         f"{heritage['launches']}, the rest of the registry "
-        f"{registry['launches']}")
+        f"{registry['launches']}, the reference layer and op API "
+        f"{reference['launches']}")
 
     def entry(name, replaces, source=None):
         return {"name": name, "route": "cuda",
@@ -6183,7 +6560,8 @@ def main() -> int:
                              + pretrain["launches"][name]
                              + switches["launches"][name]
                              + heritage["launches"][name]
-                             + registry["launches"][name]),
+                             + registry["launches"][name]
+                             + reference["launches"][name]),
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
                 "launches_trainer_run": trainer["launches"][name],
@@ -6198,6 +6576,7 @@ def main() -> int:
                 "launches_trainer_switches": switches["launches"][name],
                 "launches_heritage_tasks": heritage["launches"][name],
                 "launches_registry_rest": registry["launches"][name],
+                "launches_reference_layers": reference["launches"][name],
                 "library_ms": None, **recs[name]}
 
     kernels = [
@@ -6314,6 +6693,26 @@ def main() -> int:
          "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
          "launches": registry["launches_by_shape"]["fps_32x1024_256"],
          **registry["kernels"]["fps_32x1024"]},
+        # kernels 1 and 2 at the reference op API's shapes (phase 19): the
+        # compat FPS at (2, 16000) -> 512, VoteNet's SA chain (8, 20000) ->
+        # 2048 -> 1024 -> 512 -> 256, and the compat k = 3 searches at
+        # (2, 16000); launches at those shapes in phase 19's main path
+        {"name": "fps_cluster_compat_2x16000_512", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/fps_cluster.cu",
+         "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
+         "launches": reference["launches_by_shape"]["fps_compat_2x16000_512"],
+         **reference["kernels"]["fps_compat"]},
+        {"name": "fps_cluster_votenet_chain_8x20000_2048", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/fps_cluster.cu",
+         "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
+         "launches": reference["launches_by_shape"][
+             "fps_votenet_chain_8x20000"],
+         **reference["kernels"]["fps_votenet"]},
+        {"name": "knn_split_compat_2x16000_k3", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/knn_split.cu",
+         "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
+         "launches": reference["launches_by_shape"]["knn_compat_2x16000_k3"],
+         **reference["kernels"]["knn_compat"]},
     ]
     # every kernel of the paths ran in this run
     for kname in ("fps_cluster", "knn_split", *UPSAMPLE):

@@ -49,10 +49,12 @@ _PATTERNS = (
 )
 
 
-# the zoo's shared MLPs (``convs``: flax ``dense_{i}``/``bn_{i}``) are the
-# port's ``SharedMLP`` (``layer{i}.conv``/``layer{i}.bn.bn``)
-_SHARED_MLP = ((r"(^|/)convs/dense_(\d+)$", r"\1convs/layer\2/conv"),
-               (r"(^|/)convs/bn_(\d+)$", r"\1convs/layer\2/bn/bn"))
+# the shared MLPs (flax ``dense_{i}``/``bn_{i}``) of the zoo (``convs``)
+# and of VoteNet's modules (``mlp_module``, ``mlp_{i}``, ``post_mlp``) are
+# the port's ``SharedMLP`` (``layer{i}.conv``/``layer{i}.bn.bn``)
+_SHARED = r"(^|/)(convs|mlp_module|mlp_\d+|post_mlp)"
+_SHARED_MLP = ((_SHARED + r"/dense_(\d+)$", r"\1\2/layer\3/conv"),
+               (_SHARED + r"/bn_(\d+)$", r"\1\2/layer\3/bn/bn"))
 
 
 def _module_name(path: str, trunks=("segmentor/",)) -> str:
@@ -94,9 +96,10 @@ def _float(a) -> torch.Tensor:
 
 # the raw parameters (not a layer's kernel, bias or scale) of geot_tpu's
 # models: PointMLP's affine, the cls-token encoders' token and position,
-# sig_t's and sig_t_mean's matrices; the seg_T family's T_linear,
-# T_revision and sigma sit at the segmentor's root
-_RAW = ("affine_alpha", "affine_beta", "cls_token", "cls_pos", "fc")
+# sig_t's and sig_t_mean's matrices, PReLU's slope (``create_act``); the
+# seg_T family's T_linear, T_revision and sigma sit at the segmentor's root
+_RAW = ("affine_alpha", "affine_beta", "cls_token", "cls_pos", "fc",
+        "negative_slope")
 _SEG_T_ROOT = ("T_linear", "T_revision", "sigma")
 
 
@@ -114,7 +117,10 @@ def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     ``PointMLPPartSegmentor``, a ``ViewGenBase`` (any encoder, generator
     and decoder), one of their encoders, a patch embedding or ``sig_t``;
     their port modules carry the flax names, but for the transformer
-    trunk's renames. Convolution kernels (H, W, in, out) become OIHW
+    trunk's renames. So does any module of the layer surface and
+    VoteNet's SA modules (``ASSA``, the factory blocks, the ``Mlp``
+    family, ``KMeansEmbed``, the graph convs, ``TransformerEncoder``,
+    ``PointnetSAModuleVotes`` and its kin), alone or inside a model. Convolution kernels (H, W, in, out) become OIHW
     weights. A leaf that has no place in the port (a layer with leaves
     other than its own, a raw parameter the port's models lack, running
     statistics without their normalisation) raises ``ValueError`` naming
@@ -127,7 +133,8 @@ def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, arr):
-        sd[key] = _float(arr)
+        # a layer at the tree's root (a bare Dense or norm) has no prefix
+        sd[key.lstrip(".")] = _float(arr)
 
     placed_stats = set()
     for path, leaves in _walk(params):
@@ -155,7 +162,8 @@ def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             if path in stats_by_path:  # BatchNorm
                 put(f"{mod}.running_mean", stats_by_path[path]["mean"])
                 put(f"{mod}.running_var", stats_by_path[path]["var"])
-                sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
+                sd[f"{mod}.num_batches_tracked".lstrip(".")] = \
+                    torch.tensor(0)
                 placed_stats.add(path)
         else:                     # raw parameters (affine_alpha, ...)
             if set(leaves) - set(_RAW):

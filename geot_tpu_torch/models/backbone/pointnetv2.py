@@ -94,6 +94,30 @@ class PointNetFPModule(nn.Module):
         return self.convs(interp)
 
 
+# the reference's names (pointnet2_modules.py:24, 582) and the pointnet2
+# package's FP name
+PointnetSAModuleMSG = PointNetSAModuleMSG
+PointnetFPModule = PointNetFPModule
+PointNetFeaturePropagation = PointNetFPModule
+
+
+def PointnetSAModule(mlp, npoint=None, radius=None, nsample=None,
+                     stride: Optional[int] = None, **kwargs):
+    """The single-scale SA module: ``PointNetSAModuleMSG`` with one
+    (radius, nsample, mlp) scale; ``mlp[0]`` is the input width. The
+    reference's absolute ``npoint`` is given as ``stride`` (``N //
+    npoint``), as in ``geot_tpu``."""
+    if stride is None:
+        if npoint is not None:
+            raise ValueError(
+                "npoint is an absolute output size; the module takes the "
+                "ratio: pass stride=N // npoint instead")
+        stride = 1
+    return PointNetSAModuleMSG(stride=stride, radii=[radius],
+                               nsamples=[nsample], channel_list=[list(mlp)],
+                               **kwargs)
+
+
 @register_model("PointNet2Encoder")
 class PointNet2Encoder(nn.Module):
     """Hierarchical encoder; ``forward`` returns the per-level points and

@@ -75,16 +75,22 @@ class MiniPointNetEncoder(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention over the group tokens (the flagship's
-    attention and projection dropout rates are 0)."""
+    """Multi-head self-attention over the group tokens; dropout on the
+    attention weights (``attn_drop``) and after the projection
+    (``proj_drop``), both 0 in the flagship."""
 
-    def __init__(self, dim: int, num_heads: int, dtype: DtypeArg = None):
+    def __init__(self, dim: int, num_heads: int, dtype: DtypeArg = None,
+                 qkv_bias: bool = False, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = Dense(dim, dim * 3, bias=False, dtype=dtype)
+        self.qkv = Dense(dim, dim * 3, bias=qkv_bias, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
         hd = C // H
@@ -92,28 +98,36 @@ class Attention(nn.Module):
         q, k, v = qkv[0], qkv[1], qkv[2]                     # (B, H, N, hd)
         # the scale rounded to q's dtype first, as JAX's weak typing does
         attn = (q @ k.transpose(-2, -1)) * rounded(hd ** -0.5, q.dtype)
-        out = (softmax(attn) @ v).transpose(1, 2).reshape(B, N, C)
-        return self.proj(out)
+        attn = self.attn_drop(softmax(attn), generator)
+        out = (attn @ v).transpose(1, 2).reshape(B, N, C)
+        return self.proj_drop(self.proj(out), generator)
 
 
 class Block(nn.Module):
     """Pre-norm ViT block with stochastic depth. The norms compute in the
     residual stream's dtype (``geot_tpu`` gives them no ``dtype``), the
-    attention and the MLP in ``dtype``."""
+    attention and the MLP in ``dtype``. ``mlp_ratio``, ``qkv_bias``,
+    ``drop`` (projection and MLP dropout) and ``attn_drop`` are
+    ``geot_tpu``'s ``Block`` fields (4, False, 0, 0 in the flagship)."""
 
     def __init__(self, dim: int, num_heads: int, drop_path: float = 0.0,
-                 dtype: DtypeArg = None):
+                 dtype: DtypeArg = None, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-5)
-        self.attn = Attention(dim, num_heads, dtype)
+        self.attn = Attention(dim, num_heads, dtype, qkv_bias, attn_drop,
+                              drop)
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, eps=1e-5)
-        self.mlp = MlpBlock(dim, 4 * dim, dtype)
+        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dtype, drop)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = x + self.drop_path(self.attn(self.norm1(x)), generator)
-        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
+        x = x + self.drop_path(self.attn(self.norm1(x), generator),
+                               generator)
+        return x + self.drop_path(self.mlp(self.norm2(x), generator),
+                                  generator)
 
 
 class TransformerStack(nn.Module):

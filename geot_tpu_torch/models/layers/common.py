@@ -134,6 +134,8 @@ class Dense(nn.Linear):
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` that computes as flax ``nn.LayerNorm(dtype=...)``."""
 
+    flax_name = "LayerNorm"      # the name flax gives an unnamed one
+
     def __init__(self, dim: int, eps: float = 1e-5, dtype: DtypeArg = None):
         super().__init__(dim, eps=eps)
         self.compute_dtype = as_dtype(dtype)
@@ -156,11 +158,14 @@ class BatchNorm(nn.BatchNorm1d):
     statistics are those of every rank's rows, as BatchNorm over a
     dp-sharded batch is in ``geot_tpu`` (``parallel/mesh.py:6-10``), and
     the running statistics update alike on every rank. Eval mode is
-    torch's."""
+    torch's. ``momentum`` is flax's (the share of the old statistics kept)
+    and ``eps`` its ``epsilon``."""
 
-    def __init__(self, num_features: int, dtype: DtypeArg = None):
-        super().__init__(num_features)
+    def __init__(self, num_features: int, dtype: DtypeArg = None,
+                 momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps)
         self.compute_dtype = as_dtype(dtype)
+        self.keep = momentum
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
@@ -184,8 +189,9 @@ class BatchNorm(nn.BatchNorm1d):
             y = (x2 - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
                 + self.bias
             with torch.no_grad():
-                self.running_mean.mul_(0.9).add_(0.1 * mean)
-                self.running_var.mul_(0.9).add_(0.1 * var)
+                self.running_mean.mul_(self.keep).add_(
+                    (1.0 - self.keep) * mean)
+                self.running_var.mul_(self.keep).add_((1.0 - self.keep) * var)
                 self.num_batches_tracked += 1
         y = y.reshape(shape)
         return y if self.compute_dtype is None else y.to(self.compute_dtype)
@@ -194,21 +200,27 @@ class BatchNorm(nn.BatchNorm1d):
 class GroupNorm(nn.GroupNorm):
     """GroupNorm over a channels-last (B, ..., C) tensor: statistics per
     sample and group over every non-batch axis, like flax ``GroupNorm``;
-    output in ``dtype`` if given."""
+    output in ``dtype`` if given. ``affine=False`` has no scale and bias
+    (flax's ``use_scale=use_bias=False``, the InstanceNorm of
+    ``create_norm``)."""
+
+    flax_name = "GroupNorm"
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
-                 dtype: DtypeArg = None):
-        super().__init__(num_groups, num_channels, eps=eps)
+                 dtype: DtypeArg = None, affine: bool = True):
+        super().__init__(num_groups, num_channels, eps=eps, affine=affine)
         self.compute_dtype = as_dtype(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _promoted(x, self.weight)
+        if self.affine:
+            x = _promoted(x, self.weight)
         B, C = x.shape[0], x.shape[-1]
         xg = x.reshape(B, -1, self.num_groups, C // self.num_groups)
         mean = xg.mean(dim=(1, 3), keepdim=True)
         var = xg.var(dim=(1, 3), unbiased=False, keepdim=True)
         y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        y = y * self.weight + self.bias
+        if self.affine:
+            y = y * self.weight + self.bias
         return y if self.compute_dtype is None else y.to(self.compute_dtype)
 
 
@@ -256,16 +268,53 @@ def _keep_mask(x, shape, keep, generator):
 
 
 class MlpBlock(nn.Module):
-    """Transformer MLP: fc1 -> exact GELU -> fc2 (the flagship's dropout
-    rate here is 0)."""
+    """Transformer MLP: fc1 -> exact GELU -> dropout -> fc2 -> dropout (the
+    flagship's dropout rate is 0)."""
 
-    def __init__(self, dim: int, hidden: int, dtype: DtypeArg = None):
+    def __init__(self, dim: int, hidden: int, dtype: DtypeArg = None,
+                 drop: float = 0.0):
         super().__init__()
         self.fc1 = Dense(dim, hidden, dtype=dtype)
         self.fc2 = Dense(hidden, dim, dtype=dtype)
+        self.drop = Dropout(drop)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.drop(gelu(self.fc1(x)), generator)
+        return self.drop(self.fc2(x), generator)
+
+
+def make_divisible(v, divisor=8, min_value=None, round_limit=0.9):
+    """``v`` rounded to a multiple of ``divisor``, not below ``round_limit
+    * v`` (``geot_tpu/models/layers/common.py:23``)."""
+    min_value = min_value or divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < round_limit * v:
+        new_v += divisor
+    return new_v
+
+
+def drop_path_rates(drop_path_rate: float, depth: int):
+    """The linear stochastic-depth schedule, ``linspace(0, rate, depth)``."""
+    if depth == 1:
+        return [float(drop_path_rate)]
+    return [float(drop_path_rate) * i / (depth - 1) for i in range(depth)]
+
+
+class PointBatchNorm(nn.Module):
+    """``BatchNorm`` held as ``bn`` (``geot_tpu``'s ``PointBatchNorm``:
+    flax momentum 0.9, epsilon 1e-5 by default), so its weights sit at
+    ``<name>.bn`` as in the flax tree."""
+
+    flax_name = "PointBatchNorm"
+
+    def __init__(self, channels: int, momentum: float = 0.9,
+                 eps: float = 1e-5, dtype: DtypeArg = None):
+        super().__init__()
+        self.bn = BatchNorm(channels, dtype=dtype, momentum=momentum, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+        return self.bn(x)
 
 
 class _BN(nn.Module):

@@ -8,7 +8,8 @@ a stale build is never loaded; objects go to a directory of the process's
 own and the library is renamed into place, so no lock file is ever needed.
 The build runs at first use, from the wrapper that first launches a kernel.
 
-``csrc/obj_loader.cpp`` is host code: ``native_library()`` builds it with
+``csrc/obj_loader.cpp`` and ``csrc/grid_subsample.cpp`` are host code:
+``native_library()`` builds them with
 ``g++ -O3 -shared -fPIC`` by the same route (hashed name, private object
 directory, rename into place), at first use, on any machine with a C++
 compiler. A failed build raises with the compiler's output; nothing falls
@@ -40,7 +41,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-NATIVE_SOURCES = (_PKG / "csrc" / "obj_loader.cpp",)
+NATIVE_SOURCES = (_PKG / "csrc" / "obj_loader.cpp",
+                  _PKG / "csrc" / "grid_subsample.cpp")
 # the host compiler of ``native_library()``
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
@@ -123,7 +125,7 @@ def build_native() -> dict:
 
 def native_library() -> ctypes.CDLL:
     """The loaded host library (``obj_count_vertices``,
-    ``obj_load_vertices``), built first if needed."""
+    ``obj_load_vertices``, ``grid_subsample``), built first if needed."""
     global _native_lib
     with _lock:
         if _native_lib is None:
@@ -134,6 +136,12 @@ def native_library() -> ctypes.CDLL:
             lib.obj_load_vertices.argtypes = [
                 ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
                 ctypes.c_long]
+            fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(
+                ctypes.c_int)
+            lib.grid_subsample.restype = ctypes.c_long
+            lib.grid_subsample.argtypes = [
+                fp, ctypes.c_long, ctypes.c_long, fp, ip, ctypes.c_int,
+                ctypes.c_float, fp, fp, ip, ctypes.c_long]
             _native_lib = lib
     return _native_lib
 

@@ -50,8 +50,11 @@ BUCKET = 256
 BUCKET_BLOCK = 44
 
 
-def fps_ref(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """(B, N, 3) -> (B, npoint) int32 indices, plain PyTorch."""
+def fps_ref(xyz: torch.Tensor, npoint: int,
+            weights: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, N, 3) -> (B, npoint) int32 indices, plain PyTorch. With
+    ``weights`` (B, N), each point's squared distance is scaled by its
+    weight before the running minimum (``fps_weighted``)."""
     B, N, _ = xyz.shape
     xyz = xyz.float()
     idx = torch.zeros((B, npoint), dtype=torch.int32, device=xyz.device)
@@ -61,10 +64,25 @@ def fps_ref(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     for j in range(1, npoint):
         diff = xyz - xyz[rows, last][:, None, :]
         sq = diff * diff
-        mind = torch.minimum(mind, sq[..., 0] + sq[..., 1] + sq[..., 2])
+        d2 = sq[..., 0] + sq[..., 1] + sq[..., 2]
+        mind = torch.minimum(mind, d2 if weights is None else d2 * weights)
         last = torch.argmax(mind, dim=-1)       # first maximum on ties
         idx[:, j] = last.to(torch.int32)
     return idx
+
+
+def fps_weighted(xyz: torch.Tensor, weights: torch.Tensor,
+                 npoint: int) -> torch.Tensor:
+    """Weighted FPS (``geot_tpu/ops/fps.py:55``, the reference's
+    ``pointops.fps_weight``): (B, N, 3), (B, N) -> (B, npoint) int32.
+    Each step takes the point whose ``min over the chosen of d2 *
+    max(w, 1e-12)`` is largest, first maximum on ties; idx[0] = 0 and the
+    running minimum starts at 1e10, as ``fps_ref``.
+
+    Plain PyTorch on both devices, as ``geot_tpu`` runs it as an XLA loop
+    (no Pallas kernel exists for it): on the card it is ``npoint`` steps of
+    a few launches each."""
+    return fps_ref(xyz, npoint, weights.float().clamp_min(1e-12))
 
 
 class FpsPlan(NamedTuple):

@@ -416,3 +416,15 @@ def knn(query: torch.Tensor, support: torch.Tensor, k: int,
         d2, idx = _knn_tiled(query, support, k, tile)
     d2 = d2.clamp_min(0.0)
     return (d2 if squared else d2.sqrt()), idx
+
+
+def knn_point(k: int, query: torch.Tensor,
+              support: torch.Tensor | None = None, tile: int = _TILE,
+              squared: bool = False, exact: bool = True,
+              recall_target: float = 0.99, chunk_size=None):
+    """``knn_point`` (``geot_tpu/ops/knn.py:132``): euclidean (dist, idx),
+    ascending, self included when ``support`` is None (the query). The
+    search is always exact: ``exact``, ``recall_target`` and
+    ``chunk_size`` are taken for the signature and change nothing."""
+    return knn(query, query if support is None else support, k, tile=tile,
+               squared=squared)

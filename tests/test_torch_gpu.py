@@ -1358,3 +1358,75 @@ def test_rest_of_the_registry_on_the_card_matches_the_cpu(cuda):
     with pytest.raises(NotImplementedError):
         build_model_from_cfg({"NAME": "Gragh_Matching"}).to(cuda)(
             None, None, None)
+
+
+# --- the reference op API -----------------------------------------------------
+
+@pytest.mark.parametrize("B,N,npoint", [(2, 16000, 512), (1, 3000, 300)])
+def test_fps_weighted_on_the_card_matches_the_cpu(cuda, B, N, npoint):
+    x = _cloud(30, (B, N, 3))
+    w = torch.from_numpy(np.random.default_rng(31).uniform(
+        0.0, 2.0, (B, N)).astype(np.float32))
+    w[:, ::9] = 0.0
+    got = ops.fps_weighted(x.to(cuda), w.to(cuda), npoint)
+    assert torch.equal(got.cpu(), ops.fps_weighted(x, w, npoint))
+
+
+def test_segment_ops_on_the_card_match_the_cpu(cuda):
+    rng = np.random.default_rng(32)
+    data = torch.from_numpy(rng.standard_normal((5000, 16)).astype(
+        np.float32))
+    ids = torch.from_numpy(rng.integers(0, 300, 5000).astype(np.int32))
+    ids[ids == 7] = 8                       # segment 7 empty
+    for name in ("segment_sum", "segment_mean", "segment_max"):
+        want = getattr(ops, name)(data, ids, 301)
+        got = getattr(ops, name)(data.to(cuda), ids.to(cuda), 301).cpu()
+        if name == "segment_max":
+            assert torch.equal(got, want) and torch.isneginf(got[7]).all()
+        else:
+            assert float((got - want).abs().max()) <= 1e-5 * float(
+                want.abs().max())
+
+
+def test_compat_on_the_card_launches_the_kernels(cuda):
+    """Every compat call that ``geot_tpu`` sends to a Pallas kernel reaches
+    ``geot::fps`` or ``geot::knn_small_k`` for a CUDA tensor, bit-equal to
+    the plain version on the same inputs."""
+    from geot_tpu_torch.ops.compat import (openpoints_pointops,
+                                           pointnet2_utils, pointops)
+
+    x = _cloud(33, (2, 16000, 3)).to(cuda)
+    new = x[:, :4096].contiguous()
+    feat = _cloud(34, (2, 4096, 8)).to(cuda)
+    ops.reset_launches()
+    idx, d = pointops.knn(x, x, 3)
+    sampled = pointops.fps(x, 512)
+    inds = pointnet2_utils.furthest_point_sample(x, 512)
+    dist, i3 = pointnet2_utils.three_nn(x, new)
+    up = openpoints_pointops.interpolation(new, x, feat, k=3)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    assert counts == {"fps_cluster": 2, "knn_split": 3}, counts
+    d_r, i_r = ops.knn_small_k_ref(x, x, 3)
+    assert torch.equal(idx, i_r) and torch.equal(d, d_r)
+    ref = ops.fps_ref(x, 512)
+    assert torch.equal(inds, ref)
+    assert torch.equal(sampled, ops.gather_points(x, ref))
+    d_r, i_r = ops.knn_small_k_ref(x, new, 3)
+    assert torch.equal(i3, i_r) and torch.equal(dist, d_r.sqrt())
+    w = 1.0 / (d_r.sqrt() + 1e-8)
+    plain = ops.three_interpolate(feat, i_r, w / w.sum(-1, keepdim=True))
+    assert torch.equal(up, plain)
+
+
+def test_grid_subsample_native_matches_numpy_on_the_cards_host(cuda):
+    rng = np.random.default_rng(35)
+    pts = (rng.standard_normal((150000, 3)) * 20).astype(np.float32)
+    labels = rng.integers(0, 17, 150000).astype(np.int32)
+    sub, lab = ops.grid_subsample_native(pts, labels=labels, sample_dl=0.5)
+    ref, ref_lab = ops.grid_subsample(pts, labels=labels, sample_dl=0.5,
+                                      num_classes=17)
+    assert sub.shape == ref.shape
+    order, ref_order = np.lexsort(sub.T), np.lexsort(ref.T)
+    assert np.abs(sub[order] - ref[ref_order]).max() <= 1e-5
+    assert np.array_equal(lab[order], ref_lab[ref_order])

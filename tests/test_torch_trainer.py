@@ -456,6 +456,12 @@ def test_every_module_imports_without_jax_yaml_or_geot_tpu(tmp_path):
         assert "geot_tpu_torch.engine.train" in names, names
         assert {{"geot_tpu_torch.optim.extra",
                  "geot_tpu_torch.optim.adahessian"}} <= set(names), names
+        layers = ["helpers", "weight_init", "drop", "factories", "mlp",
+                  "knn", "subsample", "kmeans", "graph_conv", "attention"]
+        assert {{"geot_tpu_torch.models.layers." + m for m in layers}} | {{
+            "geot_tpu_torch.ops." + m for m in ("scatter", "vector_attn",
+                                                "subsample", "compat")}} | {{
+            "geot_tpu_torch.models.backbone.pointnet2_votes"}} <= set(names)
         from geot_tpu_torch.engine.train import parse_and_run
         res = parse_and_run(["--cfg", {SMOKE!r}, "epochs=1",
                              "root_dir={tmp_path}", "device=cpu",
