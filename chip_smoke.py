@@ -55,8 +55,10 @@ Phases, each printed with the seconds elapsed when it starts:
    ``cal_mean_feature`` bootstrap over 2 labelled batches (1 ``fps_cluster``
    + 7 ``knn_split`` launches each), then 3 ``semi_step`` calls with the
    teacher (2 ``fps_cluster`` + 14 ``knn_split`` each). Losses finite,
-   ``ema_t`` rows sum to 1, weights move. Then one step from the same state and batch (1 + 1 + 1 clouds,
-   dropout off) on the card and on the CPU, in float32 and in float64:
+   ``ema_t`` rows sum to 1, weights move. Then one step from the same
+   state and batch (1 + 1 + 1 clouds, the trunk ``CMP_TRUNK``: 3 blocks
+   at full width, dropout off) on the card and on the CPU, in float32 and
+   in float64 (the CPU's searches computed once, ``cpu_search_memo``):
    loss terms within 1e-4 relative; per-tensor gradients within 1e-3 of
    the tensor's largest in float64 (5e-2 in float32, where batch-statistics
    BatchNorm amplifies rounding).
@@ -118,8 +120,9 @@ Phases, each printed with the seconds elapsed when it starts:
    ``criterion_u`` name, losses finite and launches counted (top2: one
    more ``knn_split``, the self-search); the all-flags step's peak memory
    and, with the anchored and flagship steps, device time by kernel; the
-   all-flags step on the card against the CPU (1 + 1 + 1 clouds, dropout
-   off, the same contrast draws), in float32 and float64: loss terms
+   all-flags step on the card against the CPU (1 + 1 + 1 clouds,
+   ``CMP_TRUNK``, the same contrast draws, ``cpu_search_memo``), in
+   float32 and float64: loss terms
    within 1e-4 relative, the feature-space term within 1e-3 of the whole
    loss and the rest of the loss within 1e-4, ``ema_t`` within 1e-5, the
    bank's ``ptr`` equal; ``skip_nonfinite_updates`` with a NaN in a strong
@@ -220,9 +223,9 @@ Phases, each printed with the seconds elapsed when it starts:
    AdaHessian: 3 flagship steps at 2 + 2 + 2 x 16,000 points (ms beside
    phase 6's AdamW step, peak memory, 2 ``fps_cluster`` + 14 ``knn_split``
    a step), and its Hessian diagonal on the card against the CPU's (a
-   child process, ``--hessian-cpu``) at 1 + 1 + 1 clouds in float64 from
-   the same z, within ``SW_HESS_TOL``. (c) ``parse_and_run`` on the
-   flagship YAML with ``SW_TRAINER`` (lookahead AdamW, layer decay, an
+   child process, ``--hessian-cpu``) at 1 + 1 + 1 clouds and
+   ``CMP_TRUNK`` in float64 from the same z, within ``SW_HESS_TOL``. (c)
+   ``parse_and_run`` on the flagship YAML with ``SW_TRAINER`` (lookahead AdamW, layer decay, an
    update every 2 steps, a profiled epoch, uncached validation, wandb)
    on a Teeth3DS tree of 6 scans, 2 epochs of 3 steps: launches as the
    code implies, the trace names ``fps_cluster`` and ``knn_split``; then
@@ -276,6 +279,30 @@ Phases, each printed with the seconds elapsed when it starts:
    DeepGCN's rows (``DEEPGCN_ROWS_AGREE``: its feature search is float32
    on both); (d) the native ``grid_subsample`` of a 150,000-point scan
    against numpy, both timed. Prints its seconds.
+20. the data side. The main paths with the launch counts at 0: (a)
+   ``sample_pc`` on the card over trees of OFF meshes (deformed
+   icospheres, one-line headers among them) at 1,024 and 2,048 points: one
+   ``fps_cluster`` launch a mesh and no other kernel, each mesh's FPS of
+   its dense samples, (1, 4096) -> 1024 and (1, 8192) -> 2048, bit-equal to
+   ``fps_ref`` on the card, the PLY files read back through ``IO.get``
+   equal to those samples, kernel 1 timed kernel-only at both shapes; (b)
+   ``viewgen.yaml``'s model at full width over synthetic ``ShapeNet`` at
+   1,024 points with 128 x 128 renders: kernel 1 at (2, 1024) -> 512
+   bit-equal and timed, 5 steps (a launch each, step ms, peak memory), the
+   first step card against CPU: in float32 the loss
+   (``SHAPENET_STEP_RTOL``) and the encoder's features
+   (``SHAPENET_FEAT32_TOL``), in float64 the loss, the features and every
+   gradient (``SHAPENET_STEP64_TOL``, ``SHAPENET_GRAD64_TOL``);
+   ``parse_and_run`` for one epoch and its validation (a launch a step
+   and a val batch);
+   (c) ``pointnet2part.yaml`` with ``HERITAGE_MIX`` (Cutmix and the new
+   transforms) on its train split: the loader's batches equal with 1 and
+   4 threads, every batch mixed, 3 steps with phase 17's launches; (d)
+   ``class_contrast_loss`` with 1 and 6 subclasses and with teacher
+   features, ``pcc_top2_loss`` and ``pseudo_label_from_prototype`` at
+   (2, 16000, 64) and 17 classes, forward and backward, float32 ms and
+   peak memory, float64 card against CPU on the same draws within
+   ``CC64_TOL``; no kernel launches. Prints its seconds.
 Phase 3 also holds ``fps_cluster`` at the serving topology's prefix,
 (1|6, 16000) -> 1024 and a duplicate-heavy cloud, and ``knn_split`` at a
 fast scan's 6 searches, against their plain versions, with times and
@@ -313,6 +340,10 @@ import urllib.error
 import urllib.request
 
 T0 = time.perf_counter()
+# the script's own watchdog, under the 1,200 s a run may take: with the
+# host-bound phases the whole script ran 1,032 s on one machine and past
+# 1,100 s on another the same day
+WATCHDOG_S = 1170
 FP32_PEAK = 67e12        # H100 SXM fp32 outside the tensor cores, at 700 W
 HBM_PEAK = 3.35e12       # bytes/s
 FULL_POWER_W = 700.0
@@ -365,6 +396,105 @@ class Bound:
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
 
+
+# the flagship of the card-against-CPU steps (phases 6, 11, 16 (b) and
+# 18's semi step): stochastic depth and dropout off, the width (384)
+# kept, 3 of the 12 blocks. At full depth their CPU sides took 95, 134
+# and 166 s of a 1,032 s run on a slow host, and a slower one reached the
+# 1,100 s watchdog in phase 18; the timed steps stay at full depth
+CMP_TRUNK = {"drop_path_rate": 0.0, "head_dropout": 0.0, "depth": 3,
+             "extract_layers": [1, 2, 3]}
+
+# the CPU sides' plain searches, by their inputs' bytes (cpu_search_memo)
+_SEARCH_MEMO: dict = {}
+_SEARCH_STATS = {"hits": 0, "misses": 0}
+
+
+class cpu_search_memo:
+    """Inside ``with cpu_search_memo():`` the plain FPS and kNN of CPU
+    tensors (``ops.fps.fps_ref``, ``ops.knn._knn_tiled``) give a copy of
+    their earlier result for equal float32 inputs, computed once per
+    process. The card-against-CPU steps of phases 6, 11 and 16 (b) search
+    the same clouds in float32 and in float64 (the searches cast to
+    float32), and most of a CPU step is those loops. A result depends on
+    nothing but its inputs, so a hit is what a new call would return; an
+    input that needs a gradient, or a CUDA tensor, is searched as usual.
+    ``load`` merges a file that ``save`` wrote (for a child process)."""
+
+    def __init__(self, load=None):
+        self.load = load
+
+    @staticmethod
+    def _key(*parts):
+        import hashlib
+
+        import torch
+
+        h = hashlib.blake2b(digest_size=16)
+        for p in parts:
+            if isinstance(p, torch.Tensor):
+                t = p.detach().contiguous()
+                h.update(repr((tuple(t.shape), t.dtype)).encode())
+                h.update(t.numpy().tobytes())
+            else:
+                h.update(repr(p).encode())
+        return h.hexdigest()
+
+    @staticmethod
+    def _cached(compute, *parts):
+        """``compute()``, or a copy of its result for equal ``parts``."""
+        import torch
+
+        if any(isinstance(t, torch.Tensor) and (t.device.type != "cpu"
+                                                or t.requires_grad)
+               for t in parts):
+            return compute()
+        key = cpu_search_memo._key(*parts)
+        if key in _SEARCH_MEMO:
+            _SEARCH_STATS["hits"] += 1
+        else:
+            _SEARCH_STATS["misses"] += 1
+            _SEARCH_MEMO[key] = compute()
+        out = _SEARCH_MEMO[key]
+        return (tuple(o.clone() for o in out) if isinstance(out, tuple)
+                else out.clone())
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        fps_mod = importlib.import_module("geot_tpu_torch.ops.fps")
+        knn_mod = importlib.import_module("geot_tpu_torch.ops.knn")
+
+        if self.load and os.path.exists(self.load):
+            _SEARCH_MEMO.update(torch.load(self.load))
+        self.mods = (fps_mod, knn_mod)
+        self.real = (fps_mod.fps_ref, knn_mod._knn_tiled)
+        real_fps, real_knn = self.real
+
+        def fps_ref(xyz, npoint, weights=None):
+            # fps_ref searches xyz.float(): key on that
+            return self._cached(lambda: real_fps(xyz, npoint, weights),
+                                "fps", xyz.float(), weights, npoint)
+
+        def knn_tiled(query, support, k, tile=knn_mod._TILE):
+            return self._cached(lambda: real_knn(query, support, k, tile),
+                                "knn", query, support, k, tile)
+
+        fps_mod.fps_ref, knn_mod._knn_tiled = fps_ref, knn_tiled
+        return self
+
+    def __exit__(self, *exc):
+        fps_mod, knn_mod = self.mods
+        fps_mod.fps_ref, knn_mod._knn_tiled = self.real
+        return False
+
+    @staticmethod
+    def save(path):
+        import torch
+
+        torch.save(dict(_SEARCH_MEMO), path)
 
 # launches of one full-resolution upsample of a scan of 40,000 points or
 # more, (1, 40960 or more) x (1, 16000): knn_small_k's pruned route
@@ -1368,11 +1498,12 @@ def phase_train():
         f"changed; ema_t rows sum to 1")
 
     # card vs CPU: one step from the same state and batch, 1 + 1 + 1
-    # clouds, stochastic depth and dropout off; in float32, and in float64
-    # (the model and step in float64 around the float32 kernels), where
-    # rounding no longer hides what the two paths compute
+    # clouds, CMP_TRUNK; in float32, and in float64 (the model and step in
+    # float64 around the float32 kernels), where rounding no longer hides
+    # what the two paths compute. The CPU's float64 step finds its
+    # float32 searches' results in cpu_search_memo
     cfg1 = dict(cfg, batch_size_l=1, batch_size_u=1)
-    seg = dict(FLAGSHIP_SEG_ARGS, drop_path_rate=0.0, head_dropout=0.0)
+    seg = dict(FLAGSHIP_SEG_ARGS, **CMP_TRUNK)
     l1, u1 = build_semi_loaders(cfg1)
     for loader in (l1, u1):
         loader.set_epoch(epoch)
@@ -1394,7 +1525,9 @@ def phase_train():
                         for k, v in to_device(b, keys, name).items()}
                        for b, keys in ((bl, MODEL_KEYS), (bu, SEMI_KEYS))]
             t = time.perf_counter()
-            m = make_semi_step(cfg1)(st, *batches, lr, True)
+            seen = dict(_SEARCH_STATS)
+            with cpu_search_memo():
+                m = make_semi_step(cfg1)(st, *batches, lr, True)
             if name == "cuda":
                 torch.cuda.synchronize()
             secs = time.perf_counter() - t
@@ -1402,7 +1535,9 @@ def phase_train():
                 "loss", "sup_loss", "unsup_loss", "threed_loss")},
                 _adam_grads(st), st.ema_t.double().cpu())
             log(f"one {str(dt)[6:]} step, 1 + 1 + 1 clouds, on the {name}: "
-                f"{secs:.1f} s; losses {res[name][0]}")
+                f"{secs:.1f} s; losses {res[name][0]}; CPU searches "
+                + ", ".join(f"{k} {v - seen[k]}"
+                            for k, v in _SEARCH_STATS.items()))
         (lg, gg, eg), (lc, gc, ec) = res["cuda"], res["cpu"]
         rel = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lg}
         gmax = max(float(v.abs().max()) for v in gc.values())
@@ -2259,11 +2394,11 @@ def phase_branches(bound: Bound, cm):
                                                     True), 1, top=12)
 
     # card against CPU: one all-flags step from the same seeded state,
-    # 1 + 1 + 1 clouds, dropout off, the same contrast draws; in float32,
+    # 1 + 1 + 1 clouds, CMP_TRUNK, the same contrast draws; in float32,
     # and in float64 (the model and step in float64 around the float32
     # searches), as phase 6
     cfg1 = dict(base, batch_size_l=1, batch_size_u=1, **ALL_FLAGS)
-    seg = dict(FLAGSHIP_SEG_ARGS, drop_path_rate=0.0, head_dropout=0.0)
+    seg = dict(FLAGSHIP_SEG_ARGS, **CMP_TRUNK)
     bl1 = {k: v[:1].cpu() for k, v in pairs[0][0].items()}
     bu1 = {k: v[:1].cpu() for k, v in pairs[0][1].items() if k != "cur"}
     gen = torch.Generator().manual_seed(11)
@@ -2297,15 +2432,18 @@ def phase_branches(bound: Bound, cm):
                 j = lo + int((conf[lo + 1:hi] - conf[lo:hi - 1]).argmax())
                 th = float((conf[j] + conf[j + 1]) / 2)
             t = time.perf_counter()
-            m = make_semi_step(dict(cfg1, contrast_threshold=th))(
-                st, b_l, b_u, lr, True,
-                draws={"contrast": tuple(d.to(name) for d in draws)})
+            seen = dict(_SEARCH_STATS)
+            with cpu_search_memo():
+                m = make_semi_step(dict(cfg1, contrast_threshold=th))(
+                    st, b_l, b_u, lr, True,
+                    draws={"contrast": tuple(d.to(name) for d in draws)})
             terms = {k: float(m[k]) for k in _LOSS_TERMS}
             res[name] = (terms, int(st.contrast.ptr),
                          st.ema_t.double().cpu())
             log(f"all-flags {str(dt)[6:]} step, 1 + 1 + 1 clouds, on the "
                 f"{name}: {time.perf_counter() - t:.1f} s; {terms}; bank "
-                f"ptr {res[name][1]}")
+                f"ptr {res[name][1]}; CPU searches " + ", ".join(
+                    f"{k} {v - seen[k]}" for k, v in _SEARCH_STATS.items()))
         (lg, pg, eg), (lc, pc, ec) = res["cuda"], res["cpu"]
         # the feature-space term sums +1 and -1 weighted distances over
         # 17-channel neighbour sets, which follow the float32 rounding of
@@ -4424,7 +4562,7 @@ dist.shutdown()
 
 def _hessian_cpu_case():
     """The float64 AdaHessian semi step's inputs, the same in every process:
-    a seeded state at 1 + 1 + 1 clouds (dropout off), its batch, and ``z``
+    a seeded state at 1 + 1 + 1 clouds (``CMP_TRUNK``), its batch, and ``z``
     from a seeded CPU generator by parameter name."""
     import torch
 
@@ -4435,7 +4573,7 @@ def _hessian_cpu_case():
     cfg = dict(FLAGSHIP_SEMI_CFG, batch_size_l=1, batch_size_u=1,
                optimizer=dict(FLAGSHIP_SEMI_CFG["optimizer"],
                               NAME="adahessian"))
-    seg = dict(FLAGSHIP_SEG_ARGS, drop_path_rate=0.0, head_dropout=0.0)
+    seg = dict(FLAGSHIP_SEG_ARGS, **CMP_TRUNK)
     loaders = build_semi_loaders(cfg)
     for loader in loaders:
         loader.set_epoch(1)
@@ -4478,15 +4616,18 @@ def _hessian_step(device):
                                       "threed_loss")}, diag, mu)
 
 
-def hessian_cpu(path: str) -> int:
-    """``--hessian-cpu PATH`` (phase 16 runs it in a child process, beside
-    the card's work): ``_hessian_step`` on the CPU, saved to PATH."""
+def hessian_cpu(path: str, memo: str | None = None) -> int:
+    """``--hessian-cpu PATH [MEMO]`` (phase 16 runs it in a child process,
+    beside the card's work): ``_hessian_step`` on the CPU, saved to PATH,
+    with the searches of MEMO (``cpu_search_memo.save``) known."""
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t = time.perf_counter()
-    out = _hessian_step("cpu")
-    torch.save({"out": out, "seconds": time.perf_counter() - t}, path)
+    with cpu_search_memo(load=memo):
+        out = _hessian_step("cpu")
+    torch.save({"out": out, "seconds": time.perf_counter() - t,
+                "searches": dict(_SEARCH_STATS)}, path)
     return 0
 
 
@@ -4564,9 +4705,13 @@ def phase_switches(bound: Bound, train):
         # (b)'s CPU side, in a child beside the card's work
         hess_path = os.path.join(root, "hessian_cpu.pt")
         hess_out = open(os.path.join(root, "hessian_cpu.out"), "w")
+        # the searches of phase 6's CPU steps, whose clouds (b) shares
+        memo_path = os.path.join(root, "cpu_searches.pt")
+        cpu_search_memo.save(memo_path)
         hess_child = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--hessian-cpu",
-             hess_path], cwd=here, stdout=hess_out, stderr=subprocess.STDOUT,
+             hess_path, memo_path], cwd=here, stdout=hess_out,
+            stderr=subprocess.STDOUT,
             env=dict(os.environ, OMP_NUM_THREADS="4"))
         children.append(hess_child)
 
@@ -4860,8 +5005,9 @@ def phase_switches(bound: Bound, train):
         d_err, d_at = _rel_max(card_diag, cpu_diag, _ZERO_GRAD)
         g_err, g_at = _rel_max(card_mu, cpu_mu, _ZERO_GRAD)
         log(f"(b) float64, 1 + 1 + 1 clouds, the same z: card {card_s:.1f} "
-            f"s, CPU {saved['seconds']:.1f} s in its child (waited "
-            f"{time.perf_counter() - t:.1f} s); loss terms relative "
+            f"s, CPU {saved['seconds']:.1f} s in its child (searches "
+            f"{saved['searches']}; waited {time.perf_counter() - t:.1f} s); "
+            f"loss terms relative "
             + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
             + f"; |diag| worst tensor {d_err:.3e} ({d_at}); first moment "
             f"{g_err:.3e} ({g_at})")
@@ -5417,9 +5563,8 @@ def _reg_sup_step64(variant, batch_np, lr, dev):
 def _reg_semi_step64(cm, lr, dev, criterion_u=None,
                      model_name="WholePartSeg_ntm"):
     """One float64 semi step of the recipe with ``model_name`` as student
-    and teacher on 1 + 1 + 1 clouds on ``dev``, stochastic depth and
-    dropout off, as phase 6's: (loss terms, name -> first moment, ema_t,
-    seconds)."""
+    and teacher on 1 + 1 + 1 clouds on ``dev``, ``CMP_TRUNK``, as phase
+    6's: (loss terms, name -> first moment, ema_t, seconds)."""
     import torch
 
     from geot_tpu_torch import FLAGSHIP_SEG_ARGS
@@ -5430,7 +5575,7 @@ def _reg_semi_step64(cm, lr, dev, criterion_u=None,
     from geot_tpu_torch.engine.steps import make_semi_step
 
     cfg = _reg_semi_cfg(criterion_u, batch_size_l=1, batch_size_u=1)
-    seg = dict(FLAGSHIP_SEG_ARGS, drop_path_rate=0.0, head_dropout=0.0)
+    seg = dict(FLAGSHIP_SEG_ARGS, **CMP_TRUNK)
     l1, u1 = build_semi_loaders(cfg)
     for loader in (l1, u1):
         loader.set_epoch(1)
@@ -6314,6 +6459,559 @@ def phase_reference(bound: Bound):
             gcn_peak, "compare": compare, "seconds": seconds}
 
 
+# --- phase 20: the data side ------------------------------------------------
+
+# the OFF mesh trees of sample_pc: meshes a split at each sample size (the
+# dense samples are 4x: (1, 4096) -> 1024 and (1, 8192) -> 2048)
+SAMPLE_PC_TREES = {1024: {"train": 2, "test": 1}, 2048: {"train": 2}}
+# ShapeNet pretraining: viewgen.yaml's model at full width over synthetic
+# ShapeNet clouds of 1,024 points with 128 x 128 renders (the decoder's)
+SHAPENET_OPTS = ("dataset.common.NAME=ShapeNet",
+                 "dataset.common.num_points=1024", "num_points=1024",
+                 "dataset.common.img_size=128")
+# the first step's loss, card against CPU (dropout and stochastic depth
+# off): tests/test_torch_trainer_switches.py's PRETRAIN_LOSS_RTOL
+SHAPENET_STEP_RTOL = 1e-5
+# the encoder's tapped features before that step, max |d| over max |f|, in
+# float32: 12 blocks of float32 rounding (~1e-6) with room; in float64 the
+# loss and those features (the searches are float32 on both, so equal)
+# within SHAPENET_STEP64_TOL and every gradient within
+# SHAPENET_GRAD64_TOL of its tensor's largest entry (at least 1e-6 of the
+# largest of all: a bias before BatchNorm has none)
+SHAPENET_FEAT32_TOL = 1e-4
+SHAPENET_STEP64_TOL = 1e-10
+SHAPENET_GRAD64_TOL = 1e-6
+# the heritage loader with Cutmix and the new transforms that apply to
+# ShapeNetPartNormal's items (pos, normals in x, per-point y), train split
+HERITAGE_MIX = {"train": ["PointsToTensor", "PointCloudScaleAndTranslate",
+                          "RandomDropout", "PointCloudJitter", "Cutmix"],
+                "kwargs": {"prob": 1.0, "dropout_application_ratio": 0.5,
+                           "mirror": (0.5, -1, -1)}}
+# the cluster-contrast family on the card: (B, N, D) features, 17 classes,
+# geot_tpu's defaults otherwise; float64 card against CPU on the same
+# draws: loss and gradient relative to their largest entry, the new
+# centres and queues (unit rows) absolute
+CC_SHAPE = (2, 16000, 64)
+CC_CLASSES = 17
+CC64_TOL = 1e-9
+
+
+def _icosphere(level: int):
+    """A unit icosphere subdivided ``level`` times: (verts, faces)."""
+    import numpy as np
+
+    t = (1.0 + 5 ** 0.5) / 2
+    verts = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t),
+             (0, 1, t), (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1),
+             (-t, 0, -1), (-t, 0, 1)]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    verts = [np.asarray(v, np.float64) / np.linalg.norm(v) for v in verts]
+    for _ in range(level):
+        mid, out = {}, []
+
+        def middle(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                m = verts[a] + verts[b]
+                verts.append(m / np.linalg.norm(m))
+                mid[key] = len(verts) - 1
+            return mid[key]
+
+        for a, b, c in faces:
+            ab, bc, ca = middle(a, b), middle(b, c), middle(c, a)
+            out += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = out
+    return np.stack(verts), np.asarray(faces, np.int64)
+
+
+def _write_mesh_tree(root, sizes, seed):
+    """OFF meshes (deformed icospheres of 2,562 vertices, every other one
+    with the one-line ``OFF n m 0`` header) for each split of ``sizes``;
+    returns their paths by split."""
+    import numpy as np
+
+    verts0, faces = _icosphere(4)
+    rng = np.random.default_rng(seed)
+    paths = {}
+    for split, count in sizes.items():
+        os.makedirs(os.path.join(root, split))
+        for i in range(count):
+            scale = rng.uniform(0.5, 2.0, 3)
+            bump = 1 + 0.2 * np.sin(rng.uniform(1, 6) * verts0[:, :1])
+            v = verts0 * scale * bump
+            head = (f"OFF {len(v)} {len(faces)} 0\n" if i % 2 else
+                    f"OFF\n{len(v)} {len(faces)} 0\n")
+            p = os.path.join(root, split, f"mesh{i:02d}.off")
+            with open(p, "w") as f:
+                f.write(head + "".join(f"{a:.6f} {b:.6f} {c:.6f}\n"
+                                       for a, b, c in v)
+                        + "".join(f"3 {a} {b} {c}\n" for a, b, c in faces))
+            paths.setdefault(split, []).append(p)
+    return paths
+
+
+def _data_sample_pc(bound: Bound, root: str):
+    """(a) ``sample_pc`` on the card over OFF trees at 1,024 and 2,048
+    points: the main path with the launch counts at 0 (one ``fps_cluster``
+    a mesh, no other kernel), then each mesh's FPS against ``fps_ref`` on
+    the card and the PLY files read back through ``IO.get``, and kernel 1
+    timed kernel-only at both shapes."""
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.data.io import IO
+    from geot_tpu_torch.data.sample_pc import (dense_surface_samples,
+                                               read_off, sample_pc)
+    from geot_tpu_torch.ops.fps import card_cluster_size
+
+    dev = torch.device("cuda")
+    trees, launches, ms = {}, {}, {}
+    for n_pts, sizes in SAMPLE_PC_TREES.items():
+        tree = os.path.join(root, f"meshes_{n_pts}")
+        trees[n_pts] = _write_mesh_tree(tree, sizes, 200 + n_pts)
+        n_mesh = sum(sizes.values())
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        sample_pc(tree, n_pts, device="cuda")
+        torch.cuda.synchronize()
+        ms[n_pts] = (time.perf_counter() - t) * 1e3
+        got = dict(ops.LAUNCHES)
+        want = _launch_counts(fps_cluster=n_mesh)
+        check(got == want, f"sample_pc {n_pts}: launches {got}, expected "
+              f"{want}")
+        launches[n_pts] = got["fps_cluster"]
+    rows = {}
+    for n_pts, paths in trees.items():
+        plan = ops.fps_plan(4 * n_pts, card_cluster_size(dev, 1))
+        for split, files in paths.items():
+            for p in files:
+                verts, faces = read_off(p)
+                dense = dense_surface_samples(verts, faces, 4 * n_pts,
+                                              np.random.default_rng(0))
+                x = torch.from_numpy(dense[None]).to(dev)
+                got = ops.fps(x, n_pts)
+                ref = ops.fps_ref(x, n_pts)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref), f"sample_pc {p}: FPS differs "
+                      f"from fps_ref at {int((got != ref).sum())} places")
+                ply = p.replace(os.sep + split + os.sep,
+                                os.sep + "pointclouds" + os.sep + split
+                                + os.sep).replace(".off", ".ply")
+                back = IO.get(ply)
+                check(back.dtype == np.float32 and np.array_equal(
+                    back, dense[ref[0].cpu().numpy()]),
+                    f"sample_pc {ply}: the PLY is not the FPS samples")
+        kernel_ms = graph_ms(lambda: ops.fps(x, n_pts), 10)
+        plain = cuda_ms(lambda: ops.fps_ref(x, n_pts), 1)
+        b_ms, b_by = _fps_bound(bound, 1, 4 * n_pts, n_pts)
+        rows[n_pts] = {"ms": kernel_ms, "plain_ms": plain, "bound_ms": b_ms,
+                       "bound_by": b_by, "max_abs_err": 0.0,
+                       "launches": launches[n_pts], "plan": list(plan)}
+        log(f"sample_pc {n_pts}: {sum(map(len, paths.values()))} meshes in "
+            f"{ms[n_pts]:.1f} ms, {launches[n_pts]} fps_cluster launches; "
+            f"FPS (1,{4 * n_pts})->{n_pts} plan {plan.route} C={plan.C}, "
+            f"bit-equal to fps_ref, PLYs read back; kernel "
+            f"{kernel_ms:.4f} ms, plain {plain:.1f} ms, bound {b_ms:.5f} ms "
+            f"({b_by})")
+    return rows, ms
+
+
+def _data_shapenet(bound: Bound, root: str):
+    """(b) ShapeNet pretraining at ``viewgen.yaml``'s width over synthetic
+    ShapeNet at 1,024 points: kernel 1 at the tokenizer's (2, 1024) -> 512
+    against ``fps_ref``; 5 steps timed (a launch each, peak memory); the
+    first step's loss card against CPU; ``parse_and_run`` for one epoch and
+    its validation with the launches it implies."""
+    import copy
+
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.core.config import EasyConfig
+    from geot_tpu_torch.data.build import build_dataloader_from_cfg
+    from geot_tpu_torch.engine import train as train_mod
+    from geot_tpu_torch.engine.pretrain import (make_pretrain_step,
+                                                pretrain_batch)
+    from geot_tpu_torch.engine.state import TrainState
+    from geot_tpu_torch.optim import build_scheduler_from_cfg
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    viewgen = os.path.join(here, "cfgs", "tooth_pretrain", "viewgen.yaml")
+    cfg = EasyConfig()
+    cfg.load(viewgen, recursive=True)
+    cfg.update(list(SHAPENET_OPTS))
+    dev = torch.device("cuda")
+    B, G = int(cfg.batch_size), int(cfg.model.encoder_args.num_group)
+    loader = build_dataloader_from_cfg(B, cfg.dataset, None, split="train",
+                                       seed=int(cfg.seed))
+    loader.set_epoch(1)
+    batches = [b for _, b in zip(range(5), loader)]
+    N = batches[0]["pos"].shape[1]
+    check(batches[0]["imgs"].shape[2:4] == (128, 128),
+          f"ShapeNet renders {batches[0]['imgs'].shape}")
+    pos = torch.from_numpy(batches[0]["pos"]).to(dev).contiguous()
+    got, ref = ops.fps(pos, G), ops.fps_ref(pos, G)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"fps ({B},{N})->{G}: indices differ from "
+          f"fps_ref at {int((got != ref).sum())} places")
+    kernel_ms = graph_ms(lambda: ops.fps(pos, G), 10)
+    plain = cuda_ms(lambda: ops.fps_ref(pos, G), 1)
+    b_ms, b_by = _fps_bound(bound, B, N, G)
+    row = {"ms": kernel_ms, "plain_ms": plain, "bound_ms": b_ms,
+           "bound_by": b_by, "max_abs_err": 0.0}
+
+    one = _launch_counts(fps_cluster=1)
+    state = TrainState.create(cfg, cfg.model, seed=int(cfg.seed), device=dev)
+    step = make_pretrain_step(cfg)
+    lr = build_scheduler_from_cfg(cfg)(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    step_ms, launched = [], 0
+    for n, b in enumerate(batches):
+        b = pretrain_batch(b, dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        loss = float(step(state, b, lr)["loss"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        check(math.isfinite(loss), f"ShapeNet pretrain step {n}: {loss}")
+        check(dict(ops.LAUNCHES) == one, f"ShapeNet pretrain step {n}: "
+              f"launches {dict(ops.LAUNCHES)}, expected {one}")
+        launched += 1
+    peak_mb = (torch.cuda.max_memory_allocated() - resident) / 2 ** 20
+    del state
+    torch.cuda.empty_cache()
+
+    # the first step from the same weights and batch, card and CPU, in
+    # float32 and in float64. At random init the decoder's sigmoid sits
+    # near 0.5, where a float32 step is 6e-8: most pixels, and so the
+    # float32 loss, come out bit-equal whatever the trunk's last bits, so
+    # the trunk's own output (the encoder's tapped features, eval mode,
+    # before the step) is held too, and in float64 the loss, those
+    # features and every gradient
+    nd = copy.deepcopy(cfg)
+    nd.update(["model.encoder_args.drop_path_rate=0.0"])
+    step_nd = make_pretrain_step(nd)
+    first = {}
+    for dt in (torch.float32, torch.float64):
+        res = {}
+        for name in ("cuda", "cpu"):
+            st = TrainState.create(nd, nd.model, seed=int(cfg.seed),
+                                   device=name)
+            if name == "cuda":
+                weights = {k: v.clone()
+                           for k, v in st.model.state_dict().items()}
+            else:
+                st.model.load_state_dict(weights)
+            st.model.to(dt)
+            b = {k: (v.to(dt) if v.is_floating_point() else v)
+                 for k, v in pretrain_batch(batches[0], name).items()}
+            st.model.eval()
+            with torch.no_grad():
+                feats = st.model.encoder.forward_cls_feat(b)[0]
+            ops.reset_launches()
+            t = time.perf_counter()
+            with cpu_search_memo():
+                loss = float(step_nd(st, b, lr)["loss"])
+            secs = time.perf_counter() - t
+            if name == "cuda":
+                check(dict(ops.LAUNCHES) == one,
+                      f"ShapeNet card step launches {dict(ops.LAUNCHES)}")
+                launched += 1
+            res[name] = (loss, feats.double().cpu(), secs, {
+                n: p.grad.double().cpu()
+                for n, p in st.model.named_parameters()
+                if p.grad is not None})
+            del st
+        (lg, fg, _, gg), (lc, fc, cpu_s, gc) = res["cuda"], res["cpu"]
+        gmax = max(float(v.abs().max()) for v in gc.values())
+        grad = max((float((gg[n] - v).abs().max())
+                    / max(float(v.abs().max()), 1e-6 * gmax), n)
+                   for n, v in gc.items())
+        first[str(dt)[6:]] = {
+            "card": lg, "cpu": lc, "rel": abs(lg - lc) / abs(lc),
+            "feats": float((fg - fc).abs().max() / fc.abs().max()),
+            "grad": grad, "grads": (len(gg), len(gc)), "cpu_s": cpu_s}
+    torch.cuda.empty_cache()
+    f32, f64 = first["float32"], first["float64"]
+    log("ShapeNet first step card vs CPU: " + "; ".join(
+        f"{k} loss {v['card']!r} vs {v['cpu']!r} ({v['rel']:.2e} "
+        f"relative), encoder features max |d| / max |f| {v['feats']:.2e}, "
+        f"worst gradient {v['grad'][0]:.2e} ({v['grad'][1]}), CPU step "
+        f"{v['cpu_s']:.1f} s" for k, v in first.items()))
+    check(f32["rel"] <= SHAPENET_STEP_RTOL, f"ShapeNet first step card vs "
+          f"CPU, float32 loss: {f32}")
+    check(f32["feats"] <= SHAPENET_FEAT32_TOL, f"ShapeNet encoder features "
+          f"card vs CPU, float32: {f32['feats']:.3e}")
+    check(f64["grads"][0] == f64["grads"][1] > 0, f"ShapeNet gradients: "
+          f"{f64['grads']} tensors on the card and the CPU")
+    check(f64["rel"] <= SHAPENET_STEP64_TOL
+          and f64["feats"] <= SHAPENET_STEP64_TOL
+          and f64["grad"][0] <= SHAPENET_GRAD64_TOL,
+          f"ShapeNet first step card vs CPU, float64: {f64}")
+    rel = f32["rel"]
+
+    # the trainer: one epoch and its validation
+    steps = len(loader)
+    val_loader = build_dataloader_from_cfg(
+        int(cfg.batch_size_val), cfg.dataset, None, split="val")
+    n_val = len(val_loader)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = train_mod.parse_and_run(["--cfg", viewgen, *SHAPENET_OPTS,
+                                   "epochs=1", "val_freq=1",
+                                   f"root_dir={root}", "device=cuda"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    want = _launch_counts(fps_cluster=steps + n_val)
+    check(dict(ops.LAUNCHES) == want, f"ShapeNet trainer launches "
+          f"{dict(ops.LAUNCHES)}, expected {want}")
+    check(math.isfinite(res["val_loss"]), f"ShapeNet trainer {res}")
+    launched += steps + n_val
+    row["launches"] = launched
+    log(f"ShapeNet pretraining (viewgen.yaml width, {N} points, batch {B}): "
+        f"fps ({B},{N})->{G} bit-equal to fps_ref, kernel {kernel_ms:.4f} "
+        f"ms, plain {plain:.1f} ms, bound {b_ms:.5f} ms ({b_by}); steps "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} ms (median after the "
+        f"first {statistics.median(step_ms[1:]):.2f}), peak {peak_mb:.0f} "
+        f"MiB above the resident {resident / 2 ** 20:.0f} MiB; first step "
+        f"card vs CPU float32 {rel:.2e} relative (bound "
+        f"{SHAPENET_STEP_RTOL}); trainer {steps} steps + {n_val} val "
+        f"batches in {run_s:.1f} s, val loss {res['val_loss']:.6f}")
+    return row, {"step_ms": step_ms, "peak_mb": peak_mb, "run_s": run_s,
+                 "first_step_rel": rel, "first_step": first,
+                 "val_loss": res["val_loss"]}
+
+
+def _data_heritage_mix():
+    """(c) ``pointnet2part.yaml`` with ``HERITAGE_MIX`` on its train split:
+    the loader's Cutmix, batches equal with 1 thread and the config's
+    threads, mixed (against ``prob`` 0), then 3 steps on the card with the
+    launches of phase 17."""
+    import numpy as np
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.data.build import build_dataloader_from_cfg
+    from geot_tpu_torch.engine import partseg as partseg_mod
+    from geot_tpu_torch.engine.state import TrainState
+    from geot_tpu_torch.engine.steps import make_supervised_step
+    from geot_tpu_torch.optim import build_scheduler_from_cfg
+
+    dev = torch.device("cuda")
+    cfg = _zoo_cfg_at(_heritage_path("pointnet2part"), "seed=0")
+    cfg.datatransforms = HERITAGE_MIX
+
+    def batches(tf, workers):
+        loader = build_dataloader_from_cfg(
+            int(cfg.batch_size), cfg.dataset, tf, split="trainval", seed=0,
+            dataloader_cfg={"num_workers": workers}, is_train=True)
+        loader.set_epoch(1)
+        return loader, [b for _, b in zip(range(3), loader)]
+
+    loader, mixed = batches(HERITAGE_MIX, 4)
+    check([type(m).__name__ for m in loader.batch_mixers] == ["Cutmix"],
+          f"heritage loader mixers {loader.batch_mixers}")
+    _, one_thread = batches(HERITAGE_MIX, 1)
+    _, unmixed = batches(dict(HERITAGE_MIX, kwargs=dict(
+        HERITAGE_MIX["kwargs"], prob=0.0)), 4)
+    for a, b in zip(mixed, one_thread):
+        check(set(a) == set(b) and all(np.array_equal(a[k], b[k])
+                                       for k in a),
+              "heritage batches differ with 1 and 4 loader threads")
+    check(all(not np.array_equal(a["y"], u["y"])
+              for a, u in zip(mixed, unmixed)), "Cutmix mixed no batch")
+    state = TrainState.create(cfg, cfg.model, seed=0, device=dev)
+    step = make_supervised_step(cfg)
+    lr = build_scheduler_from_cfg(cfg)(1)
+    f, k = _HERITAGE_PER_FORWARD["pointnet2part"]
+    want = _launch_counts(fps_cluster=f, knn_split=k)
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    step_ms = []
+    for n, b in enumerate(mixed):
+        b = partseg_mod._batch(b, dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        loss = float(step(state, b, lr)["loss"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        check(math.isfinite(loss), f"mixed heritage step {n}: {loss}")
+        check(dict(ops.LAUNCHES) == want, f"mixed heritage step {n}: "
+              f"launches {dict(ops.LAUNCHES)}, expected {want}")
+        for key, v in ops.LAUNCHES.items():
+            total[key] += v
+    del state
+    torch.cuda.empty_cache()
+    log(f"pointnet2part with {HERITAGE_MIX['train']}: batches equal with 1 "
+        f"and 4 threads, each mixed; steps "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} ms, launches a step "
+        f"{want}")
+    return total, step_ms
+
+
+def _cc_inputs(seed: int):
+    import numpy as np
+
+    B, N, D = CC_SHAPE
+    rng = np.random.default_rng(seed)
+    pred = rng.integers(0, CC_CLASSES, (B, N))
+    return {"feats": rng.standard_normal((B, N, D)),
+            "teacher": rng.standard_normal((B, N, D)),
+            "pred": pred,
+            "label": np.where(rng.uniform(size=(B, N)) < 0.8, pred,
+                              rng.integers(0, CC_CLASSES, (B, N))),
+            "conf": rng.uniform(size=(B, N)),
+            "label2": rng.integers(0, CC_CLASSES, (B, N)),
+            "mask": rng.uniform(size=(B, N)) < 0.3}
+
+
+def _cc_run(kind, K, data, state, draws, dev, dtype):
+    """One forward and backward of ``kind`` on ``dev`` in ``dtype``:
+    (loss, the feature gradient, the new state or None, ms)."""
+    import torch
+
+    from geot_tpu_torch.losses import cluster_contrast as cc
+
+    def t(x):
+        x = torch.from_numpy(x).to(dev)
+        return x.to(dtype) if x.is_floating_point() else x
+
+    st = cc.ClassContrastState(state.centers.to(dev, dtype),
+                               state.queues.to(dev, dtype),
+                               state.ptrs.to(dev))
+    dr = tuple(d.to(dev, dtype) for d in draws)
+    feats = t(data["feats"]).requires_grad_()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if kind == "pcc_top2":
+        loss = cc.pcc_top2_loss(st, feats, t(data["pred"]),
+                                t(data["label2"]), t(data["mask"]),
+                                t(data["conf"]), CC_CLASSES, K,
+                                draws=dr[0])
+        new = None
+    else:
+        loss, new = cc.class_contrast_loss(
+            st, feats, t(data["pred"]), t(data["label"]), t(data["conf"]),
+            num_classes=CC_CLASSES, subclasses=K,
+            teacher_feats=t(data["teacher"]) if kind == "teacher" else None,
+            draws=dr)
+    loss.backward()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return loss.detach().cpu(), feats.grad.cpu(), new, (
+        time.perf_counter() - t0) * 1e3
+
+
+def _data_cluster_contrast():
+    """(d) the cluster-contrast family on the card at ``CC_SHAPE``:
+    ``class_contrast_loss`` with 1 and 6 subclasses and with teacher
+    features, ``pcc_top2_loss`` and ``pseudo_label_from_prototype``,
+    forward and backward; ms and peak memory in float32 (the second of two
+    runs), then float64 card against CPU on the same draws and state."""
+    import torch
+
+    from geot_tpu_torch import ops
+    from geot_tpu_torch.losses import cluster_contrast as cc
+
+    dev = torch.device("cuda")
+    data = _cc_inputs(210)
+    B, N, D = CC_SHAPE
+    out = {}
+    ops.reset_launches()
+    for kind, K in (("class", 1), ("subclass", 6), ("teacher", 6),
+                    ("pcc_top2", 6)):
+        gen = torch.Generator().manual_seed(211 + K)
+        state = cc.ClassContrastState.create(gen, CC_CLASSES * K, D,
+                                             dtype=torch.float64)
+        M = B * CC_CLASSES * K * (100 // K if K > 1 else 100)
+        draws = (torch.rand((B, N), generator=gen, dtype=torch.float64),
+                 torch.rand((M,), generator=gen, dtype=torch.float64))
+        _cc_run(kind, K, data, state, draws, dev, torch.float32)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, _, _, ms32 = _cc_run(kind, K, data, state, draws, dev,
+                                torch.float32)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        lg, gg, ng, ms64 = _cc_run(kind, K, data, state, draws, dev,
+                                   torch.float64)
+        lc, gc, nc, cpu_ms = _cc_run(kind, K, data, state, draws,
+                                     torch.device("cpu"), torch.float64)
+        err = {"loss": float((lg - lc).abs() / lc.abs()),
+               "grad": float((gg - gc).abs().max() / gc.abs().max())}
+        if nc is not None:
+            check(torch.equal(ng.ptrs.cpu(), nc.ptrs),
+                  f"cluster contrast {kind}: queue pointers card vs CPU")
+            err["centers"] = float((ng.centers.cpu() - nc.centers).abs()
+                                   .max())
+            err["queues"] = float((ng.queues.cpu() - nc.queues).abs().max())
+        check(all(math.isfinite(v) and v <= CC64_TOL for v in err.values())
+              and math.isfinite(float(lg)),
+              f"cluster contrast {kind} (K={K}) float64 card vs CPU {err}")
+        if kind == "subclass":
+            fe = torch.from_numpy(data["feats"])
+            pg, zg = cc.pseudo_label_from_prototype(
+                cc.ClassContrastState(state.centers.to(dev), None, None),
+                fe.to(dev), CC_CLASSES, K)
+            pc, zc = cc.pseudo_label_from_prototype(state, fe, CC_CLASSES,
+                                                    K)
+            err["pseudo_logits"] = float((zg.cpu() - zc).abs().max())
+            check(torch.equal(pg.cpu(), pc) and err["pseudo_logits"]
+                  <= CC64_TOL, f"pseudo labels card vs CPU {err}")
+        out[f"{kind}_K{K}"] = {"ms_float32": ms32, "peak_mb_float32": peak,
+                               "ms_float64": ms64, "cpu_ms_float64": cpu_ms,
+                               "err_float64": err, "loss": float(lg)}
+        log(f"cluster contrast {kind} K={K} {CC_SHAPE}: float32 fwd+bwd "
+            f"{ms32:.1f} ms, peak {peak:.0f} MiB; float64 card {ms64:.1f} "
+            f"ms, CPU {cpu_ms:.0f} ms; card vs CPU {err} (bound {CC64_TOL})")
+    check(dict(ops.LAUNCHES) == _launch_counts(),
+          f"cluster contrast launched kernels {dict(ops.LAUNCHES)}")
+    return out
+
+
+def phase_data(bound: Bound):
+    """Phase 20: the data side. (a) ``sample_pc`` over OFF trees, (b)
+    ShapeNet pretraining at full width, (c) a heritage loader with Cutmix,
+    (d) the cluster-contrast family. Each main path runs with the launch
+    counts at 0 and is read just after."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    log("phase 20: the data side (sample_pc, ShapeNet pretraining, the "
+        "heritage loader's Cutmix, cluster contrast)")
+    root = tempfile.mkdtemp(prefix="geot_data_side_")
+    try:
+        rows, sample_ms = _data_sample_pc(bound, root)
+        shapenet_row, shapenet = _data_shapenet(bound, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    heritage, mix_step_ms = _data_heritage_mix()
+    contrast = _data_cluster_contrast()
+    seconds = time.perf_counter() - t_phase
+    launches = _launch_counts(fps_cluster=sum(r["launches"]
+                                              for r in rows.values())
+                              + shapenet_row["launches"])
+    for key, v in heritage.items():
+        launches[key] += v
+    log(f"phase 20: {seconds:.1f} s; launches {launches}")
+    return {"kernels": {"sample_pc_1024": rows[1024],
+                        "sample_pc_2048": rows[2048],
+                        "shapenet_pretrain": shapenet_row},
+            "launches": launches, "sample_pc_ms": sample_ms,
+            "shapenet": shapenet, "mix_step_ms": mix_step_ms,
+            "cluster_contrast": contrast, "seconds": seconds}
+
+
 # --dp-step-ms: phase 14's two-rank flagship trainer (gloo, both ranks on
 # one card, the global batch 2 + 2 + 2 at 16,000 points) for 8 steps, in
 # each checkout given, in the order given: to compare two commits on one
@@ -6494,13 +7192,14 @@ def main() -> int:
         at = sys.argv.index("--resume-check")
         return resume_check(sys.argv[at + 1], sys.argv[at + 2:])
     if "--hessian-cpu" in sys.argv[1:]:
-        return hessian_cpu(sys.argv[sys.argv.index("--hessian-cpu") + 1])
+        at = sys.argv.index("--hessian-cpu")
+        return hessian_cpu(*sys.argv[at + 1:at + 3])
     if "--dp-step-ms" in sys.argv[1:]:
         return dp_step_ms(sys.argv[sys.argv.index("--dp-step-ms") + 1:])
     if "--resume-spread" in sys.argv[1:]:
         return resume_spread(int(
             sys.argv[sys.argv.index("--resume-spread") + 1]))
-    faulthandler.dump_traceback_later(1100, exit=True)
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     name, smi, limit_w = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -6522,6 +7221,7 @@ def main() -> int:
     heritage = phase_heritage(Bound(limit_w))
     registry = phase_registry(Bound(limit_w), train["semi64_ref"])
     reference = phase_reference(Bound(limit_w))
+    data = phase_data(Bound(limit_w))
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
     # launches on the main paths: 3 served scans, the train run (2 cm
@@ -6543,7 +7243,7 @@ def main() -> int:
         f"{switches['launches']}, the heritage tasks "
         f"{heritage['launches']}, the rest of the registry "
         f"{registry['launches']}, the reference layer and op API "
-        f"{reference['launches']}")
+        f"{reference['launches']}, the data side {data['launches']}")
 
     def entry(name, replaces, source=None):
         return {"name": name, "route": "cuda",
@@ -6561,7 +7261,8 @@ def main() -> int:
                              + switches["launches"][name]
                              + heritage["launches"][name]
                              + registry["launches"][name]
-                             + reference["launches"][name]),
+                             + reference["launches"][name]
+                             + data["launches"][name]),
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
                 "launches_trainer_run": trainer["launches"][name],
@@ -6577,6 +7278,7 @@ def main() -> int:
                 "launches_heritage_tasks": heritage["launches"][name],
                 "launches_registry_rest": registry["launches"][name],
                 "launches_reference_layers": reference["launches"][name],
+                "launches_data_side": data["launches"][name],
                 "library_ms": None, **recs[name]}
 
     kernels = [
@@ -6713,6 +7415,22 @@ def main() -> int:
          "replaces": "geot_tpu/ops/pallas_knn.py:98", "library_ms": None,
          "launches": reference["launches_by_shape"]["knn_compat_2x16000_k3"],
          **reference["kernels"]["knn_compat"]},
+        # kernel 1 on the data side (phase 20): sample_pc's thinning of a
+        # mesh's dense samples, (1, 4096) -> 1024 and (1, 8192) -> 2048 (a
+        # launch a mesh), and ViewGen's tokenizer over ShapeNet, (2, 1024)
+        # -> 512 (a launch a step and validation batch)
+        {"name": "fps_cluster_sample_pc_1x4096_1024", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/fps_cluster.cu",
+         "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
+         **data["kernels"]["sample_pc_1024"]},
+        {"name": "fps_cluster_sample_pc_1x8192_2048", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/fps_cluster.cu",
+         "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
+         **data["kernels"]["sample_pc_2048"]},
+        {"name": "fps_cluster_shapenet_pretrain_2x1024_512", "route": "cuda",
+         "source": "geot_tpu_torch/csrc/fps_cluster.cu",
+         "replaces": "geot_tpu/ops/pallas_fps.py:231", "library_ms": None,
+         **data["kernels"]["shapenet_pretrain"]},
     ]
     # every kernel of the paths ran in this run
     for kname in ("fps_cluster", "knn_split", *UPSAMPLE):

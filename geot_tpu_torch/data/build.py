@@ -10,14 +10,15 @@ JAX for them, ``data/build.py:152``).
 from __future__ import annotations
 
 import concurrent.futures as _fut
+import copy
 import itertools
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .shapenetpart import (ScanObjectNN, ShapeNetPart, ShapeNetPartCurve,
-                           ShapeNetPartNormal)
+from .shapenetpart import (ScanObjectNN, ShapeNet, ShapeNet55, ShapeNetPart,
+                           ShapeNetPartCurve, ShapeNetPartNormal)
 from .tooth_pretrain import (TeethClsDataset, TeethSegFinetuneDataset,
                              Tooth6000, Tooth6000PCA)
 from .tooth_semi import TeethSegSemiLDataset, TeethSegSemiUDataset
@@ -37,6 +38,7 @@ DATASETS = {"TeethSegSemiLDataset": TeethSegSemiLDataset,
             "ShapeNetPart": ShapeNetPart,
             "ShapeNetPartCurve": ShapeNetPartCurve,
             "ShapeNetPartNormal": ShapeNetPartNormal,
+            "ShapeNet": ShapeNet, "ShapeNet55": ShapeNet55,
             "ScanObjectNN": ScanObjectNN}
 # the splits that train when the caller does not say
 # (geot_tpu/data/build.py:183)
@@ -66,11 +68,16 @@ class DataLoader:
     the last batch is short. A pool of ``num_workers`` threads loads and
     collates up to ``num_workers`` batches ahead of the one the caller
     takes; the batches and their order do not depend on ``num_workers``
-    (each item draws from its own ``(seed, epoch, idx)`` generator)."""
+    (each item draws from its own ``(seed, epoch, idx)`` generator).
+
+    ``batch_mixers`` (``Cutmix``) act on each collated batch, in order, on
+    the pool's thread, drawing from ``default_rng((seed, epoch, first
+    index of the batch))`` (``geot_tpu/data/build.py:127-134``)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, num_shards: int = 1,
-                 shard_index: int = 0, num_workers: int = 4):
+                 shard_index: int = 0, num_workers: int = 4,
+                 batch_mixers=None):
         if num_shards > 1 and not drop_last:
             raise NotImplementedError("sharding a loader that keeps its "
                                       "tail is not ported")
@@ -82,6 +89,7 @@ class DataLoader:
         self.num_shards = num_shards
         self.shard_index = shard_index
         self.num_workers = max(int(num_workers), 1)
+        self.batch_mixers = list(batch_mixers or [])
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -106,7 +114,13 @@ class DataLoader:
                 else -(-n // self.batch_size))
 
     def _fetch(self, batch_idx: np.ndarray) -> Dict[str, Any]:
-        return default_collate([self.dataset[int(j)] for j in batch_idx])
+        batch = default_collate([self.dataset[int(j)] for j in batch_idx])
+        if self.batch_mixers:
+            rng = np.random.default_rng(
+                (self.seed, self.epoch, int(batch_idx[0])))
+            for mixer in self.batch_mixers:
+                batch = mixer.mix_batch(batch, rng)
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         idx = self._epoch_indices()
@@ -123,6 +137,45 @@ class DataLoader:
                 yield fut.result()
 
 
+def build_dataset_from_cfg(cfg: Dict[str, Any],
+                           default_args: Optional[Dict[str, Any]] = None):
+    """``DATASETS[cfg["NAME"]]`` built with ``default_args`` and the rest
+    of ``cfg`` (``cfg`` wins; ``geot_tpu/data/build.py:24``); a name the
+    port lacks raises ``NotImplementedError``."""
+    args = dict(default_args or {})
+    args.update(copy.deepcopy(dict(cfg)))
+    return _dataset_class(args.pop("NAME"))(**args)
+
+
+def _dataset_class(name):
+    if name not in DATASETS:
+        raise NotImplementedError(f"dataset {name!r} is not ported; ported: "
+                                  f"{sorted(DATASETS)}")
+    return DATASETS[name]
+
+
+def _split_cfg(dataset_cfg: Dict[str, Any], split: str) -> Dict[str, Any]:
+    """``common`` merged with the split's own keys, ``split`` set."""
+    cfg = dict(dataset_cfg.get("common", {}))
+    cfg.update(dataset_cfg.get(split, {}) or {})
+    cfg.setdefault("split", split)
+    return cfg
+
+
+def _loader(dataset, batch_size: int, is_train: bool, seed: int,
+            num_shards: int, shard_index: int,
+            dataloader_cfg: Optional[Dict], mixers=()) -> DataLoader:
+    if batch_size % num_shards:
+        raise ValueError(f"global batch_size={batch_size} not divisible by "
+                         f"{num_shards} ranks")
+    return DataLoader(dataset, batch_size // num_shards, shuffle=is_train,
+                      drop_last=is_train, seed=seed, num_shards=num_shards,
+                      shard_index=shard_index,
+                      num_workers=(dataloader_cfg or {}).get("num_workers",
+                                                             4),
+                      batch_mixers=mixers)
+
+
 def build_dataloader_from_cfg(batch_size: int, dataset_cfg: Dict[str, Any],
                               datatransforms_cfg: Optional[Dict] = None,
                               split: str = "train", seed: int = 0,
@@ -137,45 +190,54 @@ def build_dataloader_from_cfg(batch_size: int, dataset_cfg: Dict[str, Any],
     A training loader (``is_train``; when None, a split of
     ``TRAIN_SPLITS``) is shuffled and drops its tail; any other keeps its
     order and its tail. The labelled dataset takes the split's transforms
-    (the ``train`` or ``val`` ones for a split without its own); the
+    (the ``train`` or ``val`` ones for a split without its own), and those
+    with a ``mix_batch`` (``Cutmix``) mix its collated batches; the
     unlabelled one the ``train_w`` and ``train_s`` transforms, and its
     loader is seeded with ``seed + 1``. ``batch_size`` is global: each of
     ``num_shards`` ranks loads its block of every batch. The loader's
     threads are ``dataloader_cfg["num_workers"]`` (4 without it).
     ``device`` goes to a dataset that computes on one (the FPS of
     ``ShapeNetPartNormal``'s ``presample``)."""
-    cfg = dict(dataset_cfg.get("common", {}))
-    cfg.update(dataset_cfg.get(split, {}) or {})
-    cfg.setdefault("split", split)
-    name = cfg.pop("NAME")
-    if name not in DATASETS:
-        raise NotImplementedError(f"dataset {name!r} is not ported; ported: "
-                                  f"{sorted(DATASETS)}")
+    cfg = _split_cfg(dataset_cfg, split)
+    cls = _dataset_class(cfg.get("NAME"))
     if is_train is None:
         is_train = split in TRAIN_SPLITS
-    if device is not None and DATASETS[name] is ShapeNetPartNormal:
+    if device is not None and cls is ShapeNetPartNormal:
         cfg.setdefault("device", device)
     tf = datatransforms_cfg
-    if DATASETS[name] is TeethSegSemiUDataset:
-        dataset = TeethSegSemiUDataset(
-            transform_w=build_transforms_from_cfg("train_w", tf),
-            transform_s=build_transforms_from_cfg("train_s", tf), **cfg)
-        seed += 1
-    else:
-        transform = None
-        if tf is not None:
-            transform = build_transforms_from_cfg(
-                split if split in tf else ("train" if is_train else "val"),
-                tf)
-        dataset = DATASETS[name](transform=transform, **cfg)
-    if batch_size % num_shards:
-        raise ValueError(f"global batch_size={batch_size} not divisible by "
-                         f"{num_shards} ranks")
-    return DataLoader(dataset, batch_size // num_shards, shuffle=is_train,
-                      drop_last=is_train, seed=seed, num_shards=num_shards,
-                      shard_index=shard_index,
-                      num_workers=(dataloader_cfg or {}).get("num_workers",
-                                                             4))
+    if cls is TeethSegSemiUDataset:
+        return _loader(_semi_dataset(cfg, tf), batch_size, is_train,
+                       seed + 1, num_shards, shard_index, dataloader_cfg)
+    transform = None
+    if tf is not None:
+        transform = build_transforms_from_cfg(
+            split if split in tf else ("train" if is_train else "val"), tf)
+    mixers = [t for t in (transform.transforms if transform else [])
+              if hasattr(t, "mix_batch")]
+    return _loader(build_dataset_from_cfg(cfg, {"transform": transform}),
+                   batch_size, is_train, seed, num_shards, shard_index,
+                   dataloader_cfg, mixers)
+
+
+def _semi_dataset(cfg: Dict[str, Any], tf: Optional[Dict]):
+    return build_dataset_from_cfg(cfg, {
+        "transform_w": build_transforms_from_cfg("train_w", tf),
+        "transform_s": build_transforms_from_cfg("train_s", tf)})
+
+
+def build_semi_dataloader_from_cfg(batch_size: int,
+                                   dataset_cfg: Dict[str, Any],
+                                   datatransforms_cfg: Optional[Dict] = None,
+                                   split: str = "train", seed: int = 0,
+                                   num_shards: int = 1, shard_index: int = 0,
+                                   dataloader_cfg: Optional[Dict] = None
+                                   ) -> DataLoader:
+    """The unlabelled loader (``geot_tpu/data/build.py:209``): the split's
+    dataset takes both the ``train_w`` and ``train_s`` transforms; shuffled,
+    tail dropped, seeded with ``seed + 1``."""
+    return _loader(_semi_dataset(_split_cfg(dataset_cfg, split),
+                                 datatransforms_cfg), batch_size, True,
+                   seed + 1, num_shards, shard_index, dataloader_cfg)
 
 
 def build_semi_loaders(cfg: Dict[str, Any], data_root: str = "",

@@ -1,18 +1,21 @@
-"""The heritage benchmark datasets of the classification and part
-segmentation tasks (``geot_tpu/data/shapenetpart.py:1-305, 406-466``):
-``ShapeNetPart`` (h5; the category one-hot as every point's features,
-``trainval`` translated and shuffled), ``ShapeNetPartCurve`` (h5; ``pos``,
-``cls``, ``y``), ``ShapeNetPartNormal`` (txt with normals; ``class_choice``,
-``multihead`` and ``presample``) and ``ScanObjectNN`` (h5; the
+"""The heritage benchmark datasets (``geot_tpu/data/shapenetpart.py``):
+of the classification and part segmentation tasks, ``ShapeNetPart`` (h5;
+the category one-hot as every point's features, ``trainval`` translated
+and shuffled), ``ShapeNetPartCurve`` (h5; ``pos``, ``cls``, ``y``),
+``ShapeNetPartNormal`` (txt with normals; ``class_choice``, ``multihead``
+and ``presample``) and ``ScanObjectNN`` (h5; the
 objectbg/objectonly/hardest modes, ``x`` = ``pos`` and the height above the
-lowest point).
+lowest point); of the pretraining stage, ``ShapeNet`` (and its other name
+``ShapeNet55``: PLY clouds and multi-view JPG renders, 64 synthetic clouds
+with depth-splat renders without a tree).
 
 Each reads its public distribution when ``data_root`` is a directory and
 otherwise gives the same deterministic synthetic clouds as ``geot_tpu``
-(64 ScanObjectNN items, 32 ShapeNetPart items). Items draw from the same
-``(seed, epoch, idx)`` generator as there (``EpochSeededRNG``), so an item
-is bit-equal to ``geot_tpu``'s. ``h5py`` is imported only to read a real h5
-tree; where it is missing such a tree raises ``ImportError``.
+(64 ScanObjectNN and ShapeNet items, 32 ShapeNetPart items). Items draw
+from the same ``(seed, epoch, idx)`` generator as there
+(``EpochSeededRNG``), so an item is bit-equal to ``geot_tpu``'s. ``h5py``
+is imported only to read a real h5 tree; where it is missing such a tree
+raises ``ImportError``.
 
 ``ShapeNetPartNormal(presample=True)`` samples every shape once to
 ``num_points`` with FPS (``ops.fps``: the custom op ``geot::fps``, the
@@ -29,7 +32,9 @@ import pickle
 
 import numpy as np
 
-from .tooth_semi import EpochSeededRNG
+from .data_util import EpochSeededRNG, draw_views, rotate_theta_phi
+from .io import IO
+from .tooth_pretrain import _splat_render
 
 CLASSES16 = ['airplane', 'bag', 'cap', 'car', 'chair', 'earphone', 'guitar',
              'knife', 'lamp', 'laptop', 'motorbike', 'mug', 'pistol',
@@ -320,6 +325,111 @@ class ShapeNetPartNormal(EpochSeededRNG):
         if self.transform is not None:
             data = self.transform(data, rng)
         return data
+
+
+class ShapeNet(EpochSeededRNG):
+    """Multi-view render pretraining over ShapeNet55
+    (``geot_tpu/data/shapenetpart.py:307``), the ShapeNet counterpart of
+    ``tooth_6000``: an item holds ``pos`` (the cloud, centred and scaled to
+    the unit sphere), ``x`` (``pos`` and the height above the untransformed
+    cloud's lowest point along ``gravity_dim``), ``views`` (``n_views``
+    (3, 3) rotations drawn without replacement from the 12-view table at
+    phi = (-1/2 + 1/6) pi, or one random view with ``random_view``) and
+    ``imgs`` ((n_views, H, W, 3) renders in [0, 1]).
+
+    With ``data_root`` a directory, the clouds are the PLY files of
+    ``<data_root>/pointclouds[_p2048]/<train and val | test>`` (the
+    ``sample_pc`` output), read by ``io.IO`` and rolled to [z, x, y], and
+    the renders their ``shapenet55v1`` JPGs, read by PIL (imported there
+    only: without it such a tree raises ``ImportError``). Otherwise 64
+    seeded gaussian clouds and depth splats of ``img_size`` square stand in
+    (the renders must match the decoder's output size)."""
+
+    total_views = 12
+    # items carry renders and views, no labels: the pretraining stage only
+    PRETRAIN_ONLY = True
+
+    def __init__(self, data_dir="", data_root="", n_views: int = 2,
+                 num_points=1024, split="train", gravity_dim: int = 2,
+                 transform=None, random_view: bool = False,
+                 img_size: int = 32, **kwargs):
+        root = data_dir or data_root
+        self.num_points = num_points
+        self.img_size = int(img_size)
+        self.n_views = int(n_views)
+        self.gravity_dim = int(gravity_dim)
+        self.transform = transform
+        self.seed = int(kwargs.get("seed", 0))
+        self.random_view = bool(random_view)
+        theta = np.linspace(0.0, 2.0, self.total_views + 1)[:self.total_views]
+        angles = np.stack([theta, np.full_like(theta, -1 / 2 + 1 / 6)],
+                          axis=-1) * np.pi
+        self.rotation_matrixs = rotate_theta_phi(angles)
+        self.synthetic = not (root and os.path.isdir(root))
+        if self.synthetic:
+            self.file_list = list(range(64))
+        else:
+            subsets = ["train", "val"] if split == "train" else ["test"]
+            self.file_list = []
+            for s in subsets:
+                d = os.path.join(root, self._sub, s)
+                self.file_list += sorted(os.path.join(d, f)
+                                         for f in os.listdir(d))
+
+    @property
+    def _sub(self) -> str:
+        return ("pointclouds_p2048" if self.num_points == 2048
+                else "pointclouds")
+
+    def __len__(self):
+        return len(self.file_list)
+
+    def _points(self, idx):
+        if self.synthetic:
+            pts = np.random.default_rng(idx).standard_normal(
+                (self.num_points, 3)).astype(np.float32)
+        else:
+            pts = IO.get(self.file_list[idx]).astype(np.float32)
+            pts = pts[:, [2, 0, 1]]
+        c = pts.mean(0)
+        pts = pts - c
+        m = np.sqrt((pts ** 2).sum(1)).max()
+        return (pts / max(m, 1e-12)).astype(np.float32)
+
+    def _imgs(self, idx, view_ids, views, pts):
+        if self.synthetic:
+            return np.stack([_splat_render(pts, v, self.img_size)
+                             for v in views])
+        paths = [self.file_list[idx].replace(self._sub, "shapenet55v1")
+                 .replace(".ply", f"_{str(v + 1).zfill(3)}.jpg")
+                 for v in view_ids]
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError(f"ShapeNet: reading the render {paths[0]} "
+                              f"needs PIL, which is not installed") from e
+        return np.stack([np.asarray(Image.open(p).convert("RGB"),
+                                    dtype=np.float32) / 255.0
+                         for p in paths])
+
+    def __getitem__(self, idx):
+        rng = self._rng(idx)
+        pts = self._points(idx)
+        data = {"pos": pts}
+        if self.transform is not None:
+            data = self.transform(data, rng)
+        g = self.gravity_dim
+        height = pts[:, g:g + 1] - pts[:, g:g + 1].min()
+        data["x"] = np.concatenate([data["pos"], height], axis=-1)
+        view_ids, views = draw_views(rng, self.rotation_matrixs,
+                                     self.n_views, self.random_view)
+        data["views"] = views.astype(np.float32)
+        data["imgs"] = self._imgs(idx, view_ids, data["views"], data["pos"])
+        return data
+
+
+class ShapeNet55(ShapeNet):
+    """The same dataset under its other name (``:401``)."""
 
 
 class ScanObjectNN(EpochSeededRNG):

@@ -30,7 +30,7 @@ import os
 
 import numpy as np
 
-from .data_util import rotate_theta_phi
+from .data_util import draw_views, rotate_theta_phi
 from .io import IO
 from .png import read_png_rgb
 from .tooth_semi import _TeethBase, pc_norm
@@ -104,6 +104,8 @@ class _PretrainBase(_TeethBase):
     view tables."""
 
     total_views = 12
+    # items carry renders and views, no labels: the pretraining stage only
+    PRETRAIN_ONLY = True
 
     def __init__(self, data_dir="", data_root="", n_views: int = 2,
                  num_points=16000, split="train", gravity_dim: int = 2,
@@ -173,13 +175,7 @@ class _PretrainBase(_TeethBase):
         name = os.path.basename(str(sample["file_path"]))
         table = (self.rot_lower if "lower" in name or sample["location"] == 0
                  else self.rot_upper)
-        if self.random_view:
-            if self.n_views != 1:
-                raise ValueError("random_view needs n_views == 1")
-            angles = np.array([[(rng.random() - 0.5), rng.random() * 2.0]])
-            return np.array([0]), rotate_theta_phi(angles * np.pi)
-        view_ids = rng.choice(self.total_views, self.n_views, replace=False)
-        return view_ids, table[view_ids]
+        return draw_views(rng, table, self.n_views, self.random_view)
 
     def _images(self, idx, sample, view_ids, views, pts):
         if self.manifest is not None and self.rgb_dir:

@@ -22,6 +22,7 @@ import os
 
 import numpy as np
 
+from .data_util import EpochSeededRNG
 from .io import IO
 
 # FDI two-digit tooth codes -> 17 contiguous classes (gum = 0)
@@ -61,18 +62,6 @@ def _synthetic_scan(seed: int, n_points: int = 40000):
         clouds.append(rng.normal(0, 0.2, (rest, 3)))
         labels.append(np.zeros(rest, dtype=np.int32))
     return (np.concatenate(clouds).astype(np.float32), np.concatenate(labels))
-
-
-class EpochSeededRNG:
-    """Per-``(seed, epoch, idx)`` item generator
-    (``geot_tpu/data/data_util.py:7``): the loader's ``set_epoch`` bumps
-    ``epoch``, so augmentations vary by epoch and stay deterministic."""
-
-    seed = 0
-    epoch = 0
-
-    def _rng(self, idx: int) -> np.random.Generator:
-        return np.random.default_rng((self.seed, self.epoch, idx))
 
 
 class _TeethBase(EpochSeededRNG):

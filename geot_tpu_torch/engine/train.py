@@ -252,8 +252,9 @@ def refuse_unported(cfg) -> None:
     """Raise ``NotImplementedError`` naming the first key of ``cfg`` that
     the port does not train: a switch whose branch of ``geot_tpu``'s
     trainer the port lacks, a compute ``dtype`` other than float32 in a
-    training mode, a model or dataset name the port's registries lack, or
-    a combination that ``geot_tpu``'s own trainer fails on (a model name
+    training mode, a model or dataset name the port's registries lack, a
+    pretraining dataset (no labels) outside the pretraining stage, or a
+    combination that ``geot_tpu``'s own trainer fails on (a model name
     in a role it cannot fill, an argument its module does not take, a
     semi-supervised model without the NTM's ``sigma``). ``parse_and_run``
     calls it before it makes a run directory."""
@@ -283,6 +284,11 @@ def refuse_unported(cfg) -> None:
         *((k, True, port) for k in _unported_names(model_t, "model_t")),
         *((k, True, port) for key in DATASET_KEYS
           for k in _unported_datasets(cfg.get(key), key)),
+        *((k, True, "the dataset's items carry renders and no labels; "
+           "geot_tpu's trainer fails on its batches outside pretraining")
+          for key in DATASET_KEYS
+          if "generator_args" not in model
+          for k in _pretrain_only_datasets(cfg.get(key), key)),
         *((f"{key}.segmentor_args.NAME", True,
            "geot_tpu's NTM update needs the segmentor's sigma")
           for key, m in (("model", model), ("model_t", model_t))
@@ -397,6 +403,18 @@ def _unported_datasets(tree, prefix: str):
     for key, value in (tree or {}).items():
         if isinstance(value, dict) and value.get("NAME") is not None \
                 and value["NAME"] not in DATASETS:
+            yield f"{prefix}.{key}.NAME"
+
+
+def _pretrain_only_datasets(tree, prefix: str):
+    """The dotted keys of every ``NAME`` in a dataset config whose dataset
+    serves only the pretraining stage (``PRETRAIN_ONLY``: renders and
+    views, no labels)."""
+    from ..data.build import DATASETS
+
+    for key, value in (tree or {}).items():
+        if isinstance(value, dict) and getattr(
+                DATASETS.get(value.get("NAME")), "PRETRAIN_ONLY", False):
             yield f"{prefix}.{key}.NAME"
 
 

@@ -1,8 +1,12 @@
-"""Point clouds to coloured PLY files (``geot_tpu/utils/vis3d.py:14-47``):
-one colour per tooth class."""
+"""Point-cloud visualisation to files (``geot_tpu/utils/vis3d.py``):
+coloured PLY files (one colour per tooth class), side-by-side clouds, a
+point's neighbours, and OBJ vertex lines with colours. The files are
+byte-equal to ``geot_tpu``'s.
+"""
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -44,3 +48,92 @@ def save_ply(path: str, points: np.ndarray,
             for p in points:
                 f.write(f"{p[0]:.5f} {p[1]:.5f} {p[2]:.5f}\n")
     return path
+
+
+def vis_points(points, labels=None, colors=None, out: str = "points.ply"):
+    """One cloud to a PLY file (``geot_tpu/utils/vis3d.py:50``)."""
+    return save_ply(out, points, colors=colors, labels=labels)
+
+
+def vis_multi_points(point_list: Sequence, colors=None, labels=None,
+                     out_dir: str = "vis", prefix: str = "cloud",
+                     save_fig: bool = False, save_name: str = "example",
+                     point_size: float = 1.0, **_):
+    """Clouds side by side (``:56``): a PLY file a cloud in ``out_dir``
+    and, with ``save_fig``, a PNG of matplotlib 3-D scatter panels
+    (matplotlib is imported there only)."""
+    os.makedirs(out_dir, exist_ok=True)
+    n = len(point_list)
+    colors = list(colors) if colors is not None else [None] * n
+    labels = list(labels) if labels is not None else [None] * n
+    paths = []
+    for i, pts in enumerate(point_list):
+        pts = np.asarray(pts)
+        if pts.ndim == 3:
+            pts = pts[0]
+        paths.append(save_ply(os.path.join(out_dir, f"{prefix}_{i}.ply"),
+                              pts, colors=colors[i], labels=labels[i]))
+    if save_fig:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure(figsize=(4 * n, 4))
+        for i, pts in enumerate(point_list):
+            pts = np.asarray(pts)
+            if pts.ndim == 3:
+                pts = pts[0]
+            ax = fig.add_subplot(1, n, i + 1, projection="3d")
+            c = colors[i]
+            if c is None and labels[i] is not None:
+                c = _label_colors(labels[i]) / 255.0
+            ax.scatter(pts[:, 0], pts[:, 1], pts[:, 2], s=point_size, c=c)
+            ax.set_axis_off()
+        png = os.path.join(out_dir, f"{save_name}.png")
+        fig.savefig(png, dpi=120, bbox_inches="tight")
+        plt.close(fig)
+        paths.append(png)
+    return paths
+
+
+def vis_neighbors(points, neighbor_points, point_index,
+                  out_dir: str = "vis", save_name: str = "neighbors"):
+    """One point and its neighbours to a PLY file (``:99``): the cloud
+    grey, the neighbours red, the point blue."""
+    points = np.asarray(points).reshape(-1, 3)
+    neigh = np.asarray(neighbor_points).reshape(-1, 3)
+    colors = np.full((len(points), 3), 180, np.uint8)
+    cloud = np.concatenate([points, neigh,
+                            points[point_index:point_index + 1]])
+    col = np.concatenate([colors,
+                          np.tile([[230, 25, 75]], (len(neigh), 1)),
+                          np.asarray([[0, 130, 200]])]).astype(np.uint8)
+    os.makedirs(out_dir, exist_ok=True)
+    return save_ply(os.path.join(out_dir, f"{save_name}.ply"), cloud,
+                    colors=col)
+
+
+def write_obj(points, colors, out_filename: str):
+    """(N, 3) points and (N, 3) colours -> OBJ ``v x y z r g b`` lines
+    (``:115``)."""
+    points = np.asarray(points)
+    colors = np.asarray(colors)
+    with open(out_filename, "w") as f:
+        for p, c in zip(points, colors):
+            f.write(f"v {p[0]} {p[1]} {p[2]} {c[0]} {c[1]} {c[2]}\n")
+    return out_filename
+
+
+def read_obj(filename: str):
+    """OBJ ``v`` lines -> (points (N, 3), colours (N, 3)) float32; a line
+    without colours gets grey 0.5 (``:126``)."""
+    pts, cols = [], []
+    with open(filename) as f:
+        for line in f:
+            parts = line.strip().split()
+            if parts and parts[0] == "v":
+                vals = [float(x) for x in parts[1:]]
+                pts.append(vals[:3])
+                cols.append(vals[3:6] if len(vals) >= 6 else [0.5, 0.5, 0.5])
+    return np.asarray(pts, np.float32), np.asarray(cols, np.float32)

@@ -1430,3 +1430,88 @@ def test_grid_subsample_native_matches_numpy_on_the_cards_host(cuda):
     order, ref_order = np.lexsort(sub.T), np.lexsort(ref.T)
     assert np.abs(sub[order] - ref[ref_order]).max() <= 1e-5
     assert np.array_equal(lab[order], ref_lab[ref_order])
+
+
+# --- the data side ------------------------------------------------------------
+
+@pytest.mark.parametrize("num_points", [1024, 2048])
+def test_sample_mesh_poisson_on_the_kernel_matches_fps_ref(cuda, num_points,
+                                                           tmp_path):
+    """``sample_mesh_poisson`` thins on ``fps_cluster`` (one launch) at the
+    dataset's sizes, (1, 4096) -> 1024 and (1, 8192) -> 2048: the samples
+    are the dense samples at ``fps_ref``'s indices on the card, and equal
+    to the CPU's."""
+    from geot_tpu_torch.data.sample_pc import (dense_surface_samples,
+                                               sample_mesh_poisson)
+
+    rng = np.random.default_rng(40)
+    verts = rng.standard_normal((500, 3)).astype(np.float32)
+    faces = rng.integers(0, 500, (900, 3))
+    n0 = dict(ops.LAUNCHES)
+    got = sample_mesh_poisson(verts, faces, num_points, device=cuda)
+    assert ops.LAUNCHES == dict(n0, fps_cluster=n0["fps_cluster"] + 1)
+    dense = dense_surface_samples(verts, faces, 4 * num_points,
+                                  np.random.default_rng(0))
+    ref = ops.fps_ref(torch.from_numpy(dense[None]).to(cuda), num_points)
+    np.testing.assert_array_equal(got, dense[ref[0].cpu().numpy()])
+    np.testing.assert_array_equal(
+        got, sample_mesh_poisson(verts, faces, num_points, device="cpu"))
+
+
+@pytest.mark.parametrize("kind,K", [("class", 1), ("subclass", 6),
+                                    ("teacher", 6), ("pcc_top2", 6)])
+def test_cluster_contrast_on_the_card_matches_the_cpu(cuda, kind, K):
+    """The cluster-contrast losses on (2, 4000, 32) features and 17
+    classes, float64, the same draws and state on the card and the CPU:
+    loss and feature gradient within 1e-9 of their scale, the new centres
+    and queues within 1e-9, pointers and pseudo-labels equal; no kernel
+    launches."""
+    from geot_tpu_torch.losses import cluster_contrast as cc
+
+    B, N, D, C = 2, 4000, 32, 17
+    rng = np.random.default_rng(41)
+    pred = rng.integers(0, C, (B, N))
+    data = {"feats": rng.standard_normal((B, N, D)),
+            "teacher": rng.standard_normal((B, N, D)), "pred": pred,
+            "label": np.where(rng.uniform(size=(B, N)) < 0.8, pred,
+                              rng.integers(0, C, (B, N))),
+            "conf": rng.uniform(size=(B, N)),
+            "label2": rng.integers(0, C, (B, N)),
+            "mask": rng.uniform(size=(B, N)) < 0.3}
+    gen = torch.Generator().manual_seed(42)
+    state = cc.ClassContrastState.create(gen, C * K, D, dtype=torch.float64)
+    M = B * C * K * (100 // K if K > 1 else 100)
+    draws = (torch.rand((B, N), generator=gen, dtype=torch.float64),
+             torch.rand((M,), generator=gen, dtype=torch.float64))
+
+    def run(dev):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+        st = cc.ClassContrastState(*(a.to(dev) for a in state))
+        feats = t["feats"].requires_grad_()
+        if kind == "pcc_top2":
+            loss, new = cc.pcc_top2_loss(
+                st, feats, t["pred"], t["label2"], t["mask"], t["conf"], C,
+                K, draws=draws[0].to(dev)), None
+        else:
+            loss, new = cc.class_contrast_loss(
+                st, feats, t["pred"], t["label"], t["conf"], num_classes=C,
+                subclasses=K, draws=tuple(d.to(dev) for d in draws),
+                teacher_feats=t["teacher"] if kind == "teacher" else None)
+        loss.backward()
+        labels = cc.pseudo_label_from_prototype(st, t["feats"].detach(), C,
+                                                K)
+        return loss.detach().cpu(), feats.grad.cpu(), new, labels
+
+    n0 = dict(ops.LAUNCHES)
+    lg, gg, ng, (pg, zg) = run(cuda)
+    assert ops.LAUNCHES == n0
+    lc, gc, nc, (pc, zc) = run(torch.device("cpu"))
+    assert torch.isfinite(lg) and abs(float(lg - lc)) <= 1e-9 * abs(
+        float(lc))
+    assert float((gg - gc).abs().max()) <= 1e-9 * float(gc.abs().max())
+    assert torch.equal(pg.cpu(), pc)
+    assert float((zg.cpu() - zc).abs().max()) <= 1e-9
+    if nc is not None:
+        assert torch.equal(ng.ptrs.cpu(), nc.ptrs)
+        assert float((ng.centers.cpu() - nc.centers).abs().max()) <= 1e-9
+        assert float((ng.queues.cpu() - nc.queues).abs().max()) <= 1e-9

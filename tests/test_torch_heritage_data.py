@@ -357,16 +357,16 @@ def test_obj_scans_parse_on_the_pool_threads(tmp_path):
 
 
 def test_unported_dataset_names_are_refused(tmp_path):
-    """``ShapeNet55`` (multi-view ShapeNet pretraining, not ported) raises
+    """A dataset name that neither package registers (``S3DIS``) raises
     ``NotImplementedError`` naming it, in the loader and, by its dotted
     key, before a run directory is made."""
-    with pytest.raises(NotImplementedError, match="ShapeNet55"):
+    with pytest.raises(NotImplementedError, match="S3DIS"):
         tbuild.build_dataloader_from_cfg(
-            2, {"common": {"NAME": "ShapeNet55"}}, split="train")
+            2, {"common": {"NAME": "S3DIS"}}, split="train")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for key in ("dataset.common.NAME", "dataset.test.NAME"):
         with pytest.raises(NotImplementedError, match=key):
             ttrain.parse_and_run([
                 "--cfg", os.path.join(root, "cfgs/scanobjectnn/dgcnncls.yaml"),
-                f"{key}=ShapeNet55", f"root_dir={tmp_path}", "device=cpu"])
+                f"{key}=S3DIS", f"root_dir={tmp_path}", "device=cpu"])
     assert not os.path.exists(tmp_path / "scanobjectnn")

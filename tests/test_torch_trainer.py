@@ -373,9 +373,9 @@ def test_other_configs_and_reference_files_are_refused(tmp_path):
     # a dataset the port lacks is refused by its key before a run starts
     for path, opt, key in (
             ("cfgs/shapenetpart/pointnet2part.yaml",
-             "dataset.common.NAME=ShapeNet55", "dataset.common.NAME"),
+             "dataset.common.NAME=S3DIS", "dataset.common.NAME"),
             ("cfgs/shapenetpart/pointmlppart.yaml",
-             "dataset.test.NAME=ShapeNet", "dataset.test.NAME"),
+             "dataset.test.NAME=ScanNet", "dataset.test.NAME"),
             ("cfgs/scanobjectnn/dgcnncls.yaml",
              "dataset.common.NAME=ModelNet40", "dataset.common.NAME")):
         with pytest.raises(NotImplementedError, match=key):
@@ -462,6 +462,10 @@ def test_every_module_imports_without_jax_yaml_or_geot_tpu(tmp_path):
             "geot_tpu_torch.ops." + m for m in ("scatter", "vector_attn",
                                                 "subsample", "compat")}} | {{
             "geot_tpu_torch.models.backbone.pointnet2_votes"}} <= set(names)
+        assert {{"geot_tpu_torch.data." + m for m in (
+            "data_util", "dataset_base", "sample_pc", "transforms")}} | {{
+            "geot_tpu_torch.losses.cluster_contrast",
+            "geot_tpu_torch.utils.vis2d"}} <= set(names), names
         from geot_tpu_torch.engine.train import parse_and_run
         res = parse_and_run(["--cfg", {SMOKE!r}, "epochs=1",
                              "root_dir={tmp_path}", "device=cpu",

@@ -352,7 +352,7 @@ def test_two_rank_pretraining_equals_one_process(tmp_path):
 @pytest.mark.parametrize("opt,key", [
     ("tp=2", "tp"), ("sp=2", "sp"), ("fsdp=True", "fsdp"),
     ("model.segmentor_args.dtype=bfloat16", "model.segmentor_args.dtype"),
-    ("dataset_l.common.NAME=ShapeNet55", "dataset_l.common.NAME"),
+    ("dataset_l.common.NAME=S3DIS", "dataset_l.common.NAME"),
     ("model.NAME=VariableSeg", "model.NAME")])
 def test_what_is_not_ported_is_still_refused(opt, key, tmp_path):
     cfg = EasyConfig()
