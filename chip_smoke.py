@@ -303,6 +303,19 @@ Phases, each printed with the seconds elapsed when it starts:
    (2, 16000, 64) and 17 classes, forward and backward, float32 ms and
    peak memory, float64 card against CPU on the same draws within
    ``CC64_TOL``; no kernel launches. Prints its seconds.
+21. bfloat16 training. (a) The flagship built through ``MODELS.build``
+   from the YAML's ``model`` gives phase 6's forward on its weights; (b)
+   three flagship semi steps at full width (12 blocks, D = 384, 2 + 2 + 2
+   clouds of 16,000 points) in float32 and then in bfloat16
+   (``segmentor_args.dtype``) from one state and phase 6's batches: step
+   ms (median) and peak memory of each, every loss finite, the bfloat16
+   first step's terms within ``BF16_LOSS_RTOL`` of the float32 one's,
+   parameters, optimizer state and BatchNorm statistics float32, the same
+   launches per step (2 ``fps_cluster`` + 14 ``knn_split``), and kernels
+   1 and 2 refusing a bfloat16 cloud; (c) ``parse_and_run`` over
+   ``cfgs/tooth_semi/smoke.yaml`` with both ``dtype`` overrides for one
+   epoch: validation in [0, 1] and a checkpoint of float32 weights. No
+   CPU side. Prints its seconds.
 Phase 3 also holds ``fps_cluster`` at the serving topology's prefix,
 (1|6, 16000) -> 1024 and a duplicate-heavy cloud, and ``knn_split`` at a
 fast scan's 6 searches, against their plain versions, with times and
@@ -327,6 +340,7 @@ relative spread of each loss term between them (``RESUME_SPREAD`` line).
 """
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import io
 import json
@@ -2859,8 +2873,9 @@ def _zoo_model(name, dev="cuda", opts=()):
     t = time.perf_counter()
     state = TrainState.create(cfg, cfg.model, seed=0, device=dev)
     n_params = sum(p.numel() for p in state.model.parameters())
-    loader = build_dataloader_from_cfg(bs, cfg.dataset_l, cfg.datatransforms,
-                                       split="train", seed=int(cfg.seed))
+    loader = build_dataloader_from_cfg(bs, cfg.dataset_l, None,
+                                       cfg.datatransforms, split="train",
+                                       seed=int(cfg.seed))
     loader.set_epoch(1)
     it = iter(loader)
     batches = [next(it) for _ in range(3)]
@@ -5125,10 +5140,10 @@ def _heritage_batches(cfg, n, dev):
 
     fn = (cls_mod if cfg.task == "cls" else partseg_mod)._batch
     loader = build_dataloader_from_cfg(
-        int(cfg.batch_size), cfg.dataset, cfg.get("datatransforms"),
+        int(cfg.batch_size), cfg.dataset, cfg.get("dataloader"),
+        cfg.get("datatransforms"),
         split=cfg.dataset.get("train_split", "train"),
-        seed=int(cfg.seed), dataloader_cfg=cfg.get("dataloader"),
-        is_train=True, device=dev)
+        seed=int(cfg.seed), is_train=True, device=dev)
     out, epoch = [], 0
     while len(out) < n:
         epoch += 1
@@ -5709,8 +5724,8 @@ def _reg_inputs():
 
     cfg = _reg_sup_cfg("cluster")
     loader = build_dataloader_from_cfg(int(cfg.batch_size_l), cfg.dataset_l,
-                                       cfg.datatransforms, split="train",
-                                       seed=int(cfg.seed))
+                                       None, cfg.datatransforms,
+                                       split="train", seed=int(cfg.seed))
     loader.set_epoch(1)
     it = iter(loader)
     batches_np = [next(it) for _ in range(3)]
@@ -6812,8 +6827,8 @@ def _data_heritage_mix():
 
     def batches(tf, workers):
         loader = build_dataloader_from_cfg(
-            int(cfg.batch_size), cfg.dataset, tf, split="trainval", seed=0,
-            dataloader_cfg={"num_workers": workers}, is_train=True)
+            int(cfg.batch_size), cfg.dataset, {"num_workers": workers}, tf,
+            split="trainval", seed=0, is_train=True)
         loader.set_epoch(1)
         return loader, [b for _, b in zip(range(3), loader)]
 
@@ -7010,6 +7025,238 @@ def phase_data(bound: Bound):
             "launches": launches, "sample_pc_ms": sample_ms,
             "shapenet": shapenet, "mix_step_ms": mix_step_ms,
             "cluster_contrast": contrast, "seconds": seconds}
+
+
+# phase 21: a bfloat16 step's loss terms against the float32 step's from
+# the same state and batch. bfloat16 keeps 8 bits of mantissa (2^-8 =
+# 3.9e-3); 12 blocks and a decoder of rounded activations move a loss by
+# several of those. A bound on gross errors, not on parity (the CPU test
+# holds bfloat16 to geot_tpu's bfloat16, tests/test_torch_bf16_train.py)
+BF16_LOSS_RTOL = 5e-2
+BF16_TRAINER = ("model.segmentor_args.dtype=bfloat16",
+                "model_t.segmentor_args.dtype=bfloat16", "epochs=1",
+                "val_freq=1", "test_freq=1000", "save_freq=1")
+
+
+@contextlib.contextmanager
+def _dense_dtypes(*models):
+    """The set of dtypes the port's ``Dense`` layers return while the
+    block runs: those of ``models``, or, given none, those of every model
+    the block runs (the trainer's own)."""
+    import torch
+
+    from geot_tpu_torch.models.layers.common import Dense
+
+    seen = set()
+
+    def hook(mod, args, out):
+        if isinstance(mod, Dense):
+            seen.add(out.dtype)
+
+    handles = ([m.register_forward_hook(hook) for model in models
+                for m in model.modules() if isinstance(m, Dense)] if models
+               else [torch.nn.modules.module.register_module_forward_hook(
+                   hook)])
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _bf16_steps(state, pairs, lr, dev):
+    """3 semi steps of ``state`` over phase 6's batch pairs, teacher on:
+    (the loss terms of each step, step ms, launches of each step, peak
+    MiB, the dtypes the student's and teacher's Dense layers returned)."""
+    import torch
+
+    from geot_tpu_torch import FLAGSHIP_SEMI_CFG, ops
+    from geot_tpu_torch.data.build import MODEL_KEYS, SEMI_KEYS, to_device
+    from geot_tpu_torch.engine.steps import make_semi_step
+
+    step = make_semi_step(FLAGSHIP_SEMI_CFG)
+    terms, ms, launches = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _dense_dtypes(state.model, state.teacher) as seen:
+        for bl, bu in pairs:
+            bl = to_device(bl, MODEL_KEYS, dev)
+            bu = to_device(bu, SEMI_KEYS, dev)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t = time.perf_counter()
+            m = step(state, bl, bu, lr, True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            launches.append(dict(ops.LAUNCHES))
+            terms.append({k: float(m[k]) for k in _LOSS_TERMS if k in m})
+    return (terms, ms, launches, torch.cuda.max_memory_allocated() / 2 ** 20,
+            seen)
+
+
+def phase_bf16(train, smi: str):
+    """Phase 21: bfloat16 training. (a) The flagship built through
+    ``MODELS.build`` from the YAML's ``model`` takes phase 6's weights and
+    gives their forward. (b) Three flagship semi steps at full width in
+    float32 and then in bfloat16 from one state and phase 6's batches:
+    every loss finite, the bfloat16 run's Dense layers returning
+    bfloat16 and the float32 run's only float32, the bfloat16 first
+    step's terms within ``BF16_LOSS_RTOL`` of the float32 one's and each
+    off it (a step that computed in float32 would equal it), parameters,
+    optimizer state
+    and BatchNorm statistics float32, kernels 1 and 2 launched as often
+    per step as in float32, and handed a bfloat16 cloud they raise. (c)
+    ``parse_and_run`` over ``smoke.yaml`` with both ``dtype`` overrides:
+    its Dense layers return bfloat16, and it trains, validates and writes
+    a checkpoint of float32 weights. No CPU side."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from geot_tpu_torch import FLAGSHIP_SEG_ARGS, FLAGSHIP_SEMI_CFG, ops
+    from geot_tpu_torch.core.config import EasyConfig
+    from geot_tpu_torch.data.build import MODEL_KEYS, to_device
+    from geot_tpu_torch.engine import train as train_mod
+    from geot_tpu_torch.engine.checkpoint import ckpt_path
+    from geot_tpu_torch.engine.state import SemiTrainState
+    from geot_tpu_torch.models import MODELS
+    from geot_tpu_torch.optim import build_scheduler_from_cfg
+
+    t_phase = time.perf_counter()
+    log("phase 21: bfloat16 training (the flagship through MODELS.build, "
+        "3 semi steps in float32 and bfloat16, the smoke trainer)")
+    dev = torch.device("cuda")
+    here = os.path.dirname(os.path.abspath(__file__))
+    yaml = EasyConfig()
+    yaml.load(os.path.join(here, "cfgs", "tooth_semi",
+                           "transformer_finetune_fixmatch_ntm.yaml"),
+              recursive=True)
+
+    # (a) the registry's build of the YAML's model
+    built = MODELS.build(yaml.model).to(dev).eval()
+    ref = train["state"].model
+    built.load_state_dict(ref.state_dict(), strict=True)
+    batch = to_device(train["pairs"][0][0], MODEL_KEYS, dev)
+    ref.eval()
+    with torch.no_grad():
+        same = torch.equal(built(batch)[0], ref(batch)[0])
+    ref.train()
+    check(same, "MODELS.build(cfg.model): another forward than phase 6's "
+          "model")
+    log(f"MODELS.build(cfg.model): {type(built).__name__} of "
+        f"{sum(p.numel() for p in built.parameters())} parameters, the "
+        f"same forward as phase 6's model")
+    del built
+
+    # (b) float32 then bfloat16 from one state and batches
+    cfg = FLAGSHIP_SEMI_CFG
+    lr = build_scheduler_from_cfg(cfg)(1)
+    states = {"float32": SemiTrainState.create(cfg, seed=5, device=dev)}
+    states["bfloat16"] = SemiTrainState.create(
+        cfg, seg_args=dict(FLAGSHIP_SEG_ARGS, dtype="bfloat16"), seed=5,
+        device=dev)
+    states["float32"].cm = train["state"].cm.clone()
+    states["bfloat16"].load_state_dict(states["float32"].state_dict())
+    runs = {dt: _bf16_steps(st, train["pairs"], lr, dev)
+            for dt, st in states.items()}
+    for dt, (terms, ms, launches, peak, seen) in runs.items():
+        log(f"{dt}: 3 steps {', '.join(f'{x:.1f}' for x in ms)} ms, median "
+            f"{statistics.median(ms):.1f} ms; peak {peak:.0f} MiB; first "
+            f"step {terms[0]}; launches per step "
+            f"{[{k: v for k, v in c.items() if v} for c in launches]}; "
+            f"Dense outputs {sorted(str(d) for d in seen)}; {smi}")
+        check(all(math.isfinite(v) for t in terms for v in t.values()),
+              f"{dt}: a loss is not finite: {terms}")
+    (t32, _, l32, _, s32), (t16, _, l16, _, s16) = (runs["float32"],
+                                                     runs["bfloat16"])
+    check(torch.bfloat16 in s16 and s32 == {torch.float32},
+          f"Dense outputs: bfloat16 run {s16}, float32 run {s32}")
+    check(l16 == l32 and l32[0] == _launch_counts(**_PER_STEP),
+          f"launches per step: bfloat16 {l16}, float32 {l32}, expected "
+          f"{_PER_STEP}")
+    rel = {k: abs(t16[0][k] - v) / max(abs(v), 1e-30)
+           for k, v in t32[0].items()}
+    log(f"bfloat16 vs float32 first step, loss terms relative: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+    check(all(v <= BF16_LOSS_RTOL for v in rel.values()),
+          f"bfloat16 first step's loss terms off float32's: {rel}")
+    check(all(v > 0.0 for v in rel.values()),
+          f"bfloat16 first step's loss terms equal float32's: {rel}")
+    st = states["bfloat16"]
+    wide = [k for m in (st.model, st.teacher, st.t_predictor)
+            for k, v in m.state_dict().items()
+            if v.is_floating_point() and v.dtype != torch.float32]
+    wide += [k for o in (st.opt, st.t_opt) for s in o.state.values()
+             for k, v in s.items() if torch.is_tensor(v)
+             and v.is_floating_point() and v.dtype != torch.float32]
+    check(not wide and st.ema_t.dtype == torch.float32,
+          f"bfloat16 training left state in another dtype: {wide[:5]}")
+    pos = to_device(train["pairs"][0][0], ("pos",), dev)["pos"]
+    for name, call in (("fps", lambda x: ops.fps(x, 512)),
+                       ("knn_small_k", lambda x: ops.knn_small_k(x, x, 3))):
+        ops.reset_launches()
+        try:
+            call(pos.to(torch.bfloat16).contiguous())
+        except ValueError:
+            pass
+        else:
+            check(False, f"{name} took a bfloat16 cloud")
+        check(not any(ops.LAUNCHES.values()),
+              f"{name} launched on a bfloat16 cloud")
+    del states
+
+    # (c) the trainer in bfloat16
+    root = tempfile.mkdtemp(prefix="geot_bf16_trainer_")
+    try:
+        ops.reset_launches()
+        t = time.perf_counter()
+        with _dense_dtypes() as seen:
+            res = train_mod.parse_and_run([
+                "--cfg", os.path.join(here, "cfgs", "tooth_semi",
+                                      "smoke.yaml"),
+                f"root_dir={root}", *BF16_TRAINER])
+        torch.cuda.synchronize()
+        trainer_s = time.perf_counter() - t
+        trainer_launches = dict(ops.LAUNCHES)
+        val = res.get("val") or {}
+        bad = {k: v for k, v in val.items()
+               if not (math.isfinite(v) and 0.0 <= v <= 1.0)}
+        check(bool(val) and not bad, f"bfloat16 trainer: val metrics "
+              f"missing or outside [0, 1]: {val}")
+        check(torch.bfloat16 in seen, f"bfloat16 trainer: Dense outputs "
+              f"{seen}, none bfloat16")
+        run_dir = os.path.join(root, "tooth_semi",
+                               os.listdir(os.path.join(root,
+                                                       "tooth_semi"))[0])
+        name = os.path.basename(run_dir)
+        saved = torch.load(ckpt_path(os.path.join(run_dir, "checkpoint"),
+                                     name, "latest"), map_location="cpu",
+                           weights_only=True)["state"]["model"]
+        wide = [k for k, v in saved.items()
+                if v.is_floating_point() and v.dtype != torch.float32]
+        check(not wide, f"bfloat16 trainer saved {wide[:5]} in another "
+              f"dtype")
+        check(trainer_launches["fps_cluster"] > 0
+              and trainer_launches["knn_split"] > 0,
+              f"bfloat16 trainer launches {trainer_launches}")
+        log(f"bfloat16 trainer (smoke.yaml, 1 epoch): {trainer_s:.1f} s; "
+            f"Dense outputs {sorted(str(d) for d in seen)}; "
+            f"val {val}; {len(saved)} float32 tensors in the checkpoint; "
+            f"launches {trainer_launches}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = _launch_counts()
+    for counts in (*l32, *l16, trainer_launches):
+        for k, v in counts.items():
+            launches[k] += v
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 21: {seconds:.1f} s; launches {launches}")
+    return {"launches": launches, "seconds": seconds,
+            "step_ms": {dt: statistics.median(r[1]) for dt, r in
+                        runs.items()},
+            "peak_mb": {dt: r[3] for dt, r in runs.items()},
+            "loss_rel": rel}
 
 
 # --dp-step-ms: phase 14's two-rank flagship trainer (gloo, both ranks on
@@ -7222,6 +7469,7 @@ def main() -> int:
     registry = phase_registry(Bound(limit_w), train["semi64_ref"])
     reference = phase_reference(Bound(limit_w))
     data = phase_data(Bound(limit_w))
+    bf16 = phase_bf16(train, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(scans, train)
     # launches on the main paths: 3 served scans, the train run (2 cm
@@ -7243,7 +7491,8 @@ def main() -> int:
         f"{switches['launches']}, the heritage tasks "
         f"{heritage['launches']}, the rest of the registry "
         f"{registry['launches']}, the reference layer and op API "
-        f"{reference['launches']}, the data side {data['launches']}")
+        f"{reference['launches']}, the data side {data['launches']}, "
+        f"bfloat16 training {bf16['launches']}")
 
     def entry(name, replaces, source=None):
         return {"name": name, "route": "cuda",
@@ -7262,7 +7511,8 @@ def main() -> int:
                              + heritage["launches"][name]
                              + registry["launches"][name]
                              + reference["launches"][name]
-                             + data["launches"][name]),
+                             + data["launches"][name]
+                             + bf16["launches"][name]),
                 "launches_serving_3_scans": serving[name],
                 "launches_train_step": per_step[name],
                 "launches_trainer_run": trainer["launches"][name],
@@ -7279,6 +7529,7 @@ def main() -> int:
                 "launches_registry_rest": registry["launches"][name],
                 "launches_reference_layers": reference["launches"][name],
                 "launches_data_side": data["launches"][name],
+                "launches_bf16_training": bf16["launches"][name],
                 "library_ms": None, **recs[name]}
 
     kernels = [

@@ -16,14 +16,15 @@ file merged over ``cfgs/tooth_semi/default.yaml``.
 """
 from __future__ import annotations
 
-import copy
 import math
 import os
 import re
 from ast import literal_eval
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
+
+from .registry import Registry
 
 FLAGSHIP_SEG_ARGS: Dict[str, Any] = {
     "NAME": "PointTransformer_seg_T",
@@ -102,28 +103,20 @@ def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
     return device
 
 
-MODELS: Dict[str, Callable[..., torch.nn.Module]] = {}
+# the model registry (geot_tpu/models/build.py:9); the classes register
+# themselves with ``@MODELS.register_module(name=...)``
+MODELS = Registry("models")
 
 
-def register_model(name: str):
-    """Class decorator: make ``name`` buildable by ``build_model_from_cfg``."""
-    def deco(cls):
-        MODELS[name] = cls
-        return cls
-    return deco
-
-
-def build_model_from_cfg(cfg: Dict[str, Any]) -> torch.nn.Module:
-    """Build the model named by ``cfg["NAME"]`` with the remaining keys as
-    arguments (``pretrained_path`` is a loader concern and is dropped)."""
+def build_model_from_cfg(cfg: Dict[str, Any],
+                         **default_args: Any) -> torch.nn.Module:
+    """Build the model named by ``cfg["NAME"]`` with the remaining keys
+    over ``default_args`` as arguments (``geot_tpu/models/build.py:12``;
+    ``pretrained_path`` is a loader concern and is dropped)."""
     from .. import models  # noqa: F401  (registers the model classes)
 
-    kwargs = copy.deepcopy(dict(cfg))
-    name = kwargs.pop("NAME")
-    kwargs.pop("pretrained_path", None)
-    if name not in MODELS:
-        raise KeyError(f"unknown model {name!r}; known: {sorted(MODELS)}")
-    return MODELS[name](**kwargs)
+    cfg = {k: v for k, v in dict(cfg).items() if k != "pretrained_path"}
+    return MODELS.build(cfg, **default_args)
 
 
 # --- YAML ------------------------------------------------------------------

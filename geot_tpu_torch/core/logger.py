@@ -12,9 +12,11 @@ from pathlib import Path
 from typing import Optional
 
 
-def setup_logger_dist(log_path: Optional[str] = None, rank: int = 0):
+def setup_logger_dist(log_path: Optional[str] = None, rank: int = 0,
+                      name: str = "geot"):
     """Rank 0 logs INFO to stdout and, given a path, to that file; other
-    ranks log warnings only."""
+    ranks log warnings only. The handlers are the root logger's whatever
+    ``name``, which is taken and unused, as in ``geot_tpu``."""
     root = logging.getLogger()
     for h in list(root.handlers):
         root.removeHandler(h)
@@ -34,14 +36,17 @@ def setup_logger_dist(log_path: Optional[str] = None, rank: int = 0):
     return root
 
 
-def generate_exp_directory(cfg, tags=None) -> str:
+def generate_exp_directory(cfg, tags=None, additional_id=None) -> str:
     """Create ``run_dir = root_dir/<tags joined by '-'>-<stamp>-<uuid>``
-    and its ``checkpoint/``; set ``run_name``, ``run_dir``, ``ckpt_dir``,
-    ``log_dir`` and ``log_path`` in ``cfg``."""
+    (``-<additional_id>`` after it, given one) and its ``checkpoint/``;
+    set ``run_name``, ``run_dir``, ``ckpt_dir``, ``log_dir`` and
+    ``log_path`` in ``cfg``."""
     tags = tags or ["exp"]
     run_name = "-".join(str(t) for t in tags if str(t))
     run_name = (f"{run_name}-{time.strftime('%Y%m%d-%H%M%S')}-"
                 f"{uuid.uuid4().hex[:8]}")
+    if additional_id is not None:
+        run_name += f"-{additional_id}"
     cfg.run_name = run_name
     cfg.run_dir = os.path.join(cfg.get("root_dir", "./log"), run_name)
     cfg.ckpt_dir = os.path.join(cfg.run_dir, "checkpoint")

@@ -4,11 +4,8 @@ from .build import (DATASETS, build_dataloader_from_cfg,
                     build_dataset_from_cfg, build_semi_dataloader_from_cfg)
 from .data_util import (crop_pc, get_class_weights, get_features_by_keys,
                         voxelize)
-from .transforms import TRANSFORMS, Compose, build_transforms_from_cfg
+from .transforms import Compose, DataTransforms, build_transforms_from_cfg
 from ..utils.vis3d import vis_multi_points, vis_points
-
-# geot_tpu's name of the registry of transforms
-DataTransforms = TRANSFORMS
 
 __all__ = [
     "DATASETS", "build_dataloader_from_cfg", "build_semi_dataloader_from_cfg",

@@ -4,8 +4,9 @@ and collates the next ``num_workers`` batches ahead; the loaders of a
 config's labelled and unlabelled datasets; and the copy of a batch onto the
 device.
 
-The rank and the number of ranks come from the caller (``geot_tpu`` asks
-JAX for them, ``data/build.py:152``).
+With ``distributed=True`` the rank and the number of ranks are the process
+group's (``parallel.dist``; ``geot_tpu`` asks JAX, ``data/build.py:152``);
+a caller may also give them as ``num_shards`` and ``shard_index``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.registry import Registry
+from ..parallel import dist
 from .shapenetpart import (ScanObjectNN, ShapeNet, ShapeNet55, ShapeNetPart,
                            ShapeNetPartCurve, ShapeNetPartNormal)
 from .tooth_pretrain import (TeethClsDataset, TeethSegFinetuneDataset,
@@ -30,16 +33,20 @@ MODEL_KEYS = ("pos", "x", "cls", "y", "class_weights")
 SEMI_KEYS = ("pos_w", "x_w", "cls_w", "pos_s", "x_s", "cls_s", "raw_pos",
              "y")
 
-DATASETS = {"TeethSegSemiLDataset": TeethSegSemiLDataset,
-            "TeethSegSemiUDataset": TeethSegSemiUDataset,
-            "TeethSegFinetuneDataset": TeethSegFinetuneDataset,
-            "TeethClsDataset": TeethClsDataset,
-            "tooth_6000": Tooth6000, "tooth_6000_pca": Tooth6000PCA,
-            "ShapeNetPart": ShapeNetPart,
-            "ShapeNetPartCurve": ShapeNetPartCurve,
-            "ShapeNetPartNormal": ShapeNetPartNormal,
-            "ShapeNet": ShapeNet, "ShapeNet55": ShapeNet55,
-            "ScanObjectNN": ScanObjectNN}
+DATASETS = Registry("dataset")
+for _name, _cls in (
+        ("TeethSegSemiLDataset", TeethSegSemiLDataset),
+        ("TeethSegSemiUDataset", TeethSegSemiUDataset),
+        ("TeethSegFinetuneDataset", TeethSegFinetuneDataset),
+        ("TeethClsDataset", TeethClsDataset),
+        ("tooth_6000", Tooth6000), ("tooth_6000_pca", Tooth6000PCA),
+        ("ShapeNetPart", ShapeNetPart),
+        ("ShapeNetPartCurve", ShapeNetPartCurve),
+        ("ShapeNetPartNormal", ShapeNetPartNormal),
+        ("ShapeNet", ShapeNet), ("ShapeNet55", ShapeNet55),
+        ("ScanObjectNN", ScanObjectNN)):
+    DATASETS.register_module(name=_name, module=_cls)
+
 # the splits that train when the caller does not say
 # (geot_tpu/data/build.py:183)
 TRAIN_SPLITS = ("train", "training", "trainval")
@@ -61,34 +68,36 @@ def default_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 class DataLoader:
-    """An epoch loader (``geot_tpu/data/build.py:50-150``): with
-    ``shuffle``, the order of epoch e is ``default_rng(seed +
-    e).permutation``; each global batch is block-sharded over
-    ``num_shards`` ranks; ``drop_last`` drops the ragged tail, otherwise
-    the last batch is short. A pool of ``num_workers`` threads loads and
-    collates up to ``num_workers`` batches ahead of the one the caller
-    takes; the batches and their order do not depend on ``num_workers``
-    (each item draws from its own ``(seed, epoch, idx)`` generator).
+    """An epoch loader (``geot_tpu/data/build.py:50-150``), with its
+    signature and defaults: with ``shuffle``, the order of epoch e is
+    ``default_rng(seed + e).permutation``; ``collate_fn`` (``default_collate``
+    without one) makes a batch of items. Each global batch is
+    block-sharded over ``num_shards`` ranks. ``drop_last`` drops the ragged
+    tail; otherwise the last batch is short, and a sharded epoch is
+    wrap-padded with its first items to a whole global batch, so that
+    every rank takes as many batches. A pool of ``num_workers`` threads
+    loads and collates up to ``num_workers`` batches ahead of the one the
+    caller takes; the batches and their order do not depend on
+    ``num_workers`` (each item draws from its own ``(seed, epoch, idx)``
+    generator).
 
     ``batch_mixers`` (``Cutmix``) act on each collated batch, in order, on
     the pool's thread, drawing from ``default_rng((seed, epoch, first
     index of the batch))`` (``geot_tpu/data/build.py:127-134``)."""
 
-    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 drop_last: bool = True, seed: int = 0, num_shards: int = 1,
-                 shard_index: int = 0, num_workers: int = 4,
-                 batch_mixers=None):
-        if num_shards > 1 and not drop_last:
-            raise NotImplementedError("sharding a loader that keeps its "
-                                      "tail is not ported")
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, num_workers: int = 4,
+                 seed: int = 0, collate_fn=None, num_shards: int = 1,
+                 shard_index: int = 0, batch_mixers=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.num_workers = max(int(num_workers), 1)
         self.seed = seed
+        self.collate = collate_fn or default_collate
         self.num_shards = num_shards
         self.shard_index = shard_index
-        self.num_workers = max(int(num_workers), 1)
         self.batch_mixers = list(batch_mixers or [])
         self.epoch = 0
 
@@ -103,8 +112,11 @@ class DataLoader:
                if self.shuffle else np.arange(n))
         if self.num_shards > 1:
             gb = self.batch_size * self.num_shards
-            chunks = idx[:len(idx) - len(idx) % gb].reshape(
-                -1, self.num_shards, self.batch_size)
+            if self.drop_last:
+                idx = idx[:len(idx) - len(idx) % gb]
+            elif len(idx) % gb:
+                idx = np.concatenate([idx, idx[:gb - len(idx) % gb]])
+            chunks = idx.reshape(-1, self.num_shards, self.batch_size)
             return chunks[:, self.shard_index, :].reshape(-1)
         return idx
 
@@ -114,7 +126,7 @@ class DataLoader:
                 else -(-n // self.batch_size))
 
     def _fetch(self, batch_idx: np.ndarray) -> Dict[str, Any]:
-        batch = default_collate([self.dataset[int(j)] for j in batch_idx])
+        batch = self.collate([self.dataset[int(j)] for j in batch_idx])
         if self.batch_mixers:
             rng = np.random.default_rng(
                 (self.seed, self.epoch, int(batch_idx[0])))
@@ -163,41 +175,51 @@ def _split_cfg(dataset_cfg: Dict[str, Any], split: str) -> Dict[str, Any]:
 
 
 def _loader(dataset, batch_size: int, is_train: bool, seed: int,
-            num_shards: int, shard_index: int,
+            distributed: bool, num_shards: int, shard_index: int,
             dataloader_cfg: Optional[Dict], mixers=()) -> DataLoader:
+    """``dataset``'s loader: shuffled and tail dropped when ``is_train``;
+    ``batch_size`` is global, each of the ranks loads its block of every
+    batch (``distributed``: the process group's ranks)."""
+    if distributed:
+        num_shards, shard_index = dist.world(), dist.rank()
     if batch_size % num_shards:
         raise ValueError(f"global batch_size={batch_size} not divisible by "
                          f"{num_shards} ranks")
     return DataLoader(dataset, batch_size // num_shards, shuffle=is_train,
-                      drop_last=is_train, seed=seed, num_shards=num_shards,
-                      shard_index=shard_index,
+                      drop_last=is_train,
                       num_workers=(dataloader_cfg or {}).get("num_workers",
                                                              4),
-                      batch_mixers=mixers)
+                      seed=seed, num_shards=num_shards,
+                      shard_index=shard_index, batch_mixers=mixers)
 
 
 def build_dataloader_from_cfg(batch_size: int, dataset_cfg: Dict[str, Any],
-                              datatransforms_cfg: Optional[Dict] = None,
-                              split: str = "train", seed: int = 0,
-                              num_shards: int = 1, shard_index: int = 0,
                               dataloader_cfg: Optional[Dict] = None,
-                              is_train: Optional[bool] = None,
+                              datatransforms_cfg: Optional[Dict] = None,
+                              split: str = "train", distributed: bool = False,
+                              pretrain: bool = False, seed: int = 0,
+                              is_train: Optional[bool] = None, *,
+                              num_shards: int = 1, shard_index: int = 0,
                               device: "str | torch.device | None" = None
                               ) -> DataLoader:
     """The loader of one split of a dataset config (``common`` merged with
-    the split's own keys; ``geot_tpu/data/build.py:172-231``).
+    the split's own keys), in ``geot_tpu``'s signature
+    (``geot_tpu/data/build.py:171-207``; ``pretrain`` is taken and unused,
+    as there).
 
     A training loader (``is_train``; when None, a split of
     ``TRAIN_SPLITS``) is shuffled and drops its tail; any other keeps its
-    order and its tail. The labelled dataset takes the split's transforms
-    (the ``train`` or ``val`` ones for a split without its own), and those
+    order and its tail. The dataset takes the split's transforms (the
+    ``train`` or ``val`` ones for a split without its own), and those
     with a ``mix_batch`` (``Cutmix``) mix its collated batches; the
-    unlabelled one the ``train_w`` and ``train_s`` transforms, and its
-    loader is seeded with ``seed + 1``. ``batch_size`` is global: each of
-    ``num_shards`` ranks loads its block of every batch. The loader's
+    unlabelled dataset's loader is ``build_semi_dataloader_from_cfg``'s.
+    ``batch_size`` is global: with
+    ``distributed`` each rank of the process group (or, given, each of
+    ``num_shards`` ranks) loads its block of every batch. The loader's
     threads are ``dataloader_cfg["num_workers"]`` (4 without it).
     ``device`` goes to a dataset that computes on one (the FPS of
     ``ShapeNetPartNormal``'s ``presample``)."""
+    del pretrain
     cfg = _split_cfg(dataset_cfg, split)
     cls = _dataset_class(cfg.get("NAME"))
     if is_train is None:
@@ -205,9 +227,6 @@ def build_dataloader_from_cfg(batch_size: int, dataset_cfg: Dict[str, Any],
     if device is not None and cls is ShapeNetPartNormal:
         cfg.setdefault("device", device)
     tf = datatransforms_cfg
-    if cls is TeethSegSemiUDataset:
-        return _loader(_semi_dataset(cfg, tf), batch_size, is_train,
-                       seed + 1, num_shards, shard_index, dataloader_cfg)
     transform = None
     if tf is not None:
         transform = build_transforms_from_cfg(
@@ -215,29 +234,29 @@ def build_dataloader_from_cfg(batch_size: int, dataset_cfg: Dict[str, Any],
     mixers = [t for t in (transform.transforms if transform else [])
               if hasattr(t, "mix_batch")]
     return _loader(build_dataset_from_cfg(cfg, {"transform": transform}),
-                   batch_size, is_train, seed, num_shards, shard_index,
-                   dataloader_cfg, mixers)
-
-
-def _semi_dataset(cfg: Dict[str, Any], tf: Optional[Dict]):
-    return build_dataset_from_cfg(cfg, {
-        "transform_w": build_transforms_from_cfg("train_w", tf),
-        "transform_s": build_transforms_from_cfg("train_s", tf)})
+                   batch_size, is_train, seed, distributed, num_shards,
+                   shard_index, dataloader_cfg, mixers)
 
 
 def build_semi_dataloader_from_cfg(batch_size: int,
                                    dataset_cfg: Dict[str, Any],
+                                   dataloader_cfg: Optional[Dict] = None,
                                    datatransforms_cfg: Optional[Dict] = None,
-                                   split: str = "train", seed: int = 0,
-                                   num_shards: int = 1, shard_index: int = 0,
-                                   dataloader_cfg: Optional[Dict] = None
+                                   split: str = "train",
+                                   distributed: bool = False,
+                                   pretrain: bool = False, seed: int = 0, *,
+                                   num_shards: int = 1, shard_index: int = 0
                                    ) -> DataLoader:
     """The unlabelled loader (``geot_tpu/data/build.py:209``): the split's
     dataset takes both the ``train_w`` and ``train_s`` transforms; shuffled,
     tail dropped, seeded with ``seed + 1``."""
-    return _loader(_semi_dataset(_split_cfg(dataset_cfg, split),
-                                 datatransforms_cfg), batch_size, True,
-                   seed + 1, num_shards, shard_index, dataloader_cfg)
+    del pretrain
+    tf = datatransforms_cfg
+    dataset = build_dataset_from_cfg(_split_cfg(dataset_cfg, split), {
+        "transform_w": build_transforms_from_cfg("train_w", tf),
+        "transform_s": build_transforms_from_cfg("train_s", tf)})
+    return _loader(dataset, batch_size, True, seed + 1, distributed,
+                   num_shards, shard_index, dataloader_cfg)
 
 
 def build_semi_loaders(cfg: Dict[str, Any], data_root: str = "",
@@ -245,19 +264,22 @@ def build_semi_loaders(cfg: Dict[str, Any], data_root: str = "",
     """The labelled and unlabelled train loaders of a semi config
     (``dataset_l`` and ``dataset_u``; for a config without them, such as
     ``FLAGSHIP_SEMI_CFG``, the synthetic teeth datasets at
-    ``cfg["num_points"]``), each from ``build_dataloader_from_cfg``.
+    ``cfg["num_points"]``), from ``build_dataloader_from_cfg`` and
+    ``build_semi_dataloader_from_cfg``, as the trainer builds them.
     ``num_shards`` and ``shard_index`` are the caller's world size and
     rank."""
     n = int(cfg.get("num_points", 16000))
-    return tuple(build_dataloader_from_cfg(
+    return tuple(build(
         int(cfg[bs]), cfg.get(key) or {"common": {
             "NAME": name, "data_root": data_root, "num_points": n}},
-        cfg.get("datatransforms"), split="train",
+        cfg.get("dataloader"), cfg.get("datatransforms"), "train",
         seed=int(cfg.get("seed", 0)), num_shards=num_shards,
         shard_index=shard_index)
-        for bs, key, name in (
-            ("batch_size_l", "dataset_l", "TeethSegSemiLDataset"),
-            ("batch_size_u", "dataset_u", "TeethSegSemiUDataset")))
+        for build, bs, key, name in (
+            (build_dataloader_from_cfg, "batch_size_l", "dataset_l",
+             "TeethSegSemiLDataset"),
+            (build_semi_dataloader_from_cfg, "batch_size_u", "dataset_u",
+             "TeethSegSemiUDataset")))
 
 
 def semi_keys(batch: Dict[str, Any]) -> Tuple[str, ...]:

@@ -15,6 +15,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ..core.registry import Registry
+
 
 class Compose:
     """``:19``."""
@@ -712,7 +714,9 @@ class PointCloudXYZAlign:
 
 
 # every name of geot_tpu's DataTransforms registry
-TRANSFORMS = {cls.__name__: cls for cls in (
+DataTransforms = Registry("datatransforms")
+TRANSFORMS = DataTransforms      # the port's earlier name
+for _cls in (
     PointsToTensor, PointCloudCenterAndNormalize, PointCloudScaling,
     PointCloudScaling_s, PointCloudTranslation, PointCloudTranslation_s,
     PointCloudScaleAndTranslate, PointCloudScaleAndTranslate_s,
@@ -724,7 +728,8 @@ TRANSFORMS = {cls.__name__: cls for cls in (
     RandomScaleAndTranslate, RandomFlip, RandomJitter, ChromaticAutoContrast,
     ChromaticTranslation, ChromaticJitter, HueSaturationTranslation,
     RandomDropFeature, NumpyChromaticNormalize, PointCloudToTensor,
-    PointCloudXYZAlign)}
+    PointCloudXYZAlign):
+    DataTransforms.register_module(module=_cls)
 
 
 def build_transforms_from_cfg(split: str, datatransforms_cfg: Optional[

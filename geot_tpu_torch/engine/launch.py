@@ -34,21 +34,15 @@ from __future__ import annotations
 
 import argparse
 import os
-import socket
 import subprocess
 import sys
 import threading
 import time
 
+from ..parallel.dist import find_free_port
+
 _PKG_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-
-
-def find_free_port() -> int:
-    """A TCP port on localhost that was free a moment ago."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return int(s.getsockname()[1])
 
 
 def _tee(stream, log, out) -> None:

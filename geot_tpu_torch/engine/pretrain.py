@@ -137,15 +137,12 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
     tf = cfg.get("datatransforms")
     bs = int(cfg.get("batch_size", 2))
     # the train loader is sharded over the ranks, val is not
-    train_loader = build_dataloader_from_cfg(bs, cfg.dataset, tf,
-                                             split="train", seed=seed,
-                                             num_shards=world,
-                                             shard_index=rank,
-                                             dataloader_cfg=cfg.get(
-                                                 "dataloader"))
+    train_loader = build_dataloader_from_cfg(
+        bs, cfg.dataset, cfg.get("dataloader"), tf, split="train",
+        seed=seed, distributed=world > 1)
     val_loader = build_dataloader_from_cfg(
-        int(cfg.get("batch_size_val", bs)), cfg.dataset, tf, split="val",
-        seed=seed, dataloader_cfg=cfg.get("dataloader"))
+        int(cfg.get("batch_size_val", bs)), cfg.dataset,
+        cfg.get("dataloader"), tf, split="val", seed=seed)
     logger.info(f"datasets: train={len(train_loader.dataset)} "
                 f"val={len(val_loader.dataset)}; device {device}"
                 + (f"; rank {rank} of {world} ({dist.backend()})"

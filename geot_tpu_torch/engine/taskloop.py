@@ -64,13 +64,14 @@ def run(cfg, *, task: str, batch_fn: Callable, evaluate_fn: Callable,
     ds = cfg.dataset
     tf = cfg.get("datatransforms")
     train_loader = build_dataloader_from_cfg(
-        int(cfg.get("batch_size", 8)), ds, tf,
+        int(cfg.get("batch_size", 8)), ds, cfg.get("dataloader"), tf,
         split=ds.get("train_split", default_train_split), seed=seed,
-        dataloader_cfg=cfg.get("dataloader"), is_train=True, device=device)
+        is_train=True, device=device)
     val_loader = build_dataloader_from_cfg(
-        int(cfg.get("batch_size_val", cfg.get("batch_size", 8))), ds, tf,
-        split=ds.get("val_split", default_val_split),
-        dataloader_cfg=cfg.get("dataloader"), is_train=False, device=device)
+        int(cfg.get("batch_size_val", cfg.get("batch_size", 8))), ds,
+        cfg.get("dataloader"), tf,
+        split=ds.get("val_split", default_val_split), is_train=False,
+        device=device)
     logger.info(f"{task} datasets: train={len(train_loader.dataset)} "
                 f"val={len(val_loader.dataset)}; device {device}")
 

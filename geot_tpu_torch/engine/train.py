@@ -67,8 +67,12 @@ weights are grafted by name (``engine.checkpoint.graft_state_dict``).
 ``model_t`` builds the teacher (the ``_fast.yaml`` recipe: a student in the
 serving topology, an exact teacher); ``num_votes > 0`` adds test-time
 voting over the config's ``vote`` pipeline to ``val`` / ``test`` and a
-``test_voting`` pass after each test pass. A compute ``dtype`` other than
-float32 is for serving and the eval modes; the training modes refuse it.
+``test_voting`` pass after each test pass. ``segmentor_args.dtype:
+bfloat16`` (of ``model`` and of ``model_t``) computes the modules in
+bfloat16 in every mode, training included, as ``geot_tpu`` does: the
+parameters, the optimizer state, BatchNorm's statistics and the EMA shadow
+stay float32, the logits reach the losses in float32, and the kernels read
+float32 coordinates.
 
 ``ema_eval`` keeps an EMA shadow of the model (the student): validation
 scores it and the raw weights (``val_raw``), the better of the two is the
@@ -90,9 +94,9 @@ batches to the device on every pass instead of once.
 
 SIGTERM or SIGINT during training means: finish the epoch, checkpoint, stop
 (a second one stops at once). Metrics accumulate on the device and are
-fetched once an epoch. What the port does not train (a training
-``dtype``, ``tp``, ``sp``, ``fsdp``, and model or dataset names its
-registries lack) raises ``NotImplementedError`` naming the key.
+fetched once an epoch. What the port does not train (``tp``, ``sp``,
+``fsdp``, and model or dataset names its registries lack) raises
+``NotImplementedError`` naming the key.
 """
 from __future__ import annotations
 
@@ -116,7 +120,8 @@ from ..core.logger import (generate_exp_directory, resume_exp_directory,
 from ..core.metrics import AverageMeter, cal_model_parm_nums
 from ..core.random import set_random_seed
 from ..data.build import (MODEL_KEYS, build_dataloader_from_cfg,
-                          semi_keys, semi_pairs, to_device)
+                          build_semi_dataloader_from_cfg, semi_keys,
+                          semi_pairs, to_device)
 from ..data.transforms import build_transforms_from_cfg
 from ..ops import LAUNCHES
 from ..optim import build_scheduler_from_cfg
@@ -251,9 +256,8 @@ def _draw_seed(device) -> int:
 def refuse_unported(cfg) -> None:
     """Raise ``NotImplementedError`` naming the first key of ``cfg`` that
     the port does not train: a switch whose branch of ``geot_tpu``'s
-    trainer the port lacks, a compute ``dtype`` other than float32 in a
-    training mode, a model or dataset name the port's registries lack, a
-    pretraining dataset (no labels) outside the pretraining stage, or a
+    trainer the port lacks, a model or dataset name the port's registries
+    lack, a pretraining dataset (no labels) outside the pretraining stage, or a
     combination that ``geot_tpu``'s own trainer fails on (a model name
     in a role it cannot fill, an argument its module does not take, a
     semi-supervised model without the NTM's ``sigma``). ``parse_and_run``
@@ -264,15 +268,8 @@ def refuse_unported(cfg) -> None:
     training = mode not in EVAL_MODES
     semi = semi_mode(cfg)
 
-    def reduced(m):
-        dtype = (m.get("segmentor_args") or {}).get("dtype")
-        return dtype not in (None, "float32")
-
     port = "not ported"
     refused = [
-        ("model.segmentor_args.dtype", training and reduced(model), port),
-        ("model_t.segmentor_args.dtype", training and reduced(model_t),
-         port),
         ("tp", int(cfg.get("tp", 1) or 1) > 1, port),
         ("sp", int(cfg.get("sp", 1) or 1) > 1, port),
         ("fsdp", bool(cfg.get("fsdp")), port),
@@ -307,8 +304,8 @@ def refuse_unported(cfg) -> None:
         key, why = on[0]
         raise NotImplementedError(
             f"{why}: {key}={_get(cfg, key)!r} (the port trains "
-            f"{', '.join(TRAINED_MODELS)} in float32, data parallel "
-            f"only; semi-supervised {' or '.join(SEMI_MODELS)} over "
+            f"{', '.join(TRAINED_MODELS)} in float32 or bfloat16, data "
+            f"parallel only; semi-supervised {' or '.join(SEMI_MODELS)} over "
             f"{SEMI_SEGMENTOR} with Ins_T_mean)")
 
 
@@ -563,23 +560,23 @@ def main(cfg, device: "str | torch.device" = "cuda") -> Dict[str, Any]:
         raise ValueError(f"num_votes={num_votes} needs a vote transform "
                          f"pipeline (datatransforms.vote)")
 
-    def loader(batch_size, ds_cfg, split):
-        # train loaders are sharded over the ranks; val and test are not,
-        # so every rank scores the whole split alike
-        # (geot_tpu/engine/train.py:188-208)
-        shards = world if split == "train" else 1
-        return build_dataloader_from_cfg(int(batch_size), ds_cfg, tf,
-                                         split=split, seed=seed,
-                                         num_shards=shards,
-                                         shard_index=rank % shards,
-                                         dataloader_cfg=cfg.get("dataloader"))
-
-    val_loader = loader(cfg.get("batch_size_val", 2), cfg.dataset_l, "val")
-    test_loader = loader(cfg.get("batch_size_test", 2), cfg.dataset_l, "test")
-    train_loader_l = loader(cfg.get("batch_size_l", cfg.get("batch_size", 2)),
-                            cfg.dataset_l, "train")
-    train_loader_u = (loader(cfg.get("batch_size_u", 2), cfg.dataset_u,
-                             "train") if semi else None)
+    # train loaders are sharded over the ranks; val and test are not, so
+    # every rank scores the whole split alike
+    # (geot_tpu/engine/train.py:188-208)
+    val_loader = build_dataloader_from_cfg(
+        int(cfg.get("batch_size_val", 2)), cfg.dataset_l,
+        cfg.get("dataloader"), tf, split="val", seed=seed)
+    test_loader = build_dataloader_from_cfg(
+        int(cfg.get("batch_size_test", 2)), cfg.dataset_l,
+        cfg.get("dataloader"), tf, split="test", seed=seed)
+    train_loader_l = build_dataloader_from_cfg(
+        int(cfg.get("batch_size_l", cfg.get("batch_size", 2))),
+        cfg.dataset_l, cfg.get("dataloader"), tf, split="train", seed=seed,
+        distributed=world > 1)
+    train_loader_u = (build_semi_dataloader_from_cfg(
+        int(cfg.get("batch_size_u", 2)), cfg.dataset_u,
+        cfg.get("dataloader"), tf, split="train", seed=seed,
+        distributed=world > 1) if semi else None)
     logger.info(f"datasets: train_l={len(train_loader_l.dataset)} "
                 f"val={len(val_loader.dataset)} "
                 f"test={len(test_loader.dataset)}"

@@ -13,17 +13,11 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..core.registry import Registry
 from ..ops import knn
 
-LOSSES: Dict[str, type] = {}
-
-
-def register(*names: str):
-    def put(cls):
-        for name in names:
-            LOSSES[name] = cls
-        return cls
-    return put
+LOSS = Registry("loss")
+LOSSES = LOSS       # the port's earlier name
 
 
 def _flatten_logits(logits: torch.Tensor, labels: torch.Tensor):
@@ -47,7 +41,8 @@ def _as_tensor(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=like.dtype, device=like.device)
 
 
-@register("CrossEntropy", "CrossEntropyLoss")
+@LOSS.register_module(name="CrossEntropy")
+@LOSS.register_module(name="CrossEntropyLoss")
 class CrossEntropy:
     """``build.py:28``: mean cross entropy, optionally label-smoothed over
     the C - 1 other classes."""
@@ -67,7 +62,7 @@ class CrossEntropy:
         return _nll(logp, labels).mean()
 
 
-@register("SmoothCrossEntropy")
+@LOSS.register_module(name="SmoothCrossEntropy")
 class SmoothCrossEntropy:
     """``build.py:45``: label-smoothed cross entropy with an optional
     ``ignore_index`` and per-class ``weight``, averaged over kept points."""
@@ -98,7 +93,7 @@ class SmoothCrossEntropy:
         return (per * valid).sum() / valid.sum().clamp_min(1.0)
 
 
-@register("MaskedCrossEntropy")
+@LOSS.register_module(name="MaskedCrossEntropy")
 class MaskedCrossEntropy:
     """``build.py:74``: cross entropy over the points where mask is 1 (the
     smoothing argument is accepted and, as there, not applied)."""
@@ -113,7 +108,8 @@ class MaskedCrossEntropy:
         return (loss * mask).sum() / mask.sum().clamp_min(1.0)
 
 
-@register("BCELogits", "BCEWithLogitsLoss")
+@LOSS.register_module(name="BCELogits")
+@LOSS.register_module(name="BCEWithLogitsLoss")
 class BCELogits:
     """``build.py:88``: sigmoid binary cross entropy against the one-hot
     labels, mean over every (point, class)."""
@@ -127,7 +123,7 @@ class BCELogits:
         return F.binary_cross_entropy_with_logits(logits, onehot)
 
 
-@register("FocalLoss")
+@LOSS.register_module(name="FocalLoss")
 class FocalLoss:
     """``build.py:110``: softmax focal loss, ``pt`` detached."""
 
@@ -149,7 +145,7 @@ class FocalLoss:
         return loss.mean() if self.size_average else loss.sum()
 
 
-@register("Poly1CrossEntropyLoss")
+@LOSS.register_module(name="Poly1CrossEntropyLoss")
 class Poly1CrossEntropy:
     """``build.py:133``: cross entropy + epsilon * (1 - pt)."""
 
@@ -194,7 +190,7 @@ def _masked_mean(poly1: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (poly1 * mask).sum() / (mask.sum() * poly1.shape[-1] + 0.001)
 
 
-@register("Poly1FocalLoss")
+@LOSS.register_module(name="Poly1FocalLoss")
 class Poly1FocalLoss:
     """``build.py:175``: the GeoT supervised criterion."""
 
@@ -228,17 +224,17 @@ class _Poly1FocalMasked:
         return _masked_mean(self._elem(logits, labels), mask)
 
 
-@register("Poly1FocalLoss_U")
+@LOSS.register_module(name="Poly1FocalLoss_U")
 class Poly1FocalLossU(_Poly1FocalMasked):
     """``build.py:214``."""
 
 
-@register("Poly1FocalLoss_U_corr")
+@LOSS.register_module(name="Poly1FocalLoss_U_corr")
 class Poly1FocalLossUCorr(_Poly1FocalMasked):
     """``build.py:220``: the same forward, fed T-corrected logits."""
 
 
-@register("Poly1FocalLoss_U_T")
+@LOSS.register_module(name="Poly1FocalLoss_U_T")
 class Poly1FocalLossUT(_Poly1FocalMasked):
     """``build.py:225``: the terms reweighted by ``beta = p_before_T /
     p_after_T`` at the pseudo-label's class."""
@@ -252,7 +248,7 @@ class Poly1FocalLossUT(_Poly1FocalMasked):
         return _masked_mean(poly1, mask)
 
 
-@register("Poly1FocalLoss_U_Cur")
+@LOSS.register_module(name="Poly1FocalLoss_U_Cur")
 class Poly1FocalLossUCur(_Poly1FocalMasked):
     """``build.py:243``: masked by the batch's per-point curvature score
     ``cur`` where given, else by the confidence."""
@@ -273,7 +269,7 @@ def _top2(x: torch.Tensor):
     return x.gather(-1, idx), idx
 
 
-@register("Poly1FocalLoss_U_top2")
+@LOSS.register_module(name="Poly1FocalLoss_U_top2")
 class Poly1FocalLossUTop2(_Poly1FocalMasked):
     """``build.py:257``: the threshold mask widened by ambiguous points
     (top-1 + top-2 >= 0.9) whose top-2 labels are swapped with their
@@ -297,7 +293,7 @@ class Poly1FocalLossUTop2(_Poly1FocalMasked):
         return _masked_mean(poly1, full), full, topk_mask
 
 
-@register("Poly1FocalLoss_U_T_v1")
+@LOSS.register_module(name="Poly1FocalLoss_U_T_v1")
 class Poly1FocalLossUTV1(_Poly1FocalMasked):
     """``build.py:284``: ``_U_T`` with the after-T confidence of the weak
     probabilities corrected by ``T + delta_T`` (the model's T-revision
@@ -313,7 +309,7 @@ class Poly1FocalLossUTV1(_Poly1FocalMasked):
         return _masked_mean(poly1, mask), delta_T
 
 
-@register("Weight_CELoss")
+@LOSS.register_module(name="Weight_CELoss")
 class WeightCELoss:
     """``build.py:307``: NLL weighted per class by the batch's mean class
     histogram ``class_weights`` (B, C)."""
@@ -327,7 +323,7 @@ class WeightCELoss:
         return (_nll(F.log_softmax(logits, -1), labels) * w[labels]).mean()
 
 
-@register("Weight_CELoss_U")
+@LOSS.register_module(name="Weight_CELoss_U")
 class WeightCELossU:
     """``build.py:323``: the weighted NLL over the points whose confidence
     clears the threshold and whose pseudo-label is not 0."""
@@ -345,7 +341,7 @@ class WeightCELossU:
         return (nll * keep).sum() / keep.sum().clamp_min(1.0)
 
 
-@register("MSE_Loss_U")
+@LOSS.register_module(name="MSE_Loss_U")
 class MSELossU:
     """``build.py:345``: self-thresholded softmax MSE, with the reference's
     broadcast: per (n, c) the numerator is (sum_b mask) x (sum_b loss)."""
@@ -360,7 +356,7 @@ class MSELossU:
         return (mask.sum(0) * loss.sum(0)).sum() / (mask.sum() + 0.001)
 
 
-@register("MultiShapeCrossEntropy")
+@LOSS.register_module(name="MultiShapeCrossEntropy")
 class MultiShapeCrossEntropy:
     """``build.py:364``: per sample, the inner criterion on the logits of
     its shape category; ``logits_all_shapes`` (S, B, N, C)."""
@@ -378,7 +374,7 @@ class MultiShapeCrossEntropy:
         return losses / B
 
 
-@register("LabelSmoothingCrossEntropy")
+@LOSS.register_module(name="LabelSmoothingCrossEntropy")
 class LabelSmoothingCrossEntropy:
     """``build.py:382``."""
 
@@ -393,7 +389,7 @@ class LabelSmoothingCrossEntropy:
                 + self.smoothing * smooth).mean()
 
 
-@register("SoftTargetCrossEntropy")
+@LOSS.register_module(name="SoftTargetCrossEntropy")
 class SoftTargetCrossEntropy:
     """``build.py:397``: targets are probability distributions."""
 
@@ -406,7 +402,7 @@ class SoftTargetCrossEntropy:
                 * F.log_softmax(logits.reshape(-1, C), -1)).sum(-1).mean()
 
 
-@register("DistillLoss")
+@LOSS.register_module(name="DistillLoss")
 class DistillLoss:
     """``build.py:412``: CE on the labels + KL(teacher || student) at
     temperature tau, times tau^2."""
@@ -424,12 +420,7 @@ class DistillLoss:
         return (1 - self.alpha) * ce + self.alpha * kd
 
 
-def build_criterion_from_cfg(cfg: Dict[str, Any]):
+def build_criterion_from_cfg(cfg: Dict[str, Any], **default_args: Any):
     """``{"NAME": ..., **kwargs}`` -> the loss (``build.py:429``); an
     unknown name raises ``KeyError``."""
-    cfg = dict(cfg)
-    name = cfg.pop("NAME")
-    if name not in LOSSES:
-        raise KeyError(f"loss {name!r} is not registered; registered: "
-                       f"{sorted(LOSSES)}")
-    return LOSSES[name](**cfg)
+    return LOSS.build(cfg, **default_args)

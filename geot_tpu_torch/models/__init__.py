@@ -1,37 +1,12 @@
-"""Models; importing this package registers them for
-``core.config.build_model_from_cfg``."""
-from .backbone.dgcnn import DGCNN, DGCNNGenEncoder
-from .backbone.pointmlp import (PointMLPEncoder, PointMLPEncoderV2,
-                                PointMLPGenEncoder, PointMLPPartSegmentor)
-from .backbone.pointnetv2 import (PointNet2Decoder, PointNet2Encoder,
-                                  PointNet2GenEncoder, PointNet2PartDecoder)
-from .backbone.transformer import (GraghMatching, PointTransformerEncoder,
-                                   PointTransformerGenEncoder,
-                                   PointTransformerGenEncoderSeg,
-                                   PointTransformerSeg,
-                                   PointTransformerSeg2Classifier,
-                                   PointTransformerSegClassifier,
-                                   PointTransformerSegCluster,
-                                   PointTransformerSegT, SigT, SigTMean)
-from .layers.patch_embed import P3Embed, PointPatchEmbed
-from .generation.view_gen import (ViewDecoder, ViewDecoderBig, ViewDecoderDS,
-                                  ViewGenBase, ViewTransformer)
-from .classification.cls_base import BaseCls, ClsHead, DistillCls
-from .segmentation.base_seg import (BasePartSeg, BaseSeg, DistillBaseSeg,
-                                    InsT, InsTMean, MultiSegHead, SegHead,
-                                    VariableSeg, VariableSegHead,
-                                    WholePartSeg, WholePartSegNTM)
+"""Models (``geot_tpu/models``): ``MODELS`` and ``build_model_from_cfg``;
+importing this package registers every model class."""
+from ..core.config import MODELS, build_model_from_cfg
 
-__all__ = ["BaseCls", "BasePartSeg", "BaseSeg", "ClsHead", "DGCNN",
-           "DGCNNGenEncoder", "DistillBaseSeg", "DistillCls",
-           "GraghMatching", "InsT", "InsTMean", "MultiSegHead", "P3Embed",
-           "PointMLPEncoder", "PointMLPEncoderV2", "PointMLPGenEncoder",
-           "PointMLPPartSegmentor", "PointNet2Decoder", "PointNet2Encoder",
-           "PointNet2GenEncoder", "PointNet2PartDecoder", "PointPatchEmbed",
-           "PointTransformerEncoder", "PointTransformerGenEncoder",
-           "PointTransformerGenEncoderSeg", "PointTransformerSeg",
-           "PointTransformerSeg2Classifier", "PointTransformerSegClassifier",
-           "PointTransformerSegCluster", "PointTransformerSegT", "SegHead",
-           "SigT", "SigTMean", "VariableSeg", "VariableSegHead",
-           "ViewDecoder", "ViewDecoderBig", "ViewDecoderDS", "ViewGenBase",
-           "ViewTransformer", "WholePartSeg", "WholePartSegNTM"]
+# imported for their registrations
+from .backbone import dgcnn, pointmlp, pointnetv2, transformer  # noqa: F401
+from .classification import cls_base  # noqa: F401
+from .generation import view_gen  # noqa: F401
+from .layers import patch_embed  # noqa: F401
+from .segmentation import base_seg  # noqa: F401
+
+__all__ = ["MODELS", "build_model_from_cfg"]

@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...core.config import register_model
+from ...core.config import MODELS
 from ...ops import grouping_operation, knn
 from ..layers import BatchNorm, Dense, LeakyReLU
 
@@ -36,7 +36,7 @@ class EdgeConv(nn.Module):
         return self.act(self.bn(self.conv(edge))).amax(dim=2)
 
 
-@register_model("DGCNN")
+@MODELS.register_module(name="DGCNN")
 class DGCNN(nn.Module):
     """``n_blocks - 1`` edge convolutions of ``channels`` each, fused to
     ``embed_dim``; ``forward`` returns (B, N, embed_dim). ``is_seg`` is
@@ -81,7 +81,7 @@ class DGCNN(nn.Module):
         return torch.cat([fused.amax(dim=1), fused.mean(dim=1)], dim=-1)
 
 
-@register_model("DGCNNGenEncoder")
+@MODELS.register_module(name="DGCNNGenEncoder")
 class DGCNNGenEncoder(DGCNN):
     """DGCNN for the pretraining stage's generator
     (``geot_tpu/models/backbone/dgcnn.py:74``): ``forward_cls_feat``

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from ...core.config import register_model
+from ...core.config import MODELS
 from ...ops import fps, gather_points, grouping_operation, knn, \
     three_interpolation
 from ..layers import BatchNorm, Dense, Dropout, gelu
@@ -138,7 +138,7 @@ class PosExtraction(nn.Module):
         return x
 
 
-@register_model("PointMLPGenEncoder")
+@MODELS.register_module(name="PointMLPGenEncoder")
 class PointMLPGenEncoder(nn.Module):
     """PointMLP's encoder keeping its per-group tokens, for the
     pretraining stage's generator (``geot_tpu/models/backbone/pointmlp.py:
@@ -192,7 +192,7 @@ class PointMLPGenEncoder(nn.Module):
         return self(xyz, features)
 
 
-@register_model("PointMLPEncoder")
+@MODELS.register_module(name="PointMLPEncoder")
 class PointMLPEncoder(PointMLPGenEncoder):
     """The classification encoder (``geot_tpu/models/backbone/pointmlp.py:
     137-172``): the stages of ``PointMLPGenEncoder``; ``forward`` returns
@@ -233,7 +233,7 @@ def pointMLPElite(**kwargs) -> PointMLPEncoder:
                            reducers=(2, 2, 2, 2), **kwargs)
 
 
-@register_model("PointMLP")
+@MODELS.register_module(name="PointMLP")
 def PointMLP(**kwargs) -> PointMLPEncoder:
     """The registry's ``PointMLP``: a ``PointMLPEncoder`` of the arguments
     it takes, the others dropped (``geot_tpu/models/backbone/pointmlp.py:
@@ -243,7 +243,7 @@ def PointMLP(**kwargs) -> PointMLPEncoder:
                               if k in fields and k != "self"})
 
 
-@register_model("PointMLPEncoderV2")
+@MODELS.register_module(name="PointMLPEncoderV2")
 class PointMLPEncoderV2(nn.Module):
     """``enc``, a ``PointMLPGenEncoder``; each last-stage group's features
     and center concatenated go through ``feat_mlp_fc1``, exact GELU and
@@ -282,7 +282,7 @@ class PointMLPEncoderV2(nn.Module):
         return self(xyz, features)
 
 
-@register_model("PointMLPPartSegmentor")
+@MODELS.register_module(name="PointMLPPartSegmentor")
 class PointMLPPartSegmentor(nn.Module):
     """``forward`` takes a batch dict (``pos``, ``x``, ``cls``) or arrays
     and returns (B, N, ``num_classes``) logits. The head's dropout (0.5)

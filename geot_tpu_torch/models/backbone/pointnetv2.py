@@ -18,7 +18,7 @@ from typing import Any, List, Optional, Sequence
 import torch
 from torch import nn
 
-from ...core.config import register_model
+from ...core.config import MODELS
 from ...ops import fps, gather_points, three_interpolation
 from ..layers import LocalAggregation, SharedMLP
 
@@ -118,7 +118,7 @@ def PointnetSAModule(mlp, npoint=None, radius=None, nsample=None,
                                **kwargs)
 
 
-@register_model("PointNet2Encoder")
+@MODELS.register_module(name="PointNet2Encoder")
 class PointNet2Encoder(nn.Module):
     """Hierarchical encoder; ``forward`` returns the per-level points and
     features ``([xyz, ...], [x, ...])``. ``geot_tpu``'s fields that its
@@ -189,7 +189,7 @@ class PointNet2Encoder(nn.Module):
         return l_xyz, l_feats
 
 
-@register_model("PointNet2GenEncoder")
+@MODELS.register_module(name="PointNet2GenEncoder")
 class PointNet2GenEncoder(PointNet2Encoder):
     """The encoder for the pretraining stage's generator
     (``geot_tpu/models/backbone/pointnetv2.py:273``): ``forward_cls_feat``
@@ -204,7 +204,7 @@ class PointNet2GenEncoder(PointNet2Encoder):
         return l_feats[-1], l_xyz[-1]
 
 
-@register_model("PointNet2Decoder")
+@MODELS.register_module(name="PointNet2Decoder")
 class PointNet2Decoder(nn.Module):
     """Feature propagation back up the pyramid, coarsest first. Returns
     level 0's features, ``out_channels`` wide."""
@@ -240,7 +240,7 @@ class PointNet2Decoder(nn.Module):
         return l_features[0]
 
 
-@register_model("PointNet2PartDecoder")
+@MODELS.register_module(name="PointNet2PartDecoder")
 class PointNet2PartDecoder(PointNet2Decoder):
     """``PointNet2Decoder`` whose finest level's features are concatenated
     with the one-hot of each cloud's shape category ``cls_label`` (B,) or

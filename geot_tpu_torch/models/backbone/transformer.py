@@ -35,7 +35,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from ...core.config import register_model
+from ...core.config import MODELS
 from ...ops import (fps, fps_stratified, gather_points, grouping_operation,
                    knn, three_interpolation)
 from ..layers import (GELU, BatchNorm, Dense, DropPath, Dropout, DtypeArg,
@@ -233,7 +233,7 @@ class DGCNNPropagation(nn.Module):
 HEAD_MODES = ("plain", "cluster", "classifier")
 
 
-@register_model("PointTransformer_seg_T")
+@MODELS.register_module(name="PointTransformer_seg_T")
 class PointTransformerSegT(nn.Module):
     """The GeoT flagship segmentor. ``forward`` returns
     ``(logit (B, N, C) float32 or wider, correction, sigma, f_l0 (B, N,
@@ -398,7 +398,7 @@ class PointTransformerSegT(nn.Module):
         return logit, correction, self.sigma, feats
 
 
-@register_model("PointTransformer_seg")
+@MODELS.register_module(name="PointTransformer_seg")
 def PointTransformerSeg(**kwargs) -> PointTransformerSegT:
     """The same backbone without the NTM head (no ``T_linear``,
     ``T_revision`` or ``sigma``; ``geot_tpu/models/backbone/transformer.py:
@@ -406,21 +406,21 @@ def PointTransformerSeg(**kwargs) -> PointTransformerSegT:
     return PointTransformerSegT(with_T=False, **kwargs)
 
 
-@register_model("PointTransformer_seg_2classifier")
+@MODELS.register_module(name="PointTransformer_seg_2classifier")
 def PointTransformerSeg2Classifier(**kwargs) -> PointTransformerSegT:
     """``PointTransformer_seg``'s forward (the reference never wired its
     second classifier; ``transformer.py:495-499``)."""
     return PointTransformerSegT(with_T=False, **kwargs)
 
 
-@register_model("PointTransformer_seg_cluster")
+@MODELS.register_module(name="PointTransformer_seg_cluster")
 def PointTransformerSegCluster(**kwargs) -> PointTransformerSegT:
     """The seg backbone with the 64-d contrast projection as its features
     (``head_mode="cluster"``, ``transformer.py:502-506``)."""
     return PointTransformerSegT(with_T=False, head_mode="cluster", **kwargs)
 
 
-@register_model("PointTransformer_seg_classifier")
+@MODELS.register_module(name="PointTransformer_seg_classifier")
 def PointTransformerSegClassifier(**kwargs) -> PointTransformerSegT:
     """The seg backbone with class-prototype features from the seg head's
     weights (``head_mode="classifier"``, ``transformer.py:509-514``)."""
@@ -428,7 +428,7 @@ def PointTransformerSegClassifier(**kwargs) -> PointTransformerSegT:
                                 **kwargs)
 
 
-@register_model("PointTransformer_genencoder")
+@MODELS.register_module(name="PointTransformer_genencoder")
 class PointTransformerGenEncoderSeg(nn.Module):
     """The flagship's trunk as the pretraining stage's point encoder
     (``geot_tpu/models/backbone/transformer.py:517-552``): FPS to
@@ -526,7 +526,7 @@ class _ClsTokenEncoder(nn.Module):
         return self(p, f0, generator)
 
 
-@register_model("PointTransformerGenEncoder")
+@MODELS.register_module(name="PointTransformerGenEncoder")
 class PointTransformerGenEncoder(_ClsTokenEncoder):
     """``forward`` returns (the tokens without the cls token (B, G, D),
     the centers (B, G, 3)) (``transformer.py:601-612``)."""
@@ -544,7 +544,7 @@ class PointTransformerGenEncoder(_ClsTokenEncoder):
         return out[:, 1:], center
 
 
-@register_model("PointTransformerEncoder")
+@MODELS.register_module(name="PointTransformerEncoder")
 class PointTransformerEncoder(_ClsTokenEncoder):
     """``forward`` returns [the cls token ; the max over the group tokens],
     (B, 2 D) (``transformer.py:615-626``)."""
@@ -560,7 +560,7 @@ class PointTransformerEncoder(_ClsTokenEncoder):
         return torch.cat([out[:, 0], out[:, 1:].amax(dim=1)], dim=-1)
 
 
-@register_model("sig_t")
+@MODELS.register_module(name="sig_t")
 class SigT(nn.Module):
     """A global transition matrix from softmax outputs
     (``transformer.py:629-647``): ``fc`` (C C, C) (the reference's
@@ -585,7 +585,7 @@ class SigT(nn.Module):
         return out / out.sum(dim=2, keepdim=True)
 
 
-@register_model("sig_t_mean")
+@MODELS.register_module(name="sig_t_mean")
 class SigTMean(nn.Module):
     """Instance-dependent transition matrix predictor
     (``geot_tpu/models/backbone/transformer.py:651``): per class k a
@@ -618,7 +618,7 @@ class SigTMean(nn.Module):
         return ins_t / ins_t.sum(dim=2, keepdim=True)
 
 
-@register_model("Gragh_Matching")
+@MODELS.register_module(name="Gragh_Matching")
 class GraghMatching(nn.Module):
     """The registry's ``Gragh_Matching`` (``transformer.py:680-694``): the
     reference class is unfinished (its ``forward`` is ``pass``), so, as in

@@ -17,11 +17,11 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from ...core.config import build_model_from_cfg, register_model
+from ...core.config import MODELS, build_model_from_cfg
 from ..layers import BatchNorm, Dense, Dropout
 
 
-@register_model("ClsHead")
+@MODELS.register_module(name="ClsHead")
 class ClsHead(nn.Module):
     """``mlp_{i}`` + ``bn_{i}`` + ReLU + dropout per width of ``mlps``,
     then ``out`` to ``num_classes``; the dropout masks come from
@@ -73,7 +73,7 @@ class _ClsBase(nn.Module):
         return g, (self.head(g, generator) if self.head is not None else g)
 
 
-@register_model("BaseCls")
+@MODELS.register_module(name="BaseCls")
 class BaseCls(_ClsBase):
     """Encoder + head: a batch dict (``pos``, ``x``) or arrays in, (B,
     num_classes) logits out (the global feature without a head)."""
@@ -83,7 +83,7 @@ class BaseCls(_ClsBase):
         return self._feat_and_logits(p0, f0, generator)[1]
 
 
-@register_model("DistillCls")
+@MODELS.register_module(name="DistillCls")
 class DistillCls(_ClsBase):
     """``BaseCls`` returning ``(logits, global feature)``, for a
     distillation term on the feature; ``distill_args`` is taken and not

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from ...core.config import build_model_from_cfg, register_model
+from ...core.config import MODELS, build_model_from_cfg
 from ..layers import BatchNorm, Dense, Dropout, LayerNorm, gelu, softmax
 
 
@@ -180,7 +180,7 @@ class BasicTransformerBlock(nn.Module):
 _QUERY_PARTS = {"point_grid": 3, "direction_norm": 3, "query_pos": 2}
 
 
-@register_model("ViewTransformer")
+@MODELS.register_module(name="ViewTransformer")
 class ViewTransformer(nn.Module):
     """The photo generator. ``forward(feats_pc (B, G, in_channels), pos_feats
     (B, G, 3), pos_pc (B, N, 3), view (B, V, 3, 3))`` -> (B * V, fs, fs,
@@ -282,7 +282,7 @@ class ViewTransformer(nn.Module):
         return q.reshape(B * V, fs, fs, self.feat_channels)
 
 
-@register_model("ViewDecoder")
+@MODELS.register_module(name="ViewDecoder")
 class ViewDecoder(nn.Module):
     """Four transposed convolutions ((5, 5) at stride 4, then (3, 3) at
     stride 2 three times; 32x up), ReLU between, sigmoid out."""
@@ -302,7 +302,7 @@ class ViewDecoder(nn.Module):
         return torch.sigmoid(self.layer4(x))
 
 
-@register_model("ViewDecoder_big")
+@MODELS.register_module(name="ViewDecoder_big")
 class ViewDecoderBig(nn.Module):
     """Four stages of a bilinear 2x upsample (``jax.image.resize``'s half-
     pixel centres, as ``F.interpolate(align_corners=False)``) and two
@@ -332,7 +332,7 @@ class ViewDecoderBig(nn.Module):
         return torch.sigmoid(self.out(x))
 
 
-@register_model("ViewDecoder_ds")
+@MODELS.register_module(name="ViewDecoder_ds")
 class ViewDecoderDS(nn.Module):
     """Four (3, 3) stride-2 transposed convolutions with ReLU, each stage
     tapped by a (3, 3) sigmoid head; returns the four images, smallest
@@ -356,7 +356,7 @@ class ViewDecoderDS(nn.Module):
         return imgs
 
 
-@register_model("ViewGenBase")
+@MODELS.register_module(name="ViewGenBase")
 class ViewGenBase(nn.Module):
     """Encoder, generator and decoder. ``forward(p0)`` with ``p0 = {"pos"
     (B, N, 3), "x", "views" (B, V, 3, 3), "imgs" (B, V, H, W, 3),

@@ -15,12 +15,12 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ...core.config import register_model
+from ...core.config import MODELS
 from .common import SharedMLP
 from .group_embed import SubsampleGroup
 
 
-@register_model("PointPatchEmbed")
+@MODELS.register_module(name="PointPatchEmbed")
 class PointPatchEmbed(nn.Module):
     """FPS to ``sample_ratio`` of the points, ball-query or kNN groups of
     ``group_size``, ``convs`` (a ``SharedMLP`` of ``channels``) and the
@@ -57,7 +57,7 @@ class PointPatchEmbed(nn.Module):
         return self.convs(feats).amax(dim=2), center
 
 
-@register_model("P3Embed")
+@MODELS.register_module(name="P3Embed")
 class P3Embed(nn.Module):
     """``stages`` ``PointPatchEmbed`` stages (``stage_{s}``), each on the
     last one's centers and tokens, with one layer of ``channels[s]`` (the

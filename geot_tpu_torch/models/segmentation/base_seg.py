@@ -18,13 +18,13 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from ...core.config import MODELS, build_model_from_cfg, register_model
+from ...core.config import MODELS, build_model_from_cfg
 from ..backbone.transformer import SigT, SigTMean, _ClsTokenEncoder
 from ..generation.view_gen import Conv, ConvTranspose
 from ..layers import BatchNorm, Dense, Dropout
 
 
-@register_model("WholePartSeg")
+@MODELS.register_module(name="WholePartSeg")
 class WholePartSeg(nn.Module):
     """Batches go in as dicts, as in ``geot_tpu``:
 
@@ -68,7 +68,7 @@ class WholePartSeg(nn.Module):
         return self.segmentor(p0, f0, cls0, T, generator=generator)
 
 
-@register_model("WholePartSeg_ntm")
+@MODELS.register_module(name="WholePartSeg_ntm")
 class WholePartSegNTM(nn.Module):
     """``WholePartSeg`` without the T thread (``base_seg.py:66-91``): the
     segmentor is called with ``T=None``, so its correction is None; with
@@ -98,7 +98,7 @@ class WholePartSegNTM(nn.Module):
         return self.segmentor(p0, f0, cls0, None, generator=generator)
 
 
-@register_model("Ins_T")
+@MODELS.register_module(name="Ins_T")
 class InsT(nn.Module):
     """Instance-T predictor wrapper (``base_seg.py:94``):
     ``T_predictor(clean)``."""
@@ -111,7 +111,7 @@ class InsT(nn.Module):
         return self.T_predictor(clean)
 
 
-@register_model("Ins_T_mean")
+@MODELS.register_module(name="Ins_T_mean")
 class InsTMean(nn.Module):
     """Instance-T predictor with class-mean conditioning
     (``base_seg.py:108``): ``T_predictor(clean, cm)``."""
@@ -133,7 +133,7 @@ def build_head(cls_args: Dict[str, Any], width: int) -> nn.Module:
     return build_model_from_cfg(dict(cls_args, **{key: width}))
 
 
-@register_model("BaseSeg")
+@MODELS.register_module(name="BaseSeg")
 class BaseSeg(nn.Module):
     """Encoder, optional decoder, optional head. The decoder is built with
     ``encoder_channel_list`` = the encoder's ``channel_list`` unless the
@@ -171,7 +171,7 @@ class BaseSeg(nn.Module):
         return self.head(f, generator) if self.head is not None else f
 
 
-@register_model("BasePartSeg")
+@MODELS.register_module(name="BasePartSeg")
 class BasePartSeg(BaseSeg):
     """``BaseSeg`` for part segmentation: the decoder also takes each
     cloud's shape category (``cls``). ``forward`` takes a batch dict
@@ -191,7 +191,7 @@ class BasePartSeg(BaseSeg):
         return self.head(f, generator) if self.head is not None else f
 
 
-@register_model("SegHead")
+@MODELS.register_module(name="SegHead")
 class SegHead(nn.Module):
     """Per-point head (``GenericSegHead``): optional global max/avg features
     (``global_feat``, a comma list) concatenated to every point, then
@@ -233,7 +233,7 @@ class SegHead(nn.Module):
         return self.out(self.dropout(f, generator))
 
 
-@register_model("DistillBaseSeg")
+@MODELS.register_module(name="DistillBaseSeg")
 class DistillBaseSeg(nn.Module):
     """``BaseSeg`` as ``inner`` (``base_seg.py:189``; the reference class
     is commented out): ``distill_args`` and ``criterion_args`` are taken
@@ -251,7 +251,7 @@ class DistillBaseSeg(nn.Module):
         return self.inner(p0, f0, generator)
 
 
-@register_model("VariableSeg")
+@MODELS.register_module(name="VariableSeg")
 class VariableSeg(DistillBaseSeg):
     """``BaseSeg`` as ``inner`` for variable-length scenes, in the dense
     layout (``base_seg.py:299``)."""
@@ -262,7 +262,7 @@ class VariableSeg(DistillBaseSeg):
         super().__init__(encoder_args, decoder_args, cls_args)
 
 
-@register_model("VariableSegHead")
+@MODELS.register_module(name="VariableSegHead")
 class VariableSegHead(nn.Module):
     """``fc0`` (to ``in_channels``, or the input's width when None) +
     ``bn0`` + ReLU, dropout, and ``out`` to ``num_classes``
@@ -290,7 +290,7 @@ class VariableSegHead(nn.Module):
                                      generator))
 
 
-@register_model("MultiSegHead")
+@MODELS.register_module(name="MultiSegHead")
 class MultiSegHead(nn.Module):
     """Per-category part heads (``base_seg.py:267``): for category i,
     ``head{i}_fc`` (the input's width) + ``head{i}_bn`` + ReLU, dropout and

@@ -48,11 +48,16 @@ class AdaHessian(Transform):
     """The update (``adahessian.py:70-106``): first moment of the
     gradients, second moment of the squared diagonal, ``denom = (nu_hat)
     ** (k / 2) + eps``, decoupled decay on every parameter, times
-    ``-lr``. The bias corrections are float32, as there."""
+    ``-lr``. The bias corrections are float32, as there. The learning rate
+    and each parameter's decay are the chain's (``Ctx``) unless given
+    here."""
 
     def __init__(self, b1: float, b2: float, eps: float,
-                 hessian_power: float = 1.0):
+                 hessian_power: float = 1.0,
+                 learning_rate: Optional[float] = None,
+                 weight_decay: Optional[float] = None):
         self.b1, self.b2, self.eps, self.k = b1, b2, eps, hessian_power
+        self.lr, self.wd = learning_rate, weight_decay
 
     def init(self, p):
         return {"exp_avg": torch.zeros_like(p),
@@ -62,11 +67,25 @@ class AdaHessian(Transform):
         b1, b2 = self.b1, self.b2
         bc1 = f32_bias_correction(b1, ctx.count)
         bc2 = f32_bias_correction(b2, ctx.count)
+        lr = ctx.lr if self.lr is None else self.lr
+        wds = ctx.wd if self.wd is None else [self.wd] * len(ps)
         out = []
-        for u, p, s, h, wd in zip(us, ps, sts, ctx.hessian, ctx.wd):
+        for u, p, s, h, wd in zip(us, ps, sts, ctx.hessian, wds):
             m = b1 * s["exp_avg"] + (1 - b1) * u
             v = b2 * s["exp_hessian_diag_sq"] + (1 - b2) * h * h
             s["exp_avg"], s["exp_hessian_diag_sq"] = m, v
             denom = (v / bc2).pow(self.k / 2.0) + self.eps
-            out.append(-ctx.lr * (wd * p + m / (bc1 * denom)))
+            out.append(-lr * (wd * p + m / (bc1 * denom)))
         return out
+
+
+def adahessian(learning_rate: float = 0.1, b1: float = 0.9,
+               b2: float = 0.999, eps: float = 1e-8,
+               weight_decay: float = 0.0,
+               hessian_power: float = 1.0) -> AdaHessian:
+    """The AdaHessian transform with its own learning rate and decay
+    (``geot_tpu/optim/adahessian.py:65``): ``init(p)`` per parameter, and
+    ``update(grads, params, states, Ctx(count=..., hessian=...))`` returns
+    the updates."""
+    return AdaHessian(b1, b2, eps, hessian_power,
+                      learning_rate=learning_rate, weight_decay=weight_decay)

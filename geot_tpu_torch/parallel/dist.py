@@ -45,7 +45,8 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Iterable, Optional
+import socket
+from typing import Iterable, Optional, Tuple
 
 import torch
 import torch.distributed as tdist
@@ -68,6 +69,19 @@ def rank() -> int:
 def is_primary() -> bool:
     """Rank 0, the one that writes scalars, logs and checkpoints."""
     return rank() == 0
+
+
+def get_dist_info() -> Tuple[int, int]:
+    """``(rank, world size)`` (``geot_tpu/parallel/mesh.py:172``)."""
+    return rank(), world()
+
+
+def find_free_port() -> int:
+    """A TCP port on localhost that was free a moment ago
+    (``geot_tpu/parallel/mesh.py:182``)."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return int(s.getsockname()[1])
 
 
 def backend() -> Optional[str]:

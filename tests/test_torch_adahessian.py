@@ -45,11 +45,13 @@ from geot_tpu_torch.optim import build_scheduler_from_cfg, hutchinson_diag
 from test_torch_dist import WORLD, _torch_batch, run_workers
 from test_torch_train import (C, CFG, TRAIN_ARGS, _jax_init, _jbatch,
                               _np_tree, _rel, _tbatch, batches)  # noqa: F401
+from torch_helpers import one_torch_thread  # noqa: F401
 
 HCFG = dict(CFG, optimizer={"NAME": "adahessian", "weight_decay": 0.05})
 TOL = 1e-5
 FLOOR = 1e-6
 DP_HESS_TOL = 1e-6
+
 
 
 def _x64(x):
@@ -60,13 +62,18 @@ def _x64(x):
 
 def _zs(rng, tree):
     """``geot_tpu``'s Rademacher draws for ``tree`` from the step key
-    ``rng`` (``optim/adahessian.py:43-47``, one sample)."""
-    key = jax.random.fold_in(jax.random.fold_in(rng, 0x5EC0), 0)
-    leaves, treedef = jax.tree_util.tree_flatten(tree)
-    keys = jax.random.split(key, len(leaves))
-    return _np_tree(treedef.unflatten([
-        (jax.random.randint(k, l.shape, 0, 2) * 2 - 1).astype(l.dtype)
-        for k, l in zip(keys, leaves)]))
+    ``rng`` (``optim/adahessian.py:43-47``, one sample), in one ``jax.jit``
+    (integer draws: the same bits as eager, which compiles each leaf's
+    shape on its own)."""
+    def draw(rng, tree):
+        key = jax.random.fold_in(jax.random.fold_in(rng, 0x5EC0), 0)
+        leaves, treedef = jax.tree_util.tree_flatten(tree)
+        keys = jax.random.split(key, len(leaves))
+        return treedef.unflatten([
+            (jax.random.randint(k, l.shape, 0, 2) * 2 - 1).astype(l.dtype)
+            for k, l in zip(keys, leaves)])
+
+    return _np_tree(jax.jit(draw)(rng, tree))
 
 
 def _hadam(opt_state):

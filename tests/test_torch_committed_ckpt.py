@@ -72,7 +72,7 @@ def test_port_validates_the_committed_checkpoint_as_geot_tpu_does():
     vcfg = {"num_classes": int(cfg.num_classes), "seed": int(cfg.seed)}
     tf = cfg.datatransforms.dict()
     t_loader = build_dataloader_from_cfg(int(cfg.batch_size_val),
-                                         cfg.dataset_l.dict(), tf,
+                                         cfg.dataset_l.dict(), None, tf,
                                          split="val", seed=int(cfg.seed))
     j_loader = jdata_build.build_dataloader_from_cfg(
         int(cfg.batch_size_val), cfg.dataset_l.dict(), None, tf,

@@ -69,7 +69,7 @@ def test_port_scores_the_committed_zoo_checkpoint_as_geot_tpu_does(model):
     vcfg = {"num_classes": int(cfg.num_classes), "seed": int(cfg.seed)}
     tf = cfg.datatransforms.dict()
     bs = int(cfg.batch_size_test)
-    t_loader = build_dataloader_from_cfg(bs, cfg.dataset_l.dict(), tf,
+    t_loader = build_dataloader_from_cfg(bs, cfg.dataset_l.dict(), None, tf,
                                          split="test", seed=int(cfg.seed))
     j_loader = jdata_build.build_dataloader_from_cfg(
         bs, cfg.dataset_l.dict(), None, tf, split="test",

@@ -50,9 +50,10 @@ def test_semi_pairs_refuses_an_empty_unlabelled_loader():
     """More unlabelled items per batch than the set holds: ``drop_last``
     leaves no batch, and the pairing says so instead of PEP 479's
     'generator raised StopIteration'."""
-    loader_l = DataLoader(TeethSegSemiLDataset("", N_POINTS, "train"), 2)
+    loader_l = DataLoader(TeethSegSemiLDataset("", N_POINTS, "train"), 2,
+                          drop_last=True)
     ds_u = TeethSegSemiUDataset("", N_POINTS, "train")
-    loader_u = DataLoader(ds_u, len(ds_u) + 1)
+    loader_u = DataLoader(ds_u, len(ds_u) + 1, drop_last=True)
     assert len(loader_u) == 0
     with pytest.raises(RuntimeError,
                        match="unlabeled train loader is empty"):

@@ -23,9 +23,8 @@ from geot_tpu_torch.engine.steps import make_semi_step, make_supervised_step
 
 from test_torch_semi_branches import (CFG, CONTRAST, SEG, batches,
                                       check_f64, jax_init, run_both)
-# one torch thread (the autouse fixture of test_torch_trainer.py)
-from test_torch_trainer import (_flat, _run, _run_dir,  # noqa: F401
-                                one_torch_thread)
+from test_torch_trainer import _flat, _run, _run_dir
+from torch_helpers import one_torch_thread  # noqa: F401
 
 DECAY = 0.9
 

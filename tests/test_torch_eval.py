@@ -42,6 +42,7 @@ from geot_tpu_torch.engine.steps import (make_confusion_step,  # noqa: E402
 from geot_tpu_torch.engine.train import cal_confusion  # noqa: E402
 
 from test_torch_model import N_POINTS, SMALL_ARGS, jax_small_model  # noqa: E402,E501
+from torch_helpers import one_torch_thread  # noqa: E402,F401
 
 TRAIN_ARGS = dict(SMALL_ARGS, drop_path_rate=0.0, head_dropout=0.0)
 CFG = dict(FLAGSHIP_SEMI_CFG, num_points=N_POINTS)
@@ -49,15 +50,6 @@ C = 17
 DS = {"common": {"NAME": "TeethSegSemiLDataset", "data_root": "",
                  "num_points": N_POINTS}}
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread: these shapes run no faster on more, and the
-    tier-1 run puts several test processes on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np_tree(tree):
@@ -78,7 +70,8 @@ def models():
 
 def _val_loaders(split="val"):
     tf = CFG["datatransforms"]
-    return (tdata_build.build_dataloader_from_cfg(2, DS, tf, split=split,
+    return (tdata_build.build_dataloader_from_cfg(2, DS, None, tf,
+                                                  split=split,
                                                   seed=CFG["seed"]),
             jdata_build.build_dataloader_from_cfg(2, DS, None, tf,
                                                   split=split,

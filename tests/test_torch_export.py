@@ -37,6 +37,7 @@ from geot_tpu_torch.engine import export as texport
 from geot_tpu_torch.engine import serve as tserve
 from geot_tpu_torch.engine.convert import params_from_jax
 from geot_tpu_torch.engine.predict import map_pred_to_fdi, predict_scan
+from torch_helpers import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEG = dict(NAME="PointTransformer_seg_T", trans_dim=48, depth=3, num_heads=4,
@@ -48,13 +49,6 @@ N, B = 128, 2
 # the port's float32 forward against flax's: relative to the logit scale
 JAX_LOGIT_TOL = 2e-5
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

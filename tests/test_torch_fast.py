@@ -39,6 +39,7 @@ from geot_tpu_torch.engine.steps import make_eval_step  # noqa: E402
 from geot_tpu_torch.ops import fps_stratified  # noqa: E402
 
 from test_torch_model import N_POINTS, SMALL_ARGS, jax_small_model  # noqa: E402,E501
+from torch_helpers import one_torch_thread  # noqa: E402,F401
 
 C = 17
 # the serving flags at the small width: a true-FPS prefix of 64 (the
@@ -46,15 +47,6 @@ C = 17
 FAST_ARGS = dict(SMALL_ARGS, fast_pyramid=64, fast_graph=True)
 VOTE_TF = FLAGSHIP_SEMI_CFG["datatransforms"]
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread: these shapes run no faster on more, and the
-    tier-1 run puts several test processes on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -70,11 +62,15 @@ def _port(args, variables):
 
 
 def _forward_both(args, variables, pts, cls):
-    """(logits, features) of both packages, as float32 numpy."""
+    """(logits, features) of both packages, as float32 numpy.
+    ``geot_tpu``'s float32 forward is compiled (eager, each operation
+    compiles on its own); its bfloat16 forward stays eager, the forward the
+    bfloat16 test's bars were measured against."""
     jmodel = jbuild({"NAME": "WholePartSeg", "segmentor_args": args})
     batch = {"pos": jnp.asarray(pts), "x": jnp.asarray(pts),
              "cls": jnp.asarray(cls)}
-    j_logit, _, _, j_feat = jmodel.apply(variables, batch)
+    apply = jmodel.apply if args.get("dtype") else jax.jit(jmodel.apply)
+    j_logit, _, _, j_feat = apply(variables, batch)
     with torch.no_grad():
         t = torch.from_numpy(pts)
         t_logit, _, _, t_feat = _port(args, variables)(
@@ -219,7 +215,7 @@ def test_validate_with_votes_equals_geot_tpu(weights, monkeypatch):
     ds = {"common": {"NAME": "TeethSegSemiLDataset", "data_root": "",
                      "num_points": N_POINTS}}
     cfg = {"num_classes": C, "seed": 1609}
-    t_loader = tdata_build.build_dataloader_from_cfg(2, ds, VOTE_TF,
+    t_loader = tdata_build.build_dataloader_from_cfg(2, ds, None, VOTE_TF,
                                                      split="val", seed=1609)
     j_loader = jdata_build.build_dataloader_from_cfg(2, ds, None, VOTE_TF,
                                                      split="val", seed=1609)

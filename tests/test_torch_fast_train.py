@@ -35,6 +35,9 @@ from geot_tpu_torch.optim import build_scheduler_from_cfg
 
 from test_torch_model import ROOT, jax_small_model
 from test_torch_train import CFG, TRAIN_ARGS, _adam_mu, _np_tree, _rel
+from torch_helpers import one_torch_thread  # noqa: F401
+
+
 
 C = 17
 FAST_TRAIN_ARGS = dict(TRAIN_ARGS, fast_pyramid=64, fast_graph=True)

@@ -19,6 +19,8 @@ from geot_tpu_torch.ops.fps import (BUCKET, CLUSTER_SIZES,
                                     card_bucket_max_active,
                                     card_cluster_size)
 
+from torch_helpers import dense_dtypes
+
 SMALL_ARGS = {"NAME": "PointTransformer_seg_T", "trans_dim": 48, "depth": 3,
               "num_heads": 4, "group_size": 8, "num_group": 32,
               "encoder_dims": 32, "nclasses": 17, "drop_path_rate": 0.1,
@@ -441,6 +443,86 @@ def _semi_batches(device):
             to_device(bu, semi_keys(bu), device))
 
 
+def test_bf16_train_step_on_the_card(cuda):
+    """One semi step with ``segmentor_args.dtype: bfloat16`` on the card
+    beside a float32 step from the same state and batch: its Dense layers
+    return bfloat16 (the float32 step's only float32), finite losses
+    within 5e-2 of the float32 ones and each off it, float32 parameters,
+    optimizer state
+    and statistics after it, and kernels 1 and 2 launched as often as in
+    float32 (they read float32 coordinates: handed a bfloat16 cloud they
+    raise)."""
+    from geot_tpu_torch.engine.state import SemiTrainState
+    from geot_tpu_torch.engine.steps import make_semi_step
+
+    cfg = _semi_cfg()
+    seg = dict(SMALL_ARGS, drop_path_rate=0.0, head_dropout=0.0)
+    bl, bu = _semi_batches(cuda)
+    states = {dt: SemiTrainState.create(cfg, seg_args=dict(seg, dtype=dt),
+                                        seed=2, device=cuda)
+              for dt in ("float32", "bfloat16")}
+    states["bfloat16"].load_state_dict(states["float32"].state_dict())
+    out = {}
+    for dt, state in states.items():
+        ops.reset_launches()
+        with dense_dtypes(state.model, state.teacher) as seen:
+            m = make_semi_step(cfg)(state, bl, bu, 1e-3, True)
+        torch.cuda.synchronize()
+        out[dt] = ({k: float(m[k]) for k in ("loss", "sup_loss",
+                                             "unsup_loss", "threed_loss")},
+                   dict(ops.LAUNCHES), seen)
+    (l32, n32, s32), (l16, n16, s16) = out["float32"], out["bfloat16"]
+    assert torch.bfloat16 in s16 and s32 == {torch.float32}, (s16, s32)
+    assert n16 == n32 and n16["fps_cluster"] > 0 and n16["knn_split"] > 0
+    for k, v in l16.items():
+        assert np.isfinite(v), k
+        assert abs(v - l32[k]) <= 5e-2 * abs(l32[k]), (k, v, l32[k])
+        assert v != l32[k], k
+    st = states["bfloat16"]
+    for mod in (st.model, st.teacher, st.t_predictor):
+        for k, v in mod.state_dict().items():
+            assert not v.is_floating_point() or v.dtype == torch.float32, k
+    for opt in (st.opt, st.t_opt):
+        for s in opt.state.values():
+            for k, v in s.items():
+                assert not torch.is_tensor(v) or not v.is_floating_point() \
+                    or v.dtype == torch.float32, k
+    pos = bl["pos"].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        ops.fps(pos, 64)
+    with pytest.raises(ValueError, match="float32"):
+        ops.knn_small_k(pos, pos, 3)
+
+
+def test_deterministic_seed_then_a_flagship_forward(cuda, monkeypatch):
+    """``set_random_seed(deterministic=True)`` and then the flagship's
+    forward at full width (16,000 points, D = 384): cuBLAS takes the
+    deterministic mode (the seed sets its workspace), and two forwards
+    are equal. The flags are set back after."""
+    from geot_tpu_torch import FLAGSHIP_SEG_ARGS
+    from geot_tpu_torch.core import set_random_seed
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", "")
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG")
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    try:
+        set_random_seed(0, deterministic=True)
+        model = load_model(FLAGSHIP_SEG_ARGS, seed=1, device=cuda)
+        pts = _cloud(4, (2, 16000, 3)).to(cuda)
+        with torch.no_grad():
+            a, b = model(pts)[0], model(pts)[0]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch.backends.cudnn.deterministic = before[2]
+        torch.backends.cudnn.benchmark = before[3]
+    assert a.shape == (2, 16000, 17) and bool(torch.isfinite(a).all())
+    assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_all_flags_step_on_the_card_matches_the_cpu(cuda, dtype):
     """Feature-space, identity and contrast losses, ``pseudo_refine`` and
@@ -778,8 +860,8 @@ def test_zoo_step_on_the_card_matches_the_cpu(cuda, name):
         recursive=True)
     cfg.update(ZOO_TINY[name] + ["dataset_l.common.num_points=256"])
     loader = build_dataloader_from_cfg(int(cfg.batch_size_l), cfg.dataset_l,
-                                       cfg.datatransforms, split="train",
-                                       seed=int(cfg.seed))
+                                       None, cfg.datatransforms,
+                                       split="train", seed=int(cfg.seed))
     loader.set_epoch(1)
     batch = next(iter(loader))
     res = {}

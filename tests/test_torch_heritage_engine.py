@@ -41,9 +41,11 @@ from geot_tpu_torch.engine.checkpoint import ckpt_path
 
 from test_torch_heritage_data import write_txt_tree
 from test_torch_heritage_models import MODELS
+from torch_helpers import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-12
+
 
 
 # --- metrics ------------------------------------------------------------------

@@ -42,6 +42,7 @@ from geot_tpu_torch.optim import build_scheduler_from_cfg
 
 from test_torch_zoo_models import GivenMask, _np, _rel, jax_dropout_mask
 from test_torch_zoo_train import _adam_mu
+from torch_helpers import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_PTS = 256
@@ -94,6 +95,7 @@ NAMES = sorted(MODELS)
 EVAL_RTOL = 1e-4
 STEP_LOSS_RTOL = 1e-6
 STEP_GRAD_TOL = 1e-6
+
 
 
 def heritage_cfg(pkg, name, *extra):

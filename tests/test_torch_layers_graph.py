@@ -27,7 +27,8 @@ from geot_tpu_torch.models import layers as L
 
 from test_torch_layers_surface import (  # noqa: F401 (the fixtures)
     B, RTOL64, _close, _cloud, _grads64, _japply, _t, draw_variables,
-    one_torch_thread, port, x64)
+    port, x64)
+from torch_helpers import one_torch_thread  # noqa: F401
 
 
 # --- knn and subsample ------------------------------------------------------

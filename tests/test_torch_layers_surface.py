@@ -33,18 +33,12 @@ from geot_tpu_torch.engine.convert import params_from_jax
 from geot_tpu_torch.models import layers as L
 from geot_tpu_torch.models.layers import factories as tfactories
 from geot_tpu_torch.models.layers.common import Dense
+from torch_helpers import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 RTOL64 = 1e-10
 B = 2
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -32,6 +32,9 @@ from geot_tpu_torch.losses import inst_loss as tinst
 
 from test_torch_semi_branches import (check_f32, check_f64,  # noqa: F401
                                       init, run_both, x64)
+from torch_helpers import one_torch_thread  # noqa: F401
+
+
 
 C = 17
 

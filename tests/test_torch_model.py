@@ -1,6 +1,7 @@
 """The port's flagship forward against ``geot_tpu``'s, weights carried
 across by ``params_from_jax``; the copies the port keeps of numpy-only
 ``geot_tpu`` code; the port's import and device rules."""
+import copy
 import os
 import subprocess
 import sys
@@ -38,13 +39,25 @@ def _to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+# jax_small_model's variables by seed: computed once a process
+_SMALL_VARIABLES = {}
+
+
 def jax_small_model(seed=0):
     """JAX WholePartSeg at the small config, with non-trivial BN running
-    stats and T_linear, as a numpy tree."""
+    stats and T_linear, as a numpy tree (a copy of the seed's variables,
+    which one ``jax.jit`` of ``init`` computes once a process: eager
+    ``init`` compiles each operation on its own, ~15 s)."""
     model = jbuild({"NAME": "WholePartSeg", "segmentor_args": SMALL_ARGS})
+    if seed not in _SMALL_VARIABLES:
+        _SMALL_VARIABLES[seed] = _small_variables(model, seed)
+    return model, copy.deepcopy(_SMALL_VARIABLES[seed])
+
+
+def _small_variables(model, seed):
     pos = jnp.zeros((1, N_POINTS, 3))
     key = jax.random.PRNGKey(seed)
-    variables = _to_numpy(model.init(
+    variables = _to_numpy(jax.jit(model.init)(
         {"params": key, "dropout": jax.random.fold_in(key, 1)},
         {"pos": pos, "x": pos, "cls": jnp.zeros((1, 1), jnp.int32)}))
     rng = np.random.default_rng(seed)
@@ -62,7 +75,7 @@ def jax_small_model(seed=0):
     seg = variables["params"]["segmentor"]
     seg["T_linear"] = rng.standard_normal(seg["T_linear"].shape).astype(
         np.float32) * 0.1
-    return model, variables
+    return variables
 
 
 def port_model(variables):

@@ -16,6 +16,8 @@ Inputs from a numpy seed at a small size (2 clouds of 128 points, width
 output, as ``tests/test_torch_heritage_models.py``. At 128 points every
 JAX neighbour search is exact.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +34,7 @@ from geot_tpu_torch.core.config import MODELS, build_model_from_cfg
 from geot_tpu_torch.engine.convert import params_from_jax, t_params_from_jax
 from geot_tpu_torch.models.layers.group_embed import (GroupTokenizer,
                                                       SubsampleGroup)
+from torch_helpers import one_torch_thread  # noqa: F401
 
 B, N = 2, 128
 EVAL_RTOL = 1e-4
@@ -49,13 +52,6 @@ ENC = {"NAME": "PointNet2Encoder", "in_channels": 3, "width": 8,
        "blocks": [1, 1], "aggr_args": {"feature_type": "dp_fj"}}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 
 @pytest.fixture(scope="module")
 def clouds():
@@ -63,6 +59,18 @@ def clouds():
     pos = rng.uniform(-1.0, 1.0, (B, N, 3)).astype(np.float32)
     x = rng.standard_normal((B, N, 3)).astype(np.float32)
     return pos, x
+
+
+def japply(jmodel, variables, *args, **kwargs):
+    """``jmodel.apply`` compiled, as ``geot_tpu``'s steps run it (eager,
+    each operation compiles on its own); keyword arguments that hold no
+    array are static."""
+    static = {k: v for k, v in kwargs.items()
+              if not any(isinstance(leaf, (np.ndarray, jax.Array))
+                         for leaf in jax.tree_util.tree_leaves(v))}
+    dynamic = {k: v for k, v in kwargs.items() if k not in static}
+    return jax.jit(functools.partial(jmodel.apply, **static))(
+        variables, *args, **dynamic)
 
 
 def draw_variables(jmodel, *args, seed=3, **kwargs):
@@ -132,7 +140,7 @@ def test_seg_variant_matches_geot_tpu(clouds, name, fast):
     batch = {"pos": pos, "x": pos, "cls": np.array([[0], [1]], np.int32)}
     jmodel = jbuild(cfg)
     variables = draw_variables(jmodel, _j(batch))
-    jl, jc, js, jf = jmodel.apply(_j(variables), _j(batch))
+    jl, jc, js, jf = japply(jmodel, _j(variables), _j(batch))
     assert jc is None and js is None
     model = port(cfg, variables)
     with torch.no_grad():
@@ -166,7 +174,7 @@ def test_whole_part_seg_ntm_stacks_the_fixmatch_batches(clouds):
                 for k, v in d.items()}
 
     for kw in ({"u0": u0, "fixmatch": True}, {"u0": u0}, {}):
-        want = jmodel.apply(_j(variables), _j(p0),
+        want = japply(jmodel, _j(variables), _j(p0),
                             **{k: _j(v) if k == "u0" else v
                                for k, v in kw.items()})
         with torch.no_grad():
@@ -176,7 +184,7 @@ def test_whole_part_seg_ntm_stacks_the_fixmatch_batches(clouds):
         assert _rel(got[0], want[0]) <= EVAL_RTOL
         assert _rel(got[2], want[2]) == 0.0          # sigma
         assert got[0].shape[0] == (3 if kw.get("fixmatch") else 1)
-    want = jmodel.apply(_j(variables), _j(u0), if_teacher=True)
+    want = japply(jmodel, _j(variables), _j(u0), if_teacher=True)
     with torch.no_grad():
         got = model(tt(u0), if_teacher=True)
     assert _rel(got[0], want[0]) <= EVAL_RTOL
@@ -217,7 +225,7 @@ def test_cls_token_encoder_matches_geot_tpu(clouds, name, group):
     jmodel = jbuild(cfg)
     variables = draw_variables(jmodel, jnp.asarray(pos))
     assert variables["params"]["cls_token"].shape == (1, 1, 48)
-    want = jmodel.apply(_j(variables), jnp.asarray(pos))
+    want = japply(jmodel, _j(variables), jnp.asarray(pos))
     model = port(cfg, variables)
     with torch.no_grad():
         got = model(_t(pos))
@@ -244,7 +252,7 @@ def test_sig_t_and_ins_t_match_geot_tpu():
     cfg = {"NAME": "sig_t", "nclasses": 17}
     jmodel = jbuild(cfg)
     variables = draw_variables(jmodel, jnp.asarray(probs))
-    want = jmodel.apply(_j(variables), jnp.asarray(probs))
+    want = japply(jmodel, _j(variables), jnp.asarray(probs))
     with torch.no_grad():
         got = port(cfg, variables)(_t(probs))
     assert got.shape == (32, 17, 17)
@@ -255,7 +263,7 @@ def test_sig_t_and_ins_t_match_geot_tpu():
     icfg = {"NAME": "Ins_T", "T_args": cfg}
     jins = jbuild(icfg)
     ivars = draw_variables(jins, jnp.asarray(probs))
-    want = jins.apply(_j(ivars), jnp.asarray(probs))
+    want = japply(jins, _j(ivars), jnp.asarray(probs))
     with torch.no_grad():
         got = port(icfg, ivars["params"], t_params_from_jax)(_t(probs))
     assert _rel(got, want) <= EVAL_RTOL
@@ -271,7 +279,7 @@ def test_multi_seg_head_pads_and_stacks(clouds):
            "num_parts": [2, 3, 4, 2]}
     jmodel = jbuild(cfg)
     variables = draw_variables(jmodel, jnp.asarray(f))
-    want = np.asarray(jmodel.apply(_j(variables), jnp.asarray(f)))
+    want = np.asarray(japply(jmodel, _j(variables), jnp.asarray(f)))
     with torch.no_grad():
         got = port(cfg, variables)(_t(f)).numpy()
     assert got.shape == want.shape == (4, B, N, 4)
@@ -299,7 +307,7 @@ def test_variable_and_distill_base_seg_match_geot_tpu(clouds, name):
     variables = draw_variables(jmodel, _j(batch))
     assert variables["params"]["inner"]["head"]["fc0"]["kernel"].shape[-1] \
         == 24
-    want = jmodel.apply(_j(variables), _j(batch))
+    want = japply(jmodel, _j(variables), _j(batch))
     model = port(cfg, variables)
     with torch.no_grad():
         got = model({k: _t(v) for k, v in batch.items()})
@@ -319,7 +327,7 @@ def test_point_patch_embed_matches_geot_tpu(clouds, with_x):
     args = (jnp.asarray(pos),) + ((jnp.asarray(x),) if with_x else ())
     jmodel = jbuild(cfg)
     variables = draw_variables(jmodel, *args)
-    want = jmodel.apply(_j(variables), *args)
+    want = japply(jmodel, _j(variables), *args)
     model = port(dict(cfg, in_channels=3 if with_x else 0), variables)
     with torch.no_grad():
         got = model(_t(pos), _t(x) if with_x else None)
@@ -339,7 +347,7 @@ def test_p3embed_matches_geot_tpu(clouds, with_x):
     jmodel = jbuild(cfg)
     variables = draw_variables(jmodel, _j(batch))
     assert set(variables["params"]) == {"stage_0", "stage_1"}
-    want = jmodel.apply(_j(variables), _j(batch))
+    want = japply(jmodel, _j(variables), _j(batch))
     with torch.no_grad():
         got = port(cfg, variables)({k: _t(v) for k, v in batch.items()})
     assert got[0].shape == (B, 32, 16) and got[1].shape == (B, 32, 3)

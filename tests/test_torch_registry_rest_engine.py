@@ -46,6 +46,7 @@ from test_supervised_zoo import TINY
 from test_torch_registry_rest import draw_variables
 from test_torch_zoo_models import NO_DROPOUT, _np, _rel, zoo_batches
 from test_torch_zoo_train import _adam_mu
+from torch_helpers import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEP_LOSS_RTOL = 1e-6
@@ -86,13 +87,6 @@ CASES = {
 }
 N_CLS = 128
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def case_cfg(pkg, case):

@@ -18,7 +18,6 @@ passes, the train state built. Small widths
 import os
 
 import pytest
-import torch
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +40,7 @@ from test_supervised_zoo import TINY
 from test_torch_heritage_models import heritage_batch
 from test_torch_train import CFG, TRAIN_ARGS, batches  # noqa: F401
 from test_torch_zoo_models import zoo_batches
+from torch_helpers import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEG = "model.segmentor_args.NAME=PointTransformer_seg"
@@ -115,13 +115,6 @@ COMBOS = {
         None, False),
 }
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def combo_cfg(pkg, combo):

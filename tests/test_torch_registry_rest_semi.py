@@ -15,7 +15,6 @@ BatchNorm statistics and ``T_linear``, as ``tests/test_torch_model.py``'s
 """
 import numpy as np
 import pytest
-import torch
 
 import jax
 import jax.numpy as jnp
@@ -35,18 +34,12 @@ from geot_tpu_torch.optim import build_scheduler_from_cfg
 
 from test_torch_train import (CFG, TRAIN_ARGS, C, _adam_mu, _jbatch, _np_tree,
                               _rel, _tbatch, batches)  # noqa: F401
+from torch_helpers import one_torch_thread  # noqa: F401
 
 STEP_LOSS_RTOL = 1e-6
 STEP_GRAD_TOL = 1e-6
 NTM = "WholePartSeg_ntm"
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from geot_tpu_torch.engine import train as ttrain  # noqa: E402
 from geot_tpu_torch.engine.checkpoint import save_checkpoint  # noqa: E402
 from geot_tpu_torch.engine.convert import semi_state_from_jax  # noqa: E402
 from geot_tpu_torch.engine.state import SemiTrainState  # noqa: E402
+from torch_helpers import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(ROOT, "cfgs", "tooth_semi", "smoke.yaml")
@@ -36,15 +37,6 @@ LOSSES = ("train_loss", "train_loss_l", "train_loss_u", "insT_threed_loss")
 LOSS_RTOL = 1e-3
 METRIC_ATOL = 5e-3
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread: these shapes run no faster on more, and the
-    tier-1 run puts several test processes on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _scalars(run_dir, step):

@@ -37,6 +37,9 @@ from geot_tpu_torch.engine.state import SemiTrainState
 from geot_tpu_torch.engine.steps import make_semi_step
 
 from test_semi_branches import SEG as JSEG
+from torch_helpers import one_torch_thread  # noqa: F401
+
+
 
 SEG = dict(JSEG, drop_path_rate=0.0, head_dropout=0.0)
 N = 128

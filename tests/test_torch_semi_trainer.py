@@ -20,9 +20,8 @@ from geot_tpu_torch.optim import build_scheduler_from_cfg
 
 from test_torch_semi_branches import CFG, batches
 from test_torch_ema import _state, _tensors
-# one torch thread (the autouse fixture of test_torch_trainer.py)
-from test_torch_trainer import (SMOKE, _run, _run_dir,  # noqa: F401
-                                one_torch_thread)
+from test_torch_trainer import SMOKE, _run, _run_dir
+from torch_helpers import one_torch_thread  # noqa: F401
 
 EVERY_FLAG = ["use_feat_loss=True", "feat_k=4", "use_identity_loss=True",
               "use_contrastive=True", "contrast_threshold=0.05",

@@ -54,6 +54,9 @@ from geot_tpu_torch.optim import (build_optimizer_from_cfg,
                                   set_learning_rate)
 
 from test_torch_model import N_POINTS, ROOT, SMALL_ARGS, jax_small_model
+from torch_helpers import one_torch_thread  # noqa: F401
+
+
 
 # dropout and stochastic depth off: masks cannot match across frameworks
 TRAIN_ARGS = dict(SMALL_ARGS, drop_path_rate=0.0, head_dropout=0.0)
@@ -173,10 +176,14 @@ def test_fixmatch_forward_matches_jax(batches):
     bl, bu = batches[0]
     u_keys = ("pos_s", "x_s", "cls_s", "pos_w", "x_w", "cls_w")
     T = np.eye(C, dtype=np.float32) * 0.8 + 0.2 / C
-    (j_logit, j_corr, _, _), mutated = jmodel.apply(
+    # geot_tpu's forwards compiled, as its steps are (eager, each operation
+    # compiles on its own: ~2 min of this test under the tier-1 load)
+    apply = jax.jit(jmodel.apply, static_argnames=(
+        "fixmatch", "training", "mutable", "if_teacher"))
+    (j_logit, j_corr, _, _), mutated = apply(
         variables, _jbatch(bl, ("pos", "x", "cls")),
         u0={**_jbatch(bu, u_keys), "T": jnp.asarray(T)}, fixmatch=True,
-        training=True, mutable=["batch_stats"])
+        training=True, mutable=("batch_stats",))
     t_logit, t_corr, _, _ = tmodel(_tbatch(bl, ("pos", "x", "cls")),
                                    u0={**_tbatch(bu, u_keys), "T": _t(T)},
                                    fixmatch=True)
@@ -209,11 +216,11 @@ def test_fixmatch_forward_matches_jax(batches):
         e_logit = _port_model(variables).eval()(
             _tbatch(bl, ("pos", "x", "cls")), u0=_tbatch(bu, u_keys),
             fixmatch=True)[0]
-    j_e = jmodel.apply(variables, _jbatch(bl, ("pos", "x", "cls")),
-                       u0=_jbatch(bu, u_keys), fixmatch=True)[0]
+    j_e = apply(variables, _jbatch(bl, ("pos", "x", "cls")),
+                u0=_jbatch(bu, u_keys), fixmatch=True)[0]
     np.testing.assert_allclose(e_logit.numpy(), np.asarray(j_e), rtol=0,
                                atol=1e-5)
-    j_t = jmodel.apply(variables, _jbatch(bu, u_keys), if_teacher=True)[0]
+    j_t = apply(variables, _jbatch(bu, u_keys), if_teacher=True)[0]
     with torch.no_grad():
         t_t = _port_model(variables).eval()(_tbatch(bu, u_keys),
                                             if_teacher=True)[0]

@@ -27,6 +27,7 @@ from geot_tpu_torch.engine.state import SemiTrainState
 from geot_tpu_torch.engine.steps import make_semi_step
 
 from test_torch_model import N_POINTS, SMALL_ARGS
+from torch_helpers import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(ROOT, "cfgs", "tooth_semi", "smoke.yaml")
@@ -34,15 +35,6 @@ CFG = dict(FLAGSHIP_SEMI_CFG, num_points=N_POINTS)
 # tags whose values are times, not results
 _TIMES = ("epoch_seconds", "data_seconds")
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread: these shapes run no faster on more, and the
-    tier-1 run puts several test processes on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _stepped_state(seed):
@@ -334,9 +326,10 @@ def _ported(opt, key):
     _ported("task=partseg", "task"), _ported("task=cls", "task"),
     _ported("model.generator_args={}", "model.generator_args"),
     ("model.segmentor_args.depth=2", None),
-    ("model.segmentor_args.dtype=bfloat16", "model.segmentor_args.dtype"),
-    ("model_t.segmentor_args.dtype=bfloat16",
-     "model_t.segmentor_args.dtype"),
+    _ported("model.segmentor_args.dtype=bfloat16",
+            "model.segmentor_args.dtype"),
+    _ported("model_t.segmentor_args.dtype=bfloat16",
+            "model_t.segmentor_args.dtype"),
     _ported("use_contrastive=True", "use_contrastive"),
     _ported("pseudo_refine=True", "pseudo_refine"),
     _ported("threed_anchors=64", "threed_anchors"),
@@ -352,8 +345,8 @@ def test_unported_switches_are_refused(opt, key):
     """Each switch whose branch the port lacks is refused, naming its key;
     the cases with no key (votes, a teacher of another topology, the semi
     step's branches, ``ema_eval``, the pretraining graft and stage, the
-    cosine schedule, the heritage tasks) are ported now and pass both
-    checks;
+    cosine schedule, the heritage tasks, bfloat16 training) are ported now
+    and pass both checks;
     ``tests/test_torch_fast_train.py``, ``tests/test_torch_semi_trainer.py``,
     ``tests/test_torch_ema.py`` and ``tests/test_torch_pretrain.py`` train
     with them."""
@@ -465,7 +458,8 @@ def test_every_module_imports_without_jax_yaml_or_geot_tpu(tmp_path):
         assert {{"geot_tpu_torch.data." + m for m in (
             "data_util", "dataset_base", "sample_pc", "transforms")}} | {{
             "geot_tpu_torch.losses.cluster_contrast",
-            "geot_tpu_torch.utils.vis2d"}} <= set(names), names
+            "geot_tpu_torch.utils.vis2d",
+            "geot_tpu_torch.core.registry"}} <= set(names), names
         from geot_tpu_torch.engine.train import parse_and_run
         res = parse_and_run(["--cfg", {SMOKE!r}, "epochs=1",
                              "root_dir={tmp_path}", "device=cpu",

@@ -48,6 +48,7 @@ from test_torch_io import write_teeth3ds  # noqa: E402
 from test_torch_resume_jax import (LOSS_RTOL, LOSSES,  # noqa: E402
                                    METRIC_ATOL, OPTS, SMOKE, _only_dir,
                                    _scalars)
+from torch_helpers import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIEWGEN = os.path.join(ROOT, "cfgs", "tooth_pretrain", "viewgen.yaml")
@@ -59,13 +60,6 @@ VIEWGEN = os.path.join(ROOT, "cfgs", "tooth_pretrain", "viewgen.yaml")
 PRETRAIN_LOSS_RTOL = 1e-5
 PRETRAIN_WEIGHT_LR = 0.05
 
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _run(root, *opts):
@@ -148,7 +142,7 @@ def test_uncached_validation_gives_the_cached_metrics():
     cfg.load(SMOKE, recursive=True)
     model = build_model_from_cfg(cfg.model).eval()
     loader = tdata_build.build_dataloader_from_cfg(
-        2, cfg.dataset_l, cfg.datatransforms, split="val")
+        2, cfg.dataset_l, None, cfg.datatransforms, split="val")
     loader.dataset.file_list = loader.dataset.file_list[:4]
     step = make_eval_step()
     plain = validate(step, model, loader, dict(cfg, eval_device_cache=False))
@@ -351,7 +345,6 @@ def test_two_rank_pretraining_equals_one_process(tmp_path):
 
 @pytest.mark.parametrize("opt,key", [
     ("tp=2", "tp"), ("sp=2", "sp"), ("fsdp=True", "fsdp"),
-    ("model.segmentor_args.dtype=bfloat16", "model.segmentor_args.dtype"),
     ("dataset_l.common.NAME=S3DIS", "dataset_l.common.NAME"),
     ("model.NAME=VariableSeg", "model.NAME")])
 def test_what_is_not_ported_is_still_refused(opt, key, tmp_path):
@@ -365,7 +358,8 @@ def test_what_is_not_ported_is_still_refused(opt, key, tmp_path):
 @pytest.mark.parametrize("opt", [
     "optimizer.NAME=adahessian", "optimizer.NAME=lookahead_sgd",
     "optimizer.layer_decay=0.75", "step_per_update=4", "profile_epoch=1",
-    "eval_device_cache=False", "wandb.use_wandb=True"])
+    "eval_device_cache=False", "wandb.use_wandb=True",
+    "model.segmentor_args.dtype=bfloat16"])
 def test_ported_switches_are_taken(opt):
     cfg = EasyConfig()
     cfg.load(SMOKE, recursive=True)

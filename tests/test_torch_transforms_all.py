@@ -222,11 +222,10 @@ def test_loader_mixes_batches_like_geot_tpu_with_any_worker_count(name):
                for a, b in zip(ref, plain))
     for w in (1, 4):
         got = tbuild.build_dataloader_from_cfg(
-            4, ds, MIX_CFG, split="train", seed=3,
-            dataloader_cfg={"num_workers": w})
+            4, ds, {"num_workers": w}, MIX_CFG, split="train", seed=3)
         assert [type(m).__name__ for m in got.batch_mixers] == ["Cutmix"]
         got.set_epoch(2)
         assert_batches_equal(list(got), ref)
     # no mixer on a split without Cutmix
     assert tbuild.build_dataloader_from_cfg(
-        4, ds, MIX_CFG, split="test").batch_mixers == []
+        4, ds, None, MIX_CFG, split="test").batch_mixers == []

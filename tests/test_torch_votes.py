@@ -22,6 +22,7 @@ from geot_tpu_torch.models.backbone.pointnet2_votes import (
 
 from test_torch_layers_surface import (_close, _grads64, _japply, _rel, _t,
                                        draw_variables, port)
+from torch_helpers import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 RTOL64 = 1e-10
@@ -30,13 +31,6 @@ NAMES = ["PointnetSAModule", "PointnetSAModuleMSG", "PointnetFPModule",
          "PointnetSAModuleVotes_nofps", "PointnetSAModuleVotes_nogrouping",
          "PointnetSAModuleMSGVotes", "PointnetLFPModuleMSG"]
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

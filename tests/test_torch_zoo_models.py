@@ -12,6 +12,9 @@ every JAX neighbour search is exact ``lax.top_k``, as the port's always is.
 Dropout is off where the config can turn it off; PointMLP's head dropout
 (a fixed 0.5) takes in the port the mask that ``geot_tpu`` drew.
 """
+import copy
+import functools
+import hashlib
 import os
 
 import numpy as np
@@ -37,6 +40,7 @@ from geot_tpu_torch.models.layers import (LocalAggregation,
 from geot_tpu_torch.ops import ball_query
 
 from test_supervised_zoo import TINY
+from torch_helpers import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_PTS = 256
@@ -50,6 +54,7 @@ NO_DROPOUT = {
                          "model.segmentor_args.head_dropout=0.0"],
 }
 FEATURE_TYPES = ("dp_fj", "dp_fj_df", "pi_dp_fj_df", "dp_df")
+
 
 
 def _np(tree):
@@ -77,7 +82,7 @@ def zoo_batches(cfg, n=2, epoch=1):
     ds = dict(cfg.dataset_l)
     ds["common"] = dict(ds["common"], num_points=N_PTS)
     loader = tdata_build.build_dataloader_from_cfg(
-        int(cfg.batch_size_l), ds, cfg.datatransforms, split="train",
+        int(cfg.batch_size_l), ds, None, cfg.datatransforms, split="train",
         seed=int(cfg.seed))
     loader.set_epoch(epoch)
     out = []
@@ -92,15 +97,29 @@ def as_dtype(batch, dt):
             for k, v in batch.items()}
 
 
+# jax_model's variables by (config, seed, batch): computed once a process
+_VARIABLES = {}
+
+
 def jax_model(name, batch, seed=0):
     """The JAX model of the config at the small widths and its variables
-    (numpy, float32) with jittered BatchNorm statistics."""
+    (numpy, float32) with jittered BatchNorm statistics: a copy of what one
+    ``jax.jit`` of ``init`` gives, computed once a process for the config,
+    seed and batch (eager ``init`` compiles each operation on its own)."""
     jmodel = jbuild(zoo_cfg("jax", name).model)
+    key = (name, seed, tuple((k, v.shape, v.dtype.str,
+                              hashlib.sha1(v.tobytes()).hexdigest())
+                             for k, v in sorted(batch.items())))
+    if key not in _VARIABLES:
+        _VARIABLES[key] = _init_variables(jmodel, batch, seed)
+    return jmodel, copy.deepcopy(_VARIABLES[key])
+
+
+def _init_variables(jmodel, batch, seed):
     key = jax.random.PRNGKey(seed)
-    variables = _np(jmodel.init({"params": key,
-                                 "dropout": jax.random.fold_in(key, 1)},
-                                {k: jnp.asarray(v) for k, v in
-                                 batch.items()}))
+    variables = _np(jax.jit(jmodel.init)(
+        {"params": key, "dropout": jax.random.fold_in(key, 1)},
+        {k: jnp.asarray(v) for k, v in batch.items()}))
     rng = np.random.default_rng(seed)
 
     def jitter(path, a):
@@ -113,7 +132,7 @@ def jax_model(name, batch, seed=0):
 
     variables["batch_stats"] = jax.tree_util.tree_map_with_path(
         jitter, variables["batch_stats"])
-    return jmodel, variables
+    return variables
 
 
 def port_model(name, variables, dt=np.float32):
@@ -140,10 +159,10 @@ def jax_dropout_mask(jmodel, variables, jbatch, rng):
     """The keep mask of PointMLP's head dropout in ``geot_tpu``'s train
     forward under dropout key ``rng``. A ReLU output that is 0 reads as
     dropped: either way the product and the gradient through it are 0."""
-    _, out = jmodel.apply(variables, jbatch, training=True,
-                          rngs={"dropout": rng},
-                          mutable=["batch_stats", "intermediates"],
-                          capture_intermediates=True)
+    _, out = jax.jit(functools.partial(
+        jmodel.apply, training=True, mutable=["batch_stats", "intermediates"],
+        capture_intermediates=True))(variables, jbatch,
+                                     rngs={"dropout": rng})
     (drop,) = out["intermediates"]["Dropout_0"]["__call__"]
     return np.asarray(drop) != 0
 
@@ -294,7 +313,8 @@ def test_params_from_jax_covers_every_port_tensor(name):
 def _forward_both(name, dt, train):
     """The config's forward in both packages from the same weights and
     batch: (port logits, JAX logits, port state_dict, JAX's updated
-    state_dict or None)."""
+    state_dict or None). ``geot_tpu``'s forward is compiled, as its steps
+    are (eager, each operation compiles on its own)."""
     batch = as_dtype(zoo_batches(zoo_cfg("torch", name), 1)[0], dt)
     jmodel, variables = jax_model(name, zoo_batches(zoo_cfg("torch", name),
                                                     1)[0])
@@ -306,14 +326,14 @@ def _forward_both(name, dt, train):
     if train:
         rng = jax.random.PRNGKey(7)
         use_jax_dropout(name, tmodel, jmodel, jvars, jbatch, rng)
-        out, upd = jmodel.apply(jvars, jbatch, training=True,
-                                rngs={"dropout": rng},
-                                mutable=["batch_stats"])
+        out, upd = jax.jit(functools.partial(
+            jmodel.apply, training=True, mutable=["batch_stats"]))(
+            jvars, jbatch, rngs={"dropout": rng})
         new = params_from_jax({"params": variables["params"],
                                "batch_stats": _np(upd["batch_stats"])})
         tmodel.train()
     else:
-        out = jmodel.apply(jvars, jbatch)
+        out = jax.jit(jmodel.apply)(jvars, jbatch)
         tmodel.eval()
     with torch.no_grad():
         got = tmodel(tbatch, generator=torch.Generator().manual_seed(0))

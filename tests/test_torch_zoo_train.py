@@ -39,16 +39,8 @@ from geot_tpu_torch.optim import build_scheduler_from_cfg
 from test_torch_zoo_models import (CONFIGS, N_PTS, NO_DROPOUT, ROOT, TINY,
                                    _cast, _np, _rel, as_dtype, jax_model,
                                    use_jax_dropout, zoo_batches, zoo_cfg)
+from torch_helpers import one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread: these shapes run no faster on more, and the
-    tier-1 run puts several test processes on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _adam_mu(opt_state):
